@@ -1,0 +1,149 @@
+"""Triangle mesh rasterization, forward: project, bin, shade.
+
+Counterpart of dgmesh_tpu/ops/mesh_raster.py with ``use_pallas=True`` (every
+shipped config; replacing nvdiffrast in the reference, utils/renderer.py:33-121):
+faces are projected (``_face_screen``), binned per tile with a 1 px bbox pad
+and an optional backface cull (``rasterize``), and shaded per tile in the
+CUDA kernel (ops/mesh_raster_kernels.py): z-buffer, perspective-correct
+colour, hard coverage, winner face id and the SoftRas soft silhouette.
+
+Camera convention: an OpenGL modelview ``pose`` (w2c, camera looking down
+−z) and projection; pixel y grows downward; pixel centres are +0.5.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .binning import bin_rects, quantize_depth, rect_from_bbox
+from .mesh_raster_kernels import shade_tiles
+from .splat import untile
+
+
+class MeshRasterConfig(NamedTuple):
+    width: int
+    height: int
+    tile_h: int = 16
+    tile_w: int = 16
+    max_per_tile: int = 256
+    max_dup: int = 1 << 21
+    sigma: float = 1.0        # soft-silhouette bandwidth in pixels
+    eps_w: float = 1e-4       # near-plane guard
+    # drop back-facing triangles before binning (valid for closed meshes with
+    # consistent outward winding, which marching_tets produces)
+    cull_backface: bool = False
+
+    @property
+    def tiles_x(self):
+        return -(-self.width // self.tile_w)
+
+    @property
+    def tiles_y(self):
+        return -(-self.height // self.tile_h)
+
+    @property
+    def num_tiles(self):
+        return self.tiles_x * self.tiles_y
+
+
+def _to_screen(clip: torch.Tensor, cfg: MeshRasterConfig):
+    """GL clip coordinates (...,4) → screen xy (...,2), w, ok, safe w."""
+    w = clip[..., 3]
+    ok = w > cfg.eps_w
+    w_safe = torch.where(ok, w, 1.0)
+    ndc = clip[..., :3] / w_safe[..., None]
+    px = (ndc[..., 0] * 0.5 + 0.5) * cfg.width
+    py = (0.5 - ndc[..., 1] * 0.5) * cfg.height    # y down (image convention)
+    return torch.stack([px, py], -1), w, ok, w_safe
+
+
+def project_verts(verts, pose, proj, cfg: MeshRasterConfig):
+    """world verts (V,3) → screen xy (V,2), clip w (V,), ok mask."""
+    hom = torch.cat([verts, torch.ones_like(verts[:, :1])], dim=-1)
+    scr, w, ok, _ = _to_screen((hom @ pose.T) @ proj.T, cfg)
+    return scr, w, ok
+
+
+def _face_screen(verts, faces, face_valid, pose, proj, cfg: MeshRasterConfig):
+    """Per-face screen triangles (F,3,2), inv_w (F,3), valid (F,).
+
+    Projects the gathered corners with ``proj @ pose`` in that association,
+    as the JAX version does."""
+    tri_w = verts[faces]                               # (F,3,3)
+    hom = torch.cat([tri_w, torch.ones_like(tri_w[..., :1])], dim=-1)
+    tri, _, ok, w_safe = _to_screen(hom @ (proj @ pose).T, cfg)
+    return tri, 1.0 / w_safe, face_valid & ok.all(dim=1)
+
+
+def rasterize(verts, faces, face_valid, pose, proj, cfg: MeshRasterConfig):
+    """Bin the faces per tile.  Returns the bins and the packed per-face
+    shading rows (F,9): screen triangle | inv_w."""
+    tri, inv_w, fvalid = _face_screen(verts, faces, face_valid, pose, proj, cfg)
+    if cfg.cull_backface:
+        # screen-space signed area (y down): front faces of a closed,
+        # outward-wound mesh are negative
+        e1 = tri[:, 1] - tri[:, 0]
+        e2 = tri[:, 2] - tri[:, 0]
+        fvalid = fvalid & (e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0] < 0.0)
+    pad = 1.0  # 1 px guard so the soft silhouette's support is not clipped
+    x0 = torch.floor(tri[..., 0].amin(1) - pad)
+    x1 = torch.ceil(tri[..., 0].amax(1) + pad)
+    y0 = torch.floor(tri[..., 1].amin(1) - pad)
+    y1 = torch.ceil(tri[..., 1].amax(1) + pad)
+    tx0, ty0, nx, ny = rect_from_bbox(x0, y0, x1, y1, tile_w=cfg.tile_w,
+                                      tile_h=cfg.tile_h, tiles_x=cfg.tiles_x,
+                                      tiles_y=cfg.tiles_y)
+    depth = 1.0 / torch.clamp_min(inv_w.mean(dim=1), 1e-6)
+    bins = bin_rects(tx0, ty0, nx, ny, quantize_depth(depth, fvalid), fvalid,
+                     tiles_x=cfg.tiles_x, tiles_y=cfg.tiles_y,
+                     max_dup=cfg.max_dup, max_per_tile=cfg.max_per_tile)
+    pack = torch.cat([tri.reshape(-1, 6), inv_w], dim=-1)
+    return dict(bins=bins, tri=tri, inv_w=inv_w, pack=pack, fvalid=fvalid)
+
+
+def tile_attrs(rast, faces, vtx_color):
+    """The kernel's (T,K,24) input: screen triangle and inv_w, the valid flag,
+    the 9 corner colours, the face id, zero padding to 24 lanes."""
+    tidx = rast["bins"].tile_idx
+    T, K = tidx.shape
+    gi = tidx.clamp_min(0)
+    attrs = torch.zeros((T, K, 24), dtype=torch.float32, device=tidx.device)
+    attrs[..., 0:9] = rast["pack"][gi]
+    attrs[..., 9] = (tidx >= 0).float()
+    attrs[..., 10:19] = vtx_color[faces[gi]].reshape(T, K, 9)
+    attrs[..., 19] = gi.float()
+    return attrs
+
+
+def _untile(x, cfg: MeshRasterConfig):
+    return untile(x, cfg.tiles_x, cfg.tiles_y, cfg.tile_h, cfg.tile_w,
+                  cfg.height, cfg.width)
+
+
+def render_mesh(verts, faces, face_valid, vtx_color, pose, proj, bg_color,
+                cfg: MeshRasterConfig, want_soft: bool = True):
+    """Full mesh render (reference utils/renderer.py render_mask :33-66 +
+    render_mesh :69-121).  Returns rgb (H,W,3), mask (H,W) hard coverage,
+    face_id (H,W) (-1 = background), aux (binning counters), and with
+    ``want_soft`` the soft silhouette ``soft_mask`` and ``st_mask``."""
+    rast = rasterize(verts, faces, face_valid, pose, proj, cfg)
+    bins = rast["bins"]
+    bg = torch.as_tensor(bg_color, dtype=torch.float32, device=verts.device)
+    attrs = tile_attrs(rast, faces, vtx_color)
+    rgb, hard, soft, fid = shade_tiles(attrs, cfg.tiles_x, cfg.tile_h, cfg.tile_w,
+                                       cfg.sigma)
+    rgb = rgb + (1.0 - hard)[..., None] * bg[None, None, :]
+    fid_out = torch.where(hard > 0.5, fid.long(), -1)
+    out = dict(rgb=_untile(rgb, cfg), mask=_untile(hard, cfg),
+               face_id=_untile(fid_out, cfg),
+               aux=dict(num_duplicates=bins.num_duplicates,
+                        dup_overflow=bins.dup_overflow,
+                        tile_overflow=bins.tile_overflow))
+    if want_soft:
+        soft = _untile(soft, cfg)
+        out["soft_mask"] = soft
+        # straight-through mask: the hard value with the soft gradient
+        out["st_mask"] = out["mask"].detach() + (soft - soft.detach())
+    return out

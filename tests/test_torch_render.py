@@ -1,0 +1,149 @@
+"""The port's render path as a whole: render_frame against JAX, the import
+rule, and the device rule."""
+
+import ast
+import subprocess
+import sys
+import textwrap
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from torch_parity_fixture import ROOMY, ROOT, jax_fixture, port_fixture, to_numpy
+
+from dgmesh_tpu.eval.testing import render_frame as jax_render_frame
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def rendered():
+    """One render of the miniature fixture by each package (noise on the
+    zero-init heads so the deformation and the normal offsets are live), at
+    mesh capacities that hold the whole surface."""
+    from dgmesh_torch.eval.testing import render_frame
+    cfg, img, ctx, state, batch = jax_fixture(head_std=1e-3, seed=7, **ROOMY)
+    want = to_numpy(jax.jit(lambda st, b: jax_render_frame(ctx, st, b, 1, True))(state, batch))
+    tcfg, tctx, tstate, tbatch = port_fixture(cfg, img, state)
+    got = {k: v.numpy() for k, v in render_frame(tctx, tstate, tbatch, 1, True).items()}
+    return got, want
+
+
+def test_render_frame_images_match_jax(rendered):
+    """GS image, mesh image and mask: abs 1e-4 (f32 projection, DPSR and
+    compositing sums in other orders; both sides run the kernels' math)."""
+    got, want = rendered
+    assert set(got) == set(want)
+    for k in ("render", "mesh_image", "mask"):
+        assert got[k].shape == want[k].shape, k
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-4, err_msg=k)
+    assert want["mask"].mean() > 0.05 and want["render"].max() > 0.1
+
+
+def test_render_frame_mesh_matches_jax(rendered):
+    """n_verts, n_faces and faces exact; verts and vtx_color abs 1e-5."""
+    got, want = rendered
+    assert int(got["n_verts"]) == int(want["n_verts"]) > 100
+    assert int(got["n_faces"]) == int(want["n_faces"]) > 100
+    np.testing.assert_array_equal(got["faces"], want["faces"])
+    np.testing.assert_allclose(got["verts"], want["verts"], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got["vtx_color"], want["vtx_color"], rtol=0, atol=1e-5)
+
+
+def test_render_frame_without_mesh_matches_jax():
+    from dgmesh_torch.eval.testing import render_frame
+    cfg, img, ctx, state, batch = jax_fixture(head_std=1e-3, seed=8)
+    want = to_numpy(jax.jit(lambda st, b: jax_render_frame(ctx, st, b, 1, False))(state, batch))
+    _, tctx, tstate, tbatch = port_fixture(cfg, img, state)
+    got = render_frame(tctx, tstate, tbatch, 1, with_mesh=False)
+    assert set(got) == set(want) == {"render"}
+    np.testing.assert_allclose(got["render"].numpy(), want["render"], rtol=0, atol=1e-4)
+
+
+# --- the import rule ---------------------------------------------------------
+
+FORBIDDEN = ("jax", "flax", "optax", "dgmesh_tpu")
+
+
+def _port_files():
+    return sorted((ROOT / "dgmesh_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax(path):
+    """AST scan: no import of jax, flax, optax or dgmesh_tpu, at any depth."""
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for n in names:
+            assert n.split(".")[0] not in FORBIDDEN, f"{path}: imports {n}"
+
+
+def test_port_renders_on_cpu_without_jax():
+    """A fresh interpreter imports the port and renders a small frame on the
+    CPU; jax is never loaded."""
+    code = textwrap.dedent(f"""
+        import sys
+        sys.path.insert(0, {str(ROOT)!r})
+        import numpy as np, torch
+        torch.set_num_threads(1)
+        from dgmesh_torch.cameras import camera_from_c2w_blender
+        from dgmesh_torch.config import Config
+        from dgmesh_torch.eval.testing import render_frame
+        from dgmesh_torch.train.state import init_state
+        from dgmesh_torch.train.step import StepContext, make_batch
+        cfg = Config()
+        cfg.model.is_blender, cfg.model.grid_res, cfg.model.sh_degree = True, 24, 1
+        cfg.optimization.dpsr_sig = 2.0
+        t = cfg.tpu
+        t.max_gaussians, t.max_verts, t.max_faces = 256, 4096, 8192
+        t.max_gaussians_per_tile, t.max_faces_per_tile = 32, 32
+        rng = np.random.default_rng(0)
+        d = rng.normal(size=(200, 3)); d /= np.linalg.norm(d, axis=1, keepdims=True)
+        st = init_state(cfg, (0.4 * d).astype(np.float32),
+                        rng.random((200, 3)).astype(np.float32), device="cpu")
+        normal = torch.zeros_like(st.gp.normal); normal[:200] = torch.tensor(d, dtype=torch.float32)
+        st = st._replace(gp=st.gp._replace(normal=normal))
+        c2w = np.eye(4, dtype=np.float32); c2w[2, 3] = 2.5
+        cam = camera_from_c2w_blender(0, c2w, 0.9, 48, 48, 0.5)
+        out = render_frame(StepContext(cfg, 48, 48, device="cpu"), st,
+                           make_batch(cam, 0.05, np.zeros(3, np.float32), device="cpu"), 1)
+        assert out["render"].shape == (3, 48, 48) and out["mesh_image"].shape == (3, 48, 48)
+        assert int(out["n_faces"]) > 0 and bool(torch.isfinite(out["render"]).all())
+        assert "jax" not in sys.modules and "dgmesh_tpu" not in sys.modules
+        print("ok")
+    """)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       timeout=300, cwd=str(ROOT))
+    assert r.returncode == 0 and r.stdout.strip().endswith("ok"), r.stderr
+
+
+# --- the device rule ---------------------------------------------------------
+
+def test_default_device_raises_without_gpu(monkeypatch):
+    from dgmesh_torch.config import Config
+    from dgmesh_torch.device import resolve_device
+    from dgmesh_torch.train.step import StepContext
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError):
+        StepContext(Config(), 32, 32)
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert StepContext(Config(), 32, 32, device="cpu").device.type == "cpu"
+
+
+def test_resolve_device_pins_float32_matmuls():
+    from dgmesh_torch.device import resolve_device
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    resolve_device("cpu")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
