@@ -3,14 +3,18 @@
 
     python3 chip_smoke.py            # from the root of a checkout, one GPU
 
+    python3 chip_smoke.py --kernels-only   # phases 1-3, then stop (no result)
+
 Phases; any failure exits non-zero and prints no result:
   1. card     — the card's name and power limit (nvidia-smi);
-  2. build    — nvcc builds every kernel of the render path from
-                dgmesh_torch/csrc (one nvcc per source, in parallel);
+  2. build    — nvcc builds every kernel of the render and training paths
+                from dgmesh_torch/csrc (one nvcc per source, in parallel);
   3. kernels  — each kernel against its plain PyTorch twin on the card, at
                 the main path's full-width shapes, on seeded random rows with
                 the edge cases (invalid rows, alpha-clamped rows, slivers
-                below AREA_MIN, back faces, exact z ties);
+                below AREA_MIN, back faces, exact z ties; for the backward
+                kernels random cotangents, and built ties where the shade
+                backward splits gradients in half);
   4. render   — configs/synthetic-quality-288.yaml with bench.py's shell
                 state (100k Gaussians, radius 0.45, seed 0) and seeded random
                 nets: render_frame for 4 orbit views at 800², grid 288, with
@@ -20,14 +24,28 @@ Phases; any failure exits non-zero and prints no result:
                 the kernels' inputs, on which the kernels are held against
                 their twins again and timed; then one render at the YAML's own
                 gaussian_ratio and init_density_threshold, reported only;
-  5. check    — the same path on the card and on the CPU (the plain twins)
-                at a small size with room in the mesh caps must agree;
-  6. result   — one JSON line of per-kernel numbers, then the last line
+  5. train    — the mesh-phase training step (train/step.py::train_step,
+                bench.py's flags, densify statistics on) on bench.py's view
+                with a random GT image: 1 warm-up and 5 timed steps, each
+                from the same frozen state, every step finite with
+                mesh_overflow 0 and no non-finite gradient leaf, the four
+                launch counters zeroed just before and read just after; then
+                two steps with forward / backward / optimizer timed, and the
+                backward kernels held against their twins on the rows and
+                cotangents they got inside the step (each cotangent scaled
+                to a largest |value| of 1); all four kernels timed, each
+                beside the bound of the work its function needs on these
+                rows;
+  6. check    — render, and a training step from each of SMALL_SEEDS
+                states, on the card and on the CPU (the plain twins) at a
+                small size with room in the mesh caps must agree;
+  7. result   — one JSON line of per-kernel numbers, then the last line
                 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -47,21 +65,57 @@ CONFIG = os.path.join(ROOT, "configs", "synthetic-quality-288.yaml")
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 
-# Float32 operations per (pixel, row) pair, counted from the kernels' source
-# (an exp, log1p, sqrt or division counts as one operation):
+# Float32 operations the function needs, counted from the kernels' source
+# (an exp, log1p, sqrt, division, compare or select counts as one
+# operation; a sum over the tile's pixels as one add per summand).  The
+# forward, per (pixel, row) pair:
 COMPOSITE_TEST_OPS = 16     # every valid row: power, exp, clamp, the tests
 COMPOSITE_ACCUM_OPS = 11    # rows that pass the tests: log1p, exp, rgb sums
 SHADE_OPS = 118             # every valid row: edges, barycentrics, z, soft
+# The backward functions: the forward's recompute once (the counts above),
+# then partials and their tile sums only where they are not zero; not the
+# second walk over the rows that the kernels' design adds:
+COMPOSITE_BWD_PASS_OPS = 20   # pairs that pass the alpha tests: log1p, the
+                              # transmittance, w, u, the suffix sum, d rgb + 3 sums
+COMPOSITE_BWD_LIVE_OPS = 34   # of these, pairs below the 0.99 clamp: d alpha,
+                              # d power, the six partials + 6 sums
+SHADE_BWD_SOFT_OPS = 159      # pairs with a non-zero soft gradient: picks, the
+                              # gates, three edges' clip weights and partials + 6 sums
+SHADE_BWD_RGB_OPS = 117       # pixels with a winner and a non-zero g_rgb: the
+                              # normaliser, u, dq, the winner row's 18 partials + 18 sums
+
+SOURCES = {"composite_tiles": "dgmesh_torch/csrc/composite.cu",
+           "composite_bwd": "dgmesh_torch/csrc/composite_bwd.cu",
+           "shade_tiles": "dgmesh_torch/csrc/shade.cu",
+           "shade_bwd": "dgmesh_torch/csrc/shade_bwd.cu"}
+REPLACES = {"composite_tiles": "dgmesh_tpu/ops/splat_pallas.py:34",
+            "composite_bwd": "dgmesh_tpu/ops/splat_pallas.py:116",
+            "shade_tiles": "dgmesh_tpu/ops/mesh_raster_pallas.py:40",
+            "shade_bwd": "dgmesh_tpu/ops/mesh_raster_pallas.py:164"}
 
 DEVICE = "cuda"
+KERNELS_ONLY = "--kernels-only" in sys.argv[1:]   # build and check, then stop
+PROFILE = "--profile" in sys.argv[1:]             # profile one training step, then stop
 IMG = 800             # 800x800 views, 16x16 tiles: T = 2500
 N_GAUSS = 100_000     # live Gaussians in the config's 131,072 slots
 N_VIEWS = 4
 REPEATS = 3
+TRAIN_STEPS = 5       # timed training steps, after one warm-up, each from the same state
 KERNEL_TIMING_LAUNCHES = 20
 TOL_COMPOSITE = 1e-4  # rgb/alpha: sequential vs cumsum/einsum summation order
 TOL_SHADE = 1e-5      # rgb/soft; hard and fid must agree exactly
 TOL_SMALL = 1e-4      # card vs CPU at the small size: images
+TOL_BWD_REL = 1e-4    # backward kernels vs twins, per lane group: relative to
+TOL_BWD_ABS = 1e-6    # the group's largest |twin| value, plus an absolute floor
+TOL_SMALL_LOSS = 1e-4  # card vs CPU training step: loss terms, relative
+TOL_SMALL_GP = 5e-3    # ... Gaussian gradient leaves, relative to the leaf's max
+TOL_SMALL_HEAD = 1e-4  # ... the appearance net's output head (kernel 4's colour
+                       #     gradient, no ReLU on the way), relative to the leaf's max
+TOL_SMALL_NET = 3e-2   # ... the other net leaves, ‖Δ‖/‖CPU‖ per leaf (a ReLU at
+                       #     float32 rounding of 0 may take the other side, and
+                       #     every layer below it moves: tests/test_torch_train.py);
+                       #     ~3x the largest of eight sound card runs (0.0047-0.0108)
+SMALL_SEEDS = 6        # states (points and nets) of the small training check
 
 
 def log(msg: str) -> None:
@@ -119,6 +173,132 @@ def random_shade_attrs(rng, T, K, tiles_x, tile):
     a[:, tie + 1, :19] = a[:, tie, :19]                # with another face id
     a[:, K - K // 8:, 9] = 0.0
     return a
+
+
+def shade_tie_attrs(rng, T, K, tiles_x, tile):
+    """random_shade_attrs with built ties in every eighth row: a vertex on a
+    pixel centre (uu exactly 0 and 1 on its two edges, d2 ties between
+    them, and ties at every pixel whose nearest edge point is that vertex),
+    a pixel centre in the middle of an edge (d2 exactly 0), and a triangle
+    symmetric about a column of pixel centres (d2 ties between its two
+    slanted edges).  Every edge has a power-of-two squared length and every
+    coordinate is a pixel centre plus an integer, so d2, uu and the ties
+    come out exact in float32 whatever the rounding of the arithmetic
+    (with or without fused multiply-adds)."""
+    a = random_shade_attrs(rng, T, K, tiles_x, tile)
+    t = np.arange(T)
+    ox = ((t % tiles_x) * tile).astype(np.float32)
+    oy = ((t // tiles_x) * tile).astype(np.float32)
+    for k in range(0, K - K // 8, 8):
+        x0 = ox + rng.integers(0, tile, T) + 0.5
+        y0 = oy + rng.integers(0, tile, T) + 0.5
+        kind = (k // 8) % 3
+        if kind == 0:      # vertex a on the pixel centre
+            tri = [x0, y0, x0 + 4, y0 + 4, x0, y0 + 8]
+        elif kind == 1:    # pixel centre in the middle of edge a-b
+            tri = [x0 - 4, y0, x0 + 4, y0, x0, y0 + 4]
+        else:              # symmetric about the column x0
+            tri = [x0, y0 - 4, x0 - 4, y0, x0 + 4, y0]
+        a[:, k, 0:6] = np.stack(tri, -1)
+        a[:, k, 9] = 1.0
+    return a
+
+
+def cotangents(rng, T, P):
+    """Seeded random cotangents (T,P,3) and (T,P)."""
+    return (rng.normal(size=(T, P, 3)).astype(np.float32),
+            rng.normal(size=(T, P)).astype(np.float32))
+
+
+# lane groups of d_attrs held to a tolerance each (the per-row sums over the
+# tile's pixels run in another order in the kernels than in the twins)
+COMPOSITE_GROUPS = {"mean2d": [0, 1], "conic": [2, 3, 4], "opacity": [5], "rgb": [6, 7, 8]}
+SHADE_GROUPS = {"screen": list(range(6)), "inv_w": [6, 7, 8], "colour": list(range(10, 19))}
+ZERO_LANES = {"composite": list(range(9, 16)), "shade": [9] + list(range(19, 24))}
+
+
+def compare_bwd(torch, got, want, groups, zero_lanes, invalid):
+    """Per lane group: max |kernel - twin| against 1e-4·max|twin| + 1e-6;
+    the zero lanes and the invalid rows must be exactly 0 in the kernel's
+    output.  Returns (max abs err, ok, {group: (err, tol)})."""
+    torch.cuda.synchronize()
+    rep, ok = {}, bool(torch.isfinite(got).all())
+    for name, lanes in groups.items():
+        g, w = got[..., lanes].double(), want[..., lanes].double()
+        err = float((g - w).abs().max())
+        tol = TOL_BWD_REL * float(w.abs().max()) + TOL_BWD_ABS
+        rep[name] = (err, tol)
+        ok = ok and err <= tol
+    ok = ok and not bool(got[..., zero_lanes].any()) and not bool(got[invalid].any())
+    return max(e for e, _ in rep.values()), ok, rep
+
+
+# ---------------------------------------------------------------------------
+# the work these rows need, for bound_ms
+
+
+def composite_pairs(torch, SK, attrs, sc, chunk=100):
+    """(pixel, row) pairs of composite rows, counted in tile chunks: of
+    valid rows; of those the ones that pass the alpha tests (power <= 0,
+    alpha >= 1/255); and of these the ones below the 0.99 clamp, whose
+    d alpha the backward does not gate off."""
+    T = attrs.shape[0]
+    n_valid = int((attrs[..., 9] > 0.5).sum()) * sc.tile_h * sc.tile_w
+    n_pass = n_live = 0
+    px, py = SK.tile_pixels(T, sc.tiles_x, sc.tile_h, sc.tile_w, 0.0, attrs.device)
+    with torch.no_grad():
+        for s in range(0, T, chunk):
+            at = attrs[s:s + chunk]
+            dx = at[..., 0:1] - px[s:s + chunk, None]
+            dy = at[..., 1:2] - py[s:s + chunk, None]
+            pw = -0.5 * (at[..., 2:3] * dx * dx + at[..., 4:5] * dy * dy) - at[..., 3:4] * dx * dy
+            raw = at[..., 5:6] * torch.exp(pw)
+            ok = ((at[..., 9:10] > 0.5) & (pw <= 0)
+                  & (torch.clamp_max(raw, SK.ALPHA_MAX) >= SK.ALPHA_MIN))
+            n_pass += int(ok.sum())
+            n_live += int((ok & (raw < SK.ALPHA_MAX)).sum())
+    return n_valid, n_pass, n_live
+
+
+def shade_pairs(torch, SK, attrs, g_rgb, g_soft, mc, chunk=16):
+    """What the shade backward must compute on these rows and cotangents,
+    counted in tile chunks with the plain twin's formulas: the (pixel, row)
+    pairs of valid rows; those whose soft-path gradient is not zero
+    (g_soft·e^M·s, gated by s <= 1 - 1e-6); and the pixels with a z-buffer
+    winner and a non-zero g_rgb, where the rgb path runs."""
+    T = attrs.shape[0]
+    n_valid = int((attrs[..., 9] > 0.5).sum()) * mc.tile_h * mc.tile_w
+    n_soft = n_rgb = 0
+    px_all, py_all = SK.tile_pixels(T, mc.tiles_x, mc.tile_h, mc.tile_w, 0.5, attrs.device)
+    with torch.no_grad():
+        for s in range(0, T, chunk):
+            a = attrs[s:s + chunk]
+            px, py = px_all[s:s + chunk, None, :], py_all[s:s + chunk, None, :]
+            ax, ay, bx, by, cx, cy = (a[..., i:i + 1] for i in range(6))
+            valid = a[..., 9:10] > 0.5
+            area = (bx - ax) * (cy - ay) - (by - ay) * (cx - ax)
+            live = area.abs() >= 1e-4
+            area = torch.where(live, area, 1.0)
+            inside = valid & live
+            d2min = None
+            for vx0, vy0, vx1, vy1 in ((ax, ay, bx, by), (bx, by, cx, cy), (cx, cy, ax, ay)):
+                # the edge function of the vertex opposite this edge, and
+                # the squared distance to the segment
+                inside = inside & (((vx1 - vx0) * (py - vy0) - (vy1 - vy0) * (px - vx0))
+                                   / area >= 0.0)
+                ex, ey, qx, qy = vx1 - vx0, vy1 - vy0, px - vx0, py - vy0
+                t = torch.clamp((qx * ex + qy * ey) / torch.clamp_min(ex * ex + ey * ey, 1e-12),
+                                0.0, 1.0)
+                d2 = (qx - t * ex) ** 2 + (qy - t * ey) ** 2
+                d2min = d2 if d2min is None else torch.minimum(d2min, d2)
+            dist = torch.sqrt(d2min + 1e-12)
+            sg = torch.where(valid, torch.sigmoid(torch.where(inside, dist, -dist) / mc.sigma),
+                             0.0)
+            m = torch.log1p(-torch.clamp(sg, 0.0, 1.0 - 1e-6)).sum(1, keepdim=True)
+            gs = -g_soft[s:s + chunk, None, :] * torch.exp(m) / mc.sigma
+            n_soft += int(((gs * sg * ((sg <= 1.0 - 1e-6) & valid)) != 0).sum())
+            n_rgb += int((inside.any(1) & (g_rgb[s:s + chunk] != 0).any(-1)).sum())
+    return n_valid, n_soft, n_rgb
 
 
 # ---------------------------------------------------------------------------
@@ -201,18 +381,21 @@ def build_shell_state(torch, cfg, n_gauss, device, seed=0):
     return st
 
 
-def render_by_stage(torch, targets, render, repeats):
-    """Call ``render`` ``repeats`` times with each ``(owner, attribute, stage)``
+def call_by_stage(torch, targets, call, repeats, what="render_frame"):
+    """Run ``call`` ``repeats`` times with each ``(owner, attribute, stage)``
     of ``targets`` replaced by a wrapper that times its call between two
     synchronisations and keeps its arguments; the originals are put back
     after.  Returns ({stage: median ms}, median ms of the whole call,
     {stage: arguments of its last call}).  A stage that is not called once
-    per render fails: the targets no longer match what the render calls."""
+    per call fails: the targets no longer match what ``what`` calls."""
     times = {stage: [] for _, _, stage in targets}
     args = {}
     saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in targets]
 
     def timed(stage, fn):
+        # functools.wraps carries a kernel wrapper's launch counter across:
+        # the wrapper counts by its module-global name, which is ours here
+        @functools.wraps(fn)
         def wrapper(*a, **kw):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -230,7 +413,7 @@ def render_by_stage(torch, targets, render, repeats):
         for _ in range(repeats):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            render()
+            call()
             torch.cuda.synchronize()
             totals.append((time.perf_counter() - t0) * 1e3)
     finally:
@@ -238,9 +421,41 @@ def render_by_stage(torch, targets, render, repeats):
             setattr(owner, attr, fn)
     missing = [k for k, ts in times.items() if len(ts) != repeats]
     if missing:
-        raise RuntimeError(f"render_frame did not call {missing} once per render")
+        raise RuntimeError(f"{what} did not call {missing} once per call")
     return ({k: statistics.median(ts) for k, ts in times.items()},
             statistics.median(totals), args)
+
+
+def bench_batch(W, H, device, seed=0):
+    """bench.py's training view: the frontal camera at distance 2.5, fovx
+    0.8, fid 0.5, time interval 0.01, a seeded random GT image and an
+    all-ones mask (bench.py:116-121)."""
+    from dgmesh_torch.cameras import camera_from_c2w_blender
+    from dgmesh_torch.train.step import make_batch
+
+    rng = np.random.default_rng(seed)
+    c2w = np.eye(4, dtype=np.float32)
+    c2w[2, 3] = 2.5
+    img = rng.random((H, W, 3)).astype(np.float32)
+    cam = camera_from_c2w_blender(0, c2w, 0.8, W, H, 0.5, image=img,
+                                  alpha_mask=np.ones((H, W, 1), np.float32))
+    return make_batch(cam, 0.01, np.zeros(3, np.float32), device=device)
+
+
+def train_flags(step, sh_degree):
+    """bench.py's mesh-phase flags, with the densify statistics on."""
+    return step.StepFlags(warm=False, mesh=True, freeze_pos=False, use_normal=True,
+                          densify_stats=True, sh_degree=sh_degree)
+
+
+def step_problems(torch, m):
+    """What is wrong with one training step's metrics, as a list."""
+    bad = [k for k in ("loss", "cycle_loss", "mask_loss", "mesh_img_loss", "laplacian_loss",
+                       "img_loss") if not bool(torch.isfinite(m[k]))]
+    bad += [f"{k} {int(m[k])}" for k in ("mesh_overflow", "nonfinite_grad_leaves")
+            if int(m[k]) != 0]
+    bad += [f"{k} 0" for k in ("mesh_n_verts", "mesh_n_faces") if int(m[k]) == 0]
+    return bad
 
 
 def view_batches(cfg_w, cfg_h, n, device, radius=2.5, fovx=0.8):
@@ -300,8 +515,11 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"#   {n}: {line.strip()}")
 
-    # 3. kernels vs twins on seeded random rows at full width ----------------
     cfg = load_cfg()
+    if PROFILE:
+        return profile_train(torch, cfg, dev)
+
+    # 3. kernels vs twins on seeded random rows at full width ----------------
     t = cfg.tpu
     W = H = IMG
     ctx = StepContext(cfg, W, H, device=dev)
@@ -326,7 +544,40 @@ def main() -> int:
         f"(tol {TOL_SHADE}; hard/fid exact, {nf} fid mismatches) {'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append("shade_tiles vs twin (random)")
-    del a1, a2
+    P = sc.tile_h * sc.tile_w
+    errs["composite_bwd"], errs["shade_bwd"] = [], []
+    g1, g2 = (torch.as_tensor(x, device=dev) for x in cotangents(rng, sc.num_tiles, P))
+    e, ok, rep = compare_bwd(torch, SK.composite_bwd(a1, g1, g2, *geo_s),
+                             SK.composite_bwd_ref(a1, g1, g2, *geo_s),
+                             COMPOSITE_GROUPS, ZERO_LANES["composite"], a1[..., 9] < 0.5)
+    errs["composite_bwd"].append(e)
+    log(f"# kernels/random: composite_bwd {tuple(a1.shape)} "
+        + ", ".join(f"{k} {v[0]:.3g} (tol {v[1]:.3g})" for k, v in rep.items())
+        + f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("composite_bwd vs twin (random)")
+    a3 = torch.as_tensor(shade_tie_attrs(rng, mc.num_tiles, mc.max_per_tile,
+                                         mc.tiles_x, mc.tile_w), device=dev)
+    g3, g4 = (torch.as_tensor(x, device=dev) for x in cotangents(rng, mc.num_tiles, P))
+    e, ok, rep = compare_bwd(torch, MK.shade_bwd(a3, g3, g4, *geo_m, mc.sigma),
+                             MK.shade_bwd_ref(a3, g3, g4, *geo_m, mc.sigma),
+                             SHADE_GROUPS, ZERO_LANES["shade"], a3[..., 9] < 0.5)
+    errs["shade_bwd"].append(e)
+    log(f"# kernels/random: shade_bwd {tuple(a3.shape)} with built ties "
+        + ", ".join(f"{k} {v[0]:.3g} (tol {v[1]:.3g})" for k, v in rep.items())
+        + f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("shade_bwd vs twin (random, ties)")
+    if KERNELS_ONLY:
+        for name, fk in (("composite_bwd", lambda: SK.composite_bwd(a1, g1, g2, *geo_s)),
+                         ("shade_bwd", lambda: MK.shade_bwd(a3, g3, g4, *geo_m, mc.sigma))):
+            log(f"# timing/random {name}: {time_cuda(torch, fk, 5):.4f} ms/launch")
+        if failures:
+            print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
+            return 1
+        log("# --kernels-only: stopping after the kernel checks; no result line")
+        return 0
+    del a1, a2, a3, g1, g2, g3, g4
 
     # 4. render --------------------------------------------------------------
     t0 = time.perf_counter()
@@ -387,16 +638,16 @@ def main() -> int:
         (splat, "preprocess", "splat_preprocess"),
         (splat, "bin_gaussians", "splat_binning"),
         (splat, "tile_attrs", "splat_tile_rows"),
-        (splat, "composite_tiles", "composite_kernel"),
+        (SK, "composite_tiles", "composite_kernel"),
         (ctx, "dpsr", "dpsr"),
         (step, "marching_tets", "marching_tets"),
         (testing, "_mesh_colors", "mesh_color_mlps"),
         (MR, "rasterize", "mesh_binning"),
         (MR, "tile_attrs", "mesh_tile_rows"),
-        (MR, "shade_tiles", "shade_kernel"),
+        (MK, "shade_tiles", "shade_kernel"),
     ]
     with torch.no_grad():
-        stages, total, args = render_by_stage(
+        stages, total, args = call_by_stage(
             torch, targets,
             lambda: render_frame_with_aux(ctx, state, batches[0], cfg.model.sh_degree),
             REPEATS)
@@ -433,46 +684,21 @@ def main() -> int:
     P = sc.tile_h * sc.tile_w
     T1, K1 = ra1.shape[:2]
     T2, K2 = ra2.shape[:2]
-    with torch.no_grad():
-        # pairs that pass the composite alpha tests, counted in tile chunks
-        n_pass = 0
-        px, py = SK.tile_pixels(T1, sc.tiles_x, sc.tile_h, sc.tile_w, 0.0, dev)
-        for s in range(0, T1, 100):
-            at = ra1[s:s + 100]
-            dx = at[..., 0:1] - px[s:s + 100, None]
-            dy = at[..., 1:2] - py[s:s + 100, None]
-            pw = -0.5 * (at[..., 2:3] * dx * dx + at[..., 4:5] * dy * dy) - at[..., 3:4] * dx * dy
-            al = torch.clamp_max(at[..., 5:6] * torch.exp(pw), 0.99)
-            n_pass += int(((at[..., 9:10] > 0.5) & (pw <= 0) & (al >= 1 / 255)).sum())
-    v1 = int((ra1[..., 9] > 0.5).sum())
-    v2 = int((ra2[..., 9] > 0.5).sum())
+    v1, n_pass, _ = composite_pairs(torch, SK, ra1, sc)
+    v2 = int((ra2[..., 9] > 0.5).sum()) * P
+    kernel_rows = {  # name: (kernel call, twin call, bytes, operations) at real rows
+        "composite_tiles": (lambda: SK.composite_tiles(ra1, *geo_s),
+                            lambda: SK.composite_tiles_ref(ra1, *geo_s),
+                            T1 * K1 * 16 * 4 + T1 * P * 4 * 4,
+                            v1 * COMPOSITE_TEST_OPS + n_pass * COMPOSITE_ACCUM_OPS),
+        "shade_tiles": (lambda: MK.shade_tiles(ra2, *geo_m, mc.sigma),
+                        lambda: MK.shade_tiles_ref(ra2, *geo_m, mc.sigma),
+                        T2 * K2 * 24 * 4 + T2 * P * 6 * 4, v2 * SHADE_OPS),
+    }
+    log(f"# view 0 rows: {v1 // P} valid composite rows of {T1 * K1}, {n_pass} passing "
+        f"(pixel, row) pairs; {v2 // P} valid shade rows of {T2 * K2}")
     kernels = []
-    specs = [
-        ("composite_tiles", "dgmesh_torch/csrc/composite.cu",
-         "dgmesh_tpu/ops/splat_pallas.py:34",
-         lambda: SK.composite_tiles(ra1, *geo_s), lambda: SK.composite_tiles_ref(ra1, *geo_s),
-         T1 * K1 * 16 * 4 + T1 * P * 4 * 4,
-         v1 * P * COMPOSITE_TEST_OPS + n_pass * COMPOSITE_ACCUM_OPS),
-        ("shade_tiles", "dgmesh_torch/csrc/shade.cu",
-         "dgmesh_tpu/ops/mesh_raster_pallas.py:40",
-         lambda: MK.shade_tiles(ra2, *geo_m, mc.sigma),
-         lambda: MK.shade_tiles_ref(ra2, *geo_m, mc.sigma),
-         T2 * K2 * 24 * 4 + T2 * P * 6 * 4, v2 * P * SHADE_OPS),
-    ]
-    for name, src, rep, fk, fp, nbytes, nops in specs:
-        ms = time_cuda(torch, fk, KERNEL_TIMING_LAUNCHES)
-        plain_ms = time_cuda(torch, fp, 2)
-        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, nops / PEAK_F32 * 1e3
-        kernels.append(dict(
-            name=name, route="cuda", source=src, replaces=rep,
-            launches=launches[name], max_abs_err=max(errs[name]), ms=ms,
-            plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None))
-        log(f"# timing {name}: {ms:.4f} ms/launch, twin {plain_ms:.3f} ms, bound "
-            f"{max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB, {nops / 1e9:.2f} G ops; "
-            f"valid rows {v1 if name == 'composite_tiles' else v2}); "
-            f"no single PyTorch call computes it (library_ms null)")
-    del ra1, ra2, args, state
+    del args, state
 
     # 4c. the YAML's own gaussian_ratio and init_density_threshold: one render
     #     of view 0, reported and not held to the caps ---------------------
@@ -491,7 +717,125 @@ def main() -> int:
         f"{all(bool(torch.isfinite(out[k]).all()) for k in ('render', 'mesh_image'))}")
     del out, ystate
 
-    # 5. the same path on the card and on the CPU at a small size ------------
+    # 5. train: the mesh-phase training step at full width, 1 warm-up and
+    #    TRAIN_STEPS timed steps, each from the same frozen state; the launch
+    #    counters zeroed just before and read just after -------------------
+    tstate = build_shell_state(torch, cfg, N_GAUSS, dev)
+    tbatch = bench_batch(W, H, dev)
+    flags = train_flags(step, cfg.model.sh_degree)
+    counters = (SK.composite_tiles, SK.composite_bwd, MK.shade_tiles, MK.shade_bwd)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    step_ms = []
+    for i in range(1 + TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = step.train_step(ctx, tstate, tbatch, flags)
+        torch.cuda.synchronize()
+        if i:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        bad = step_problems(torch, m)
+        if bad:
+            failures.append(f"train step {i}: " + ", ".join(bad))
+    launches = {c.__name__: c.launches for c in counters}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = statistics.median(step_ms)
+    log(f"# train: {1 + TRAIN_STEPS} steps at {W}x{H}, grid {cfg.model.grid_res}, "
+        f"{int(tstate.gs.alive.sum())} live Gaussians; V {int(m['mesh_n_verts'])} "
+        f"F {int(m['mesh_n_faces'])}; overflow mesh {int(m['mesh_overflow'])} splat "
+        f"{int(m['splat_overflow'])} dup {int(m['splat_dup_overflow'])} raster "
+        f"{int(m['raster_overflow'])}; nonfinite_grad_leaves {int(m['nonfinite_grad_leaves'])}")
+    log("#   losses: " + ", ".join(f"{k} {float(m[k]):.6g}" for k in (
+        "loss", "cycle_loss", "mask_loss", "mesh_img_loss", "laplacian_loss", "img_loss",
+        "img_psnr", "mesh_psnr")))
+    log(f"#   ms/step median of {TRAIN_STEPS}: {med:.2f} ({', '.join(f'{x:.2f}' for x in step_ms)}); "
+        f"{1e3 / med:.3f} steps/s; peak memory {peak:.3f} GiB; launches {launches}")
+    for k, n in launches.items():
+        if n < 1 + TRAIN_STEPS:
+            failures.append(f"{k}: {n} launches in {1 + TRAIN_STEPS} training steps")
+
+    # 5b. where a step's time goes (forward / backward / optimizer, each
+    #     between two synchronisations), and the backward kernels' real rows
+    #     and cotangents, held against their twins and timed -------------
+    targets = [(step, "loss_and_aux", "forward"), (step, "backward", "backward"),
+               (step, "apply_updates", "optimizer"),
+               (SK, "composite_bwd", "composite_bwd_kernel"),
+               (MK, "shade_bwd", "shade_bwd_kernel")]
+    stages, total, args = call_by_stage(
+        torch, targets, lambda: step.train_step(ctx, tstate, tbatch, flags), 2,
+        what="train_step")
+    log("# train stages (ms, median of 2, host clock around synchronize): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items() if "kernel" not in k)
+        + f"; whole step {total:.2f}, of it outside them "
+        f"{total - stages['forward'] - stages['backward'] - stages['optimizer']:.2f}; "
+        f"inside backward: composite_bwd {stages['composite_bwd_kernel']:.3f}, "
+        f"shade_bwd {stages['shade_bwd_kernel']:.3f}")
+    # the step's cotangents are ~1e-6, below the tolerance's absolute floor;
+    # the backward is linear in them, so each is scaled to a largest |value|
+    # of 1 (zeros stay zeros) before the kernels and the twins see them
+    ca = args["composite_bwd_kernel"][0].detach()
+    sa = args["shade_bwd_kernel"][0].detach()
+    cg, cga, sg, sgs = (x.detach() / x.detach().abs().max().clamp_min(1e-30)
+                        for x in (*args["composite_bwd_kernel"][1:3],
+                                  *args["shade_bwd_kernel"][1:3]))
+    log("# train rows' cotangents, largest |value| before scaling to 1: "
+        + ", ".join(f"{n} {float(x.detach().abs().max()):.3g}" for n, x in (
+            ("composite g_rgb", args["composite_bwd_kernel"][1]),
+            ("g_alpha", args["composite_bwd_kernel"][2]),
+            ("shade g_rgb", args["shade_bwd_kernel"][1]),
+            ("g_soft", args["shade_bwd_kernel"][2]))))
+    if (args["composite_bwd_kernel"][3:] != geo_s
+            or args["shade_bwd_kernel"][3:] != geo_m + (mc.sigma,)):
+        failures.append("backward kernels called with another geometry than the config's")
+    for name, got, want, groups, zl, inv in (
+            ("composite_bwd", SK.composite_bwd(ca, cg, cga, *geo_s),
+             SK.composite_bwd_ref(ca, cg, cga, *geo_s), COMPOSITE_GROUPS,
+             ZERO_LANES["composite"], ca[..., 9] < 0.5),
+            ("shade_bwd", MK.shade_bwd(sa, sg, sgs, *geo_m, mc.sigma),
+             MK.shade_bwd_ref(sa, sg, sgs, *geo_m, mc.sigma), SHADE_GROUPS,
+             ZERO_LANES["shade"], sa[..., 9] < 0.5)):
+        e, ok, rep = compare_bwd(torch, got, want, groups, zl, inv)
+        errs[name].append(e)
+        log(f"# kernels/train: {name} {tuple(got.shape)} "
+            + ", ".join(f"{k} {v[0]:.3g} (tol {v[1]:.3g})" for k, v in rep.items())
+            + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{name} vs twin (training rows)")
+        del got, want
+    c_valid, c_pass, c_live = composite_pairs(torch, SK, ca, sc)
+    s_valid, s_soft, s_rgb = shade_pairs(torch, SK, sa, sg, sgs, mc)
+    log(f"# train rows: composite {c_valid} valid (pixel, row) pairs, {c_pass} passing, "
+        f"{c_live} below the clamp; shade {s_valid} valid pairs, {s_soft} with a soft "
+        f"gradient, {s_rgb} winner pixels with a colour gradient")
+    kernel_rows["composite_bwd"] = (
+        lambda: SK.composite_bwd(ca, cg, cga, *geo_s),
+        lambda: SK.composite_bwd_ref(ca, cg, cga, *geo_s),
+        2 * ca.numel() * 4 + cg.numel() * 4 + cga.numel() * 4,
+        c_valid * COMPOSITE_TEST_OPS + c_pass * COMPOSITE_BWD_PASS_OPS
+        + c_live * COMPOSITE_BWD_LIVE_OPS)
+    kernel_rows["shade_bwd"] = (
+        lambda: MK.shade_bwd(sa, sg, sgs, *geo_m, mc.sigma),
+        lambda: MK.shade_bwd_ref(sa, sg, sgs, *geo_m, mc.sigma),
+        2 * sa.numel() * 4 + sg.numel() * 4 + sgs.numel() * 4,
+        s_valid * SHADE_OPS + s_soft * SHADE_BWD_SOFT_OPS + s_rgb * SHADE_BWD_RGB_OPS)
+    train_launches = launches
+    for name, (fk, fp, nbytes, nops) in kernel_rows.items():
+        ms = time_cuda(torch, fk, KERNEL_TIMING_LAUNCHES)
+        plain_ms = time_cuda(torch, fp, 2)
+        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, nops / PEAK_F32 * 1e3
+        kernels.append(dict(
+            name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
+            launches=train_launches[name], max_abs_err=max(errs[name]), ms=ms,
+            plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None))
+        log(f"# timing {name}: {ms:.4f} ms/launch, twin {plain_ms:.3f} ms, bound "
+            f"{max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB, {nops / 1e9:.2f} G ops); "
+            f"no single PyTorch call computes it (library_ms null)")
+    del ca, cg, cga, sa, sg, sgs, ra1, ra2, args, tstate, kernel_rows
+
+    # 6. the same path on the card and on the CPU at a small size ------------
     small = _small_cfg(Config)
     ctx_g = StepContext(small, 64, 64, device=dev)
     ctx_c = StepContext(small, 64, 64, device="cpu")
@@ -516,6 +860,68 @@ def main() -> int:
         if not ok:
             failures.append(f"small view {i}: card and CPU disagree")
 
+    # the training step on the card and on the CPU at the small size, from
+    # SMALL_SEEDS states
+    sflags = train_flags(step, small.model.sh_degree)
+    loss_keys = ("loss", "cycle_loss", "mask_loss", "mesh_img_loss", "laplacian_loss",
+                 "img_loss")
+
+    def leaf_err(a, b):
+        return float((a.cpu() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    def leaf_norm_err(a, b):
+        return float((a.cpu() - b).norm()) / max(float(b.norm()), 1e-30)
+
+    worst = dict(loss=0.0, gp=0.0, head=0.0, net=0.0)
+    for seed in range(SMALL_SEEDS):
+        st_c = build_shell_state(torch, small, 256, "cpu", seed=seed)
+        st_g = state_to(st_c, dev)
+        res = {}
+        for where, c, st, b in (("card", ctx_g, st_g, bench_batch(64, 64, dev)),
+                                ("cpu", ctx_c, st_c, bench_batch(64, 64, "cpu"))):
+            _, m = step.train_step(c, st, b, sflags)
+            res[where] = (m, step.loss_and_grads(c, st, b, sflags)[2])
+        (m_g, gr_g), (m_c, gr_c) = res["card"], res["cpu"]
+        d_loss = max(abs(float(m_g[k]) - float(m_c[k])) / max(abs(float(m_c[k])), 1e-20)
+                     for k in loss_keys)
+        d_gp = max(leaf_err(a, b) for a, b in zip(gr_g.gp, gr_c.gp))
+        # the appearance net's output head takes kernel 4's colour gradient
+        # through the vertex scatter and no ReLU: a unit that takes the other
+        # side of its kink on the card reaches every other leaf (the deform
+        # nets' through the appearance net's input gradient), not this one
+        leaves = {nm: [(k.startswith("head_"), a, b) for (k, _), a, b in zip(
+            net.named_parameters(), na, nb)]
+            for nm, net, na, nb in zip(type(st_c.nets)._fields, st_c.nets, gr_g.nets, gr_c.nets)}
+        head_by_net = {nm: max((leaf_err(a, b) for h, a, b in ls if h), default=0.0)
+                       for nm, ls in leaves.items()}
+        net_by_net = {nm: max(leaf_norm_err(a, b) for h, a, b in ls
+                              if not (h and nm == "appearance"))
+                      for nm, ls in leaves.items()}
+        d_head, d_net = head_by_net["appearance"], max(net_by_net.values())
+        for k, v in (("loss", d_loss), ("gp", d_gp), ("head", d_head), ("net", d_net)):
+            worst[k] = max(worst[k], v)
+        log(f"#   seed {seed}, per net: heads max rel "
+            + ", ".join(f"{nm} {v:.3g}" for nm, v in head_by_net.items())
+            + "; other leaves norm rel "
+            + ", ".join(f"{nm} {v:.3g}" for nm, v in net_by_net.items()))
+        same = all(int(m_g[k]) == int(m_c[k]) for k in ("mesh_n_verts", "mesh_n_faces",
+                                                         "mesh_overflow",
+                                                         "nonfinite_grad_leaves"))
+        ok = (same and d_loss <= TOL_SMALL_LOSS and d_gp <= TOL_SMALL_GP
+              and d_head <= TOL_SMALL_HEAD and d_net <= TOL_SMALL_NET
+              and not step_problems(torch, m_g) and not step_problems(torch, m_c))
+        log(f"# small train step, seed {seed}: card vs CPU loss terms rel {d_loss:.3g}; "
+            f"Gaussian grads rel {d_gp:.3g}; appearance head grads rel {d_head:.3g}; other "
+            f"net grads norm rel {d_net:.3g}; V {int(m_g['mesh_n_verts'])}/"
+            f"{int(m_c['mesh_n_verts'])} F {int(m_g['mesh_n_faces'])}/"
+            f"{int(m_c['mesh_n_faces'])} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"small train step, seed {seed}: card and CPU disagree")
+    log(f"# small train step, worst of {SMALL_SEEDS} seeds: loss terms {worst['loss']:.3g} "
+        f"(tol {TOL_SMALL_LOSS}), Gaussian grads {worst['gp']:.3g} (tol {TOL_SMALL_GP}), "
+        f"appearance head {worst['head']:.3g} (tol {TOL_SMALL_HEAD}), other net leaves "
+        f"{worst['net']:.3g} (tol {TOL_SMALL_NET})")
+
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
@@ -524,6 +930,31 @@ def main() -> int:
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),
           flush=True)
+    return 0
+
+
+def profile_train(torch, cfg, dev) -> int:
+    """``--profile``: one warm-up and one profiled full-width training step
+    (torch.profiler, CPU and CUDA activities).  Prints the operators with
+    the most device time, then those with the most host time.  No result
+    line."""
+    from dgmesh_torch.train import step
+    from dgmesh_torch.train.step import StepContext
+
+    ctx = StepContext(cfg, IMG, IMG, device=dev)
+    st = build_shell_state(torch, cfg, N_GAUSS, dev)
+    b = bench_batch(IMG, IMG, dev)
+    flags = train_flags(step, cfg.model.sh_degree)
+    step.train_step(ctx, st, b, flags)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step.train_step(ctx, st, b, flags)
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    log(ka.table(sort_by="self_cuda_time_total", row_limit=40, max_name_column_width=60))
+    log(ka.table(sort_by="self_cpu_time_total", row_limit=20, max_name_column_width=60))
+    log("# --profile: stopping after the profile; no result line")
     return 0
 
 

@@ -1,9 +1,10 @@
 """Carry a JAX state across: numpy leaves → the port's tensors and modules.
 
 Inputs are the JAX package's structures with every leaf already converted to
-numpy (for example ``jax.tree.map(np.asarray, state.gp)``): the
-``GaussianParams`` / ``GaussianStats`` leaves, and for each of the five nets
-flax's parameter tree, a nested dict (optionally under ``"params"``).  Flax
+numpy (for example ``jax.tree.map(np.asarray, state)``): the
+``GaussianParams`` / ``GaussianStats`` leaves and their Adam moments, for
+each of the five nets flax's parameter tree, a nested dict (optionally under
+``"params"``), and optax's ScaleByAdamState (``count``, ``mu``, ``nu``).  Flax
 names the layers ``Dense_0``, ``Dense_1``, … in creation order and the trunk
 ``MLPTrunk_0`` with ``w{i}``/``b{i}``; its ``Dense`` kernels are (in, out)
 where ``nn.Linear`` keeps (out, in).  Nothing here imports flax or JAX.
@@ -12,7 +13,7 @@ where ``nn.Linear`` keeps (out, in).  Nothing here imports flax or JAX.
 from __future__ import annotations
 
 import itertools
-from typing import Any, Mapping
+from typing import Any, List, Mapping
 
 import numpy as np
 import torch
@@ -21,7 +22,7 @@ from .config import Config
 from .device import DeviceLike, resolve_device
 from .models import mlp
 from .models.gaussians import GaussianParams, GaussianStats
-from .train.state import NetParams, TrainState, build_nets
+from .train.state import NetAdam, NetParams, TrainState, build_nets
 
 
 def _field(obj: Any, name: str):
@@ -41,29 +42,18 @@ def gaussians_from_numpy(gp, gs, device: DeviceLike = None):
             GaussianStats(*[t(_field(gs, f)) for f in GaussianStats._fields]))
 
 
-def _load_dense(layer: torch.nn.Linear, tree: Mapping) -> None:
-    with torch.no_grad():
-        layer.weight.copy_(torch.tensor(np.asarray(tree["kernel"]).T))
-        layer.bias.copy_(torch.tensor(np.asarray(tree["bias"])))
-
-
-def _load_trunk(trunk: mlp.MLPTrunk, tree: Mapping) -> None:
-    with torch.no_grad():
-        for i, layer in enumerate(trunk.layers):
-            layer.weight.copy_(torch.tensor(np.asarray(tree[f"w{i}"]).T))
-            layer.bias.copy_(torch.tensor(np.asarray(tree[f"b{i}"])))
-
-
-def load_flax_params(net: mlp._TimeConditioned, tree: Mapping) -> None:
-    """Copy one flax parameter tree into ``net`` (in place), by flax's names:
-    the timenet Denses come first, then the heads in the order
-    ``heads`` lists them."""
+def _flax_layers(net: mlp._TimeConditioned, tree: Mapping):
+    """(nn.Linear, its flax subtree with ``kernel``/``bias``) for every layer
+    of ``net``, by flax's names: the timenet Denses come first, then the
+    trunk, then the heads in the order ``heads`` lists them."""
     tree = tree.get("params", tree)
     dense = (f"Dense_{i}" for i in itertools.count())
+    out = []
     if net.is_blender:
-        _load_dense(net.timenet0, tree[next(dense)])
-        _load_dense(net.timenet1, tree[next(dense)])
-    _load_trunk(net.trunk, tree["MLPTrunk_0"])
+        out += [(net.timenet0, tree[next(dense)]), (net.timenet1, tree[next(dense)])]
+    trunk = tree["MLPTrunk_0"]
+    out += [(layer, {"kernel": trunk[f"w{i}"], "bias": trunk[f"b{i}"]})
+            for i, layer in enumerate(net.trunk.layers)]
     if isinstance(net, mlp.DeformNetwork):
         heads = [net.head_xyz, net.head_rot, net.head_scale]
         if net.with_normal:
@@ -72,8 +62,25 @@ def load_flax_params(net: mlp._TimeConditioned, tree: Mapping) -> None:
         heads = [net.head_normal]
     else:
         heads = [net.head_rgb]
-    for h in heads:
-        _load_dense(h, tree[next(dense)])
+    return out + [(h, tree[next(dense)]) for h in heads]
+
+
+def flax_leaves(net: mlp._TimeConditioned, tree: Mapping) -> List[np.ndarray]:
+    """A flax-shaped tree (parameters, their gradients or Adam moments) as
+    arrays in ``net.parameters()`` order and layout: a Dense kernel (in, out)
+    becomes the (out, in) ``weight``."""
+    by_param = {}
+    for layer, t in _flax_layers(net, tree):
+        by_param[id(layer.weight)] = np.asarray(t["kernel"]).T
+        by_param[id(layer.bias)] = np.asarray(t["bias"])
+    return [by_param[id(p)] for p in net.parameters()]
+
+
+def load_flax_params(net: mlp._TimeConditioned, tree: Mapping) -> None:
+    """Copy one flax parameter tree into ``net`` (in place)."""
+    with torch.no_grad():
+        for p, x in zip(net.parameters(), flax_leaves(net, tree)):
+            p.copy_(torch.tensor(np.ascontiguousarray(x)))
 
 
 def nets_from_flax(cfg: Config, nets, device: DeviceLike = None) -> NetParams:
@@ -85,7 +92,36 @@ def nets_from_flax(cfg: Config, nets, device: DeviceLike = None) -> NetParams:
     return NetParams(*[n.to(dev) for n in out])
 
 
-def state_from_jax(cfg: Config, gp, gs, nets, device: DeviceLike = None) -> TrainState:
-    """A JAX ``TrainState``'s model leaves (numpy) → the port's state."""
-    gp_t, gs_t = gaussians_from_numpy(gp, gs, device)
-    return TrainState(gp=gp_t, gs=gs_t, nets=nets_from_flax(cfg, nets, device))
+def net_adam_from_optax(net: mlp._TimeConditioned, opt, device: DeviceLike = None) -> NetAdam:
+    """optax's ScaleByAdamState (``count``, ``mu``, ``nu``; numpy leaves) of
+    one net → the port's NetAdam, moments in ``net.parameters()`` order."""
+    dev = resolve_device(device)
+
+    def tensors(tree):
+        return tuple(torch.tensor(np.ascontiguousarray(x), dtype=torch.float32, device=dev)
+                     for x in flax_leaves(net, tree))
+
+    return NetAdam(count=torch.tensor(int(np.asarray(_field(opt, "count"))),
+                                      dtype=torch.int32, device=dev),
+                   mu=tensors(_field(opt, "mu")), nu=tensors(_field(opt, "nu")))
+
+
+def state_from_jax(cfg: Config, state, device: DeviceLike = None) -> TrainState:
+    """A JAX ``TrainState`` with numpy leaves (``jax.tree.map(np.asarray,
+    state)``) → the port's state: parameters, statistics, the Gaussian Adam
+    moments and count, each net's optax Adam state, and the step."""
+    dev = resolve_device(device)
+    gp, gs = gaussians_from_numpy(_field(state, "gp"), _field(state, "gs"), dev)
+    g_mu, _ = gaussians_from_numpy(_field(state, "g_mu"), _field(state, "gs"), dev)
+    g_nu, _ = gaussians_from_numpy(_field(state, "g_nu"), _field(state, "gs"), dev)
+    nets = nets_from_flax(cfg, _field(state, "nets"), dev)
+    opts = _field(state, "net_opt")
+    net_opt = NetParams(*[net_adam_from_optax(net, _field(opts, name), dev)
+                          for name, net in zip(NetParams._fields, nets)])
+
+    def i32(x):
+        return torch.tensor(int(np.asarray(x)), dtype=torch.int32, device=dev)
+
+    return TrainState(gp=gp, gs=gs, nets=nets, g_mu=g_mu, g_nu=g_nu,
+                      g_count=i32(_field(state, "g_count")), net_opt=net_opt,
+                      step=i32(_field(state, "step")))

@@ -26,7 +26,7 @@ from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
-SOURCES = ("composite", "shade")
+SOURCES = ("composite", "composite_bwd", "shade", "shade_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -86,3 +86,24 @@ def check(err: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a launcher."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
+
+
+def check_rows(attrs, lanes: int, what: str) -> None:
+    """Raise unless ``attrs`` is (T,K,lanes) float32 on the CPU or a GPU."""
+    import torch
+    if attrs.dim() != 3 or attrs.shape[-1] != lanes:
+        raise ValueError(f"{what}: attrs must be (T,K,{lanes}), got {tuple(attrs.shape)}")
+    if attrs.dtype != torch.float32:
+        raise TypeError(f"{what}: attrs must be float32, got {attrs.dtype}")
+    if attrs.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cuda or cpu, not {attrs.device}")
+
+
+def check_launch(K: int, P: int, what: str, *tensors, whole_warps: bool = False) -> None:
+    """Raise unless a tile kernel can take K rows and P pixel threads (whole
+    warps where ``whole_warps``) on these contiguous tensors."""
+    if K == 0 or not 0 < P <= 1024 or (whole_warps and P % 32):
+        raise ValueError(f"{what} needs K > 0 and 0 < P <= 1024"
+                         f"{', P a multiple of 32' if whole_warps else ''} (K={K}, P={P})")
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError(f"{what}: inputs must be contiguous")

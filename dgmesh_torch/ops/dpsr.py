@@ -1,4 +1,4 @@
-"""Differentiable Poisson Surface Reconstruction (DPSR) on the 3D FFT, forward.
+"""Differentiable Poisson Surface Reconstruction (DPSR) on the 3D FFT.
 
 Counterpart of dgmesh_tpu/ops/dpsr.py (reference nvdiffrast_utils/dpsr.py:9-70
 and dpsr_utils.py).  Splat oriented point normals (or their divergence) onto
@@ -8,7 +8,10 @@ is 0 at the input points and scale so the (0,0,0) corner is ±0.5.
 
 The JAX version splats through slab matmuls and can solve with a matmul DFT
 (both for the TPU); here the splat is ``index_add_`` over the 8 periodic
-trilinear corners and the solve is ``torch.fft.rfftn``/``irfftn``.
+trilinear corners and the solve is ``torch.fft.rfftn``/``irfftn``.  The
+gradients for points and normals are autograd's of ``index_add_``, the FFTs
+and the trilinear gather; JAX's custom VJPs there (slab splats, a
+gather-only permutation) are TPU workarounds and have no counterpart.
 """
 
 from __future__ import annotations
@@ -150,13 +153,15 @@ class DPSR:
             phi = torch.fft.irfftn(phi_hat, s=self.res, dim=dims)
 
         if self.shift or self.scale:
-            fv = grid_interp(phi, points, self.res)                # (N,)
             if self.shift:
                 if point_valid is not None:
-                    denom = point_valid.sum().clamp_min(1)
-                    offset = torch.where(point_valid, fv, 0.0).sum() / denom
+                    # only the valid points: the gather's backward then does
+                    # not pile every padded point on one cell
+                    live = torch.nonzero(point_valid).squeeze(1)
+                    fv = grid_interp(phi, points[live], self.res)
+                    offset = fv.sum() / max(live.numel(), 1)
                 else:
-                    offset = fv.mean()
+                    offset = grid_interp(phi, points, self.res).mean()
                 phi = phi - offset
             if self.scale:
                 fv0 = phi[0, 0, 0]

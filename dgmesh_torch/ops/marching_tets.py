@@ -1,4 +1,4 @@
-"""Iso-surface extraction by marching tetrahedra (6-tet cube split), forward.
+"""Iso-surface extraction by marching tetrahedra (6-tet cube split).
 
 Counterpart of dgmesh_tpu/ops/marching_tets.py (replacing the reference's
 diso.DiffMC).  The tables are the JAX version's, derived the same way at
@@ -7,6 +7,8 @@ as the JAX compaction); vertices are the crossing lattice edges of the
 active cubes, with ids ``cube_gid·7 + class`` in ascending order; each face
 corner finds its vertex with ``torch.searchsorted``.  Capacities truncate
 exactly as the JAX version does and report the dropped count in ``overflow``.
+The topology carries no gradient; the vertex positions are differentiable
+in the field through the edge interpolation ``t = φ0 / (φ0 − φ1)``.
 
 Field convention: outside > 0 > inside; triangles wind right-handed around
 the outward normal.
@@ -164,7 +166,10 @@ def marching_tets(phi: torch.Tensor, cfg: MTConfig) -> MeshResult:
     f0 = phi_flat[(p0[:, 0] * res + p0[:, 1]) * res + p0[:, 2]]
     f1 = phi_flat[(p1[:, 0] * res + p1[:, 1]) * res + p1[:, 2]]
     denom = f0 - f1
-    t = (f0 / torch.where(denom.abs() < 1e-12, 1e-12, denom)).clamp(0.0, 1.0)
+    t = f0 / torch.where(denom.abs() < 1e-12, 1e-12, denom)
+    # jnp.clip's gradient at a bound: half, as minimum/maximum split ties
+    # (torch.clamp would pass all of it)
+    t = torch.minimum(torch.maximum(t, t.new_zeros(())), t.new_ones(()))
     verts = torch.zeros((cfg.max_verts, 3), dtype=phi.dtype, device=dev)
     verts[:nv] = (p0.to(phi.dtype) + t[:, None] * d.to(phi.dtype)) / (res - 1)
 

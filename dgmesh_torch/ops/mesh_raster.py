@@ -1,11 +1,14 @@
-"""Triangle mesh rasterization, forward: project, bin, shade.
+"""Triangle mesh rasterization: project, bin, shade; differentiable.
 
 Counterpart of dgmesh_tpu/ops/mesh_raster.py with ``use_pallas=True`` (every
 shipped config; replacing nvdiffrast in the reference, utils/renderer.py:33-121):
 faces are projected (``_face_screen``), binned per tile with a 1 px bbox pad
 and an optional backface cull (``rasterize``), and shaded per tile in the
-CUDA kernel (ops/mesh_raster_kernels.py): z-buffer, perspective-correct
-colour, hard coverage, winner face id and the SoftRas soft silhouette.
+CUDA kernels (ops/mesh_raster_kernels.py: kernel 3 forward, kernel 4 its
+analytic backward through rgb and the soft silhouette, paired in
+``ShadeTiles``): z-buffer, perspective-correct colour, hard coverage, winner
+face id and the SoftRas soft silhouette.  Gradients reach the vertices and
+their colours through autograd of the projection and the tile-row gathers.
 
 Camera convention: an OpenGL modelview ``pose`` (w2c, camera looking down
 −z) and projection; pixel y grows downward; pixel centres are +0.5.
@@ -18,7 +21,7 @@ from typing import NamedTuple
 import torch
 
 from .binning import bin_rects, quantize_depth, rect_from_bbox
-from .mesh_raster_kernels import shade_tiles
+from .mesh_raster_kernels import ShadeTiles
 from .splat import untile
 
 
@@ -66,21 +69,25 @@ def project_verts(verts, pose, proj, cfg: MeshRasterConfig):
     return scr, w, ok
 
 
-def _face_screen(verts, faces, face_valid, pose, proj, cfg: MeshRasterConfig):
+def _face_screen(verts, faces, face_valid, pose, proj, cfg: MeshRasterConfig,
+                 tri_w=None):
     """Per-face screen triangles (F,3,2), inv_w (F,3), valid (F,).
 
     Projects the gathered corners with ``proj @ pose`` in that association,
-    as the JAX version does."""
-    tri_w = verts[faces]                               # (F,3,3)
+    as the JAX version does.  ``tri_w`` is the optional pre-gathered
+    ``verts[faces]``, shared with the Laplacian in the training step."""
+    if tri_w is None:
+        tri_w = verts[faces]                           # (F,3,3)
     hom = torch.cat([tri_w, torch.ones_like(tri_w[..., :1])], dim=-1)
     tri, _, ok, w_safe = _to_screen(hom @ (proj @ pose).T, cfg)
     return tri, 1.0 / w_safe, face_valid & ok.all(dim=1)
 
 
-def rasterize(verts, faces, face_valid, pose, proj, cfg: MeshRasterConfig):
+def rasterize(verts, faces, face_valid, pose, proj, cfg: MeshRasterConfig,
+              tri_w=None):
     """Bin the faces per tile.  Returns the bins and the packed per-face
     shading rows (F,9): screen triangle | inv_w."""
-    tri, inv_w, fvalid = _face_screen(verts, faces, face_valid, pose, proj, cfg)
+    tri, inv_w, fvalid = _face_screen(verts, faces, face_valid, pose, proj, cfg, tri_w)
     if cfg.cull_backface:
         # screen-space signed area (y down): front faces of a closed,
         # outward-wound mesh are negative
@@ -105,16 +112,21 @@ def rasterize(verts, faces, face_valid, pose, proj, cfg: MeshRasterConfig):
 
 def tile_attrs(rast, faces, vtx_color):
     """The kernel's (T,K,24) input: screen triangle and inv_w, the valid flag,
-    the 9 corner colours, the face id, zero padding to 24 lanes."""
+    the 9 corner colours, the face id (0 in empty slots), zero padding to 24
+    lanes.  Only the valid slots are gathered, so the gathers' backward
+    scatters each face's and vertex's gradient once per tile that holds it
+    (see splat.tile_attrs)."""
     tidx = rast["bins"].tile_idx
     T, K = tidx.shape
-    gi = tidx.clamp_min(0)
-    attrs = torch.zeros((T, K, 24), dtype=torch.float32, device=tidx.device)
-    attrs[..., 0:9] = rast["pack"][gi]
-    attrs[..., 9] = (tidx >= 0).float()
-    attrs[..., 10:19] = vtx_color[faces[gi]].reshape(T, K, 9)
-    attrs[..., 19] = gi.float()
-    return attrs
+    flat = tidx.reshape(-1)
+    slots = torch.nonzero(flat >= 0).squeeze(1)
+    fi = flat[slots]
+    attrs = rast["pack"].new_zeros((T * K, 24))
+    attrs[slots, 0:9] = rast["pack"][fi]
+    attrs[:, 9] = (flat >= 0).float()
+    attrs[slots, 10:19] = vtx_color[faces[fi]].reshape(-1, 9)
+    attrs[:, 19] = flat.clamp_min(0).float()
+    return attrs.reshape(T, K, 24)
 
 
 def _untile(x, cfg: MeshRasterConfig):
@@ -123,17 +135,19 @@ def _untile(x, cfg: MeshRasterConfig):
 
 
 def render_mesh(verts, faces, face_valid, vtx_color, pose, proj, bg_color,
-                cfg: MeshRasterConfig, want_soft: bool = True):
+                cfg: MeshRasterConfig, want_soft: bool = True, tri_w=None):
     """Full mesh render (reference utils/renderer.py render_mask :33-66 +
     render_mesh :69-121).  Returns rgb (H,W,3), mask (H,W) hard coverage,
     face_id (H,W) (-1 = background), aux (binning counters), and with
-    ``want_soft`` the soft silhouette ``soft_mask`` and ``st_mask``."""
-    rast = rasterize(verts, faces, face_valid, pose, proj, cfg)
+    ``want_soft`` the soft silhouette ``soft_mask`` and ``st_mask`` (the
+    hard value with the soft gradient).  ``tri_w``: optional pre-gathered
+    ``verts[faces]``."""
+    rast = rasterize(verts, faces, face_valid, pose, proj, cfg, tri_w)
     bins = rast["bins"]
     bg = torch.as_tensor(bg_color, dtype=torch.float32, device=verts.device)
     attrs = tile_attrs(rast, faces, vtx_color)
-    rgb, hard, soft, fid = shade_tiles(attrs, cfg.tiles_x, cfg.tile_h, cfg.tile_w,
-                                       cfg.sigma)
+    rgb, hard, soft, fid = ShadeTiles.apply(attrs, cfg.tiles_x, cfg.tile_h,
+                                            cfg.tile_w, cfg.sigma)
     rgb = rgb + (1.0 - hard)[..., None] * bg[None, None, :]
     fid_out = torch.where(hard > 0.5, fid.long(), -1)
     out = dict(rgb=_untile(rgb, cfg), mask=_untile(hard, cfg),

@@ -1,9 +1,11 @@
-"""Mesh tile shading: the CUDA kernel's wrapper and its plain twin.
+"""Mesh tile shading: the CUDA kernels' wrappers and their plain twins.
 
-Counterpart of dgmesh_tpu/ops/mesh_raster_pallas.py (forward).
-``shade_tiles`` launches ``csrc/shade.cu`` for a CUDA tensor and runs the
-plain PyTorch twin ``shade_tiles_ref`` only for a CPU tensor; there is no
-fallback.
+Counterpart of dgmesh_tpu/ops/mesh_raster_pallas.py.  ``shade_tiles``
+launches ``csrc/shade.cu`` (forward) and ``shade_bwd`` launches
+``csrc/shade_bwd.cu`` (its analytic backward through rgb and soft) for a
+CUDA tensor; each runs its plain PyTorch twin (``shade_tiles_ref``,
+``shade_bwd_ref``) only for a CPU tensor; there is no fallback.
+``ShadeTiles`` pairs the two as one ``torch.autograd.Function``.
 
 Layout (T,K,24) float32 per tile row: 0-5 screen triangle | 6-8 clip 1/w |
 9 valid | 10-18 corner colours | 19 face id | 20-23 padding.  Outputs rgb
@@ -18,6 +20,7 @@ import torch
 
 from . import cuda_build
 from .splat_kernels import tile_pixels
+
 
 AREA_MIN = 1e-4
 NEG = -3.0e38
@@ -95,20 +98,12 @@ def shade_tiles(attrs: torch.Tensor, tiles_x: int, tile_h: int, tile_w: int,
 
     A CUDA tensor goes to the kernel (``shade_tiles.launches`` counts each
     launch); a CPU tensor takes the plain twin."""
-    if attrs.dim() != 3 or attrs.shape[-1] != LANES:
-        raise ValueError(f"attrs must be (T,K,{LANES}), got {tuple(attrs.shape)}")
-    if attrs.dtype != torch.float32:
-        raise TypeError(f"attrs must be float32, got {attrs.dtype}")
+    cuda_build.check_rows(attrs, LANES, "shade_tiles")
     if attrs.device.type == "cpu":
         return shade_tiles_ref(attrs, tiles_x, tile_h, tile_w, sigma)
-    if attrs.device.type != "cuda":
-        raise ValueError(f"shade_tiles runs on cuda or cpu, not {attrs.device}")
     T, K, _ = attrs.shape
     P = tile_h * tile_w
-    if K == 0 or not 0 < P <= 1024:
-        raise ValueError(f"shade_tiles needs K > 0 and 0 < P <= 1024 (K={K}, P={P})")
-    if not attrs.is_contiguous():
-        raise ValueError("attrs must be contiguous")
+    cuda_build.check_launch(K, P, "shade_tiles", attrs)
     f32 = dict(dtype=torch.float32, device=attrs.device)
     rgb = torch.empty((T, P, 3), **f32)
     hard = torch.empty((T, P), **f32)
@@ -129,3 +124,193 @@ def shade_tiles(attrs: torch.Tensor, tiles_x: int, tile_h: int, tile_w: int,
 
 
 shade_tiles.launches = 0
+
+
+def _half_split(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Share of ``a`` in the gradient of ``minimum(a, b)``: 1 where a < b,
+    0.5 at an exact tie, 0 where a > b (``jnp.minimum``'s split)."""
+    return torch.where(a < b, 1.0, torch.where(a == b, 0.5, 0.0))
+
+
+def shade_bwd_ref(attrs: torch.Tensor, g_rgb: torch.Tensor, g_soft: torch.Tensor,
+                  tiles_x: int, tile_h: int, tile_w: int, sigma: float,
+                  chunk: int = 16):
+    """Plain PyTorch twin of the backward kernel, after ``_shade_bwd_kernel``
+    (dgmesh_tpu/ops/mesh_raster_pallas.py:164-357), chunked over tiles.
+
+    Gradients reach attrs through rgb and soft only.  The gates are the
+    Pallas kernel's: the winner and ``inside`` carry none; ``AREA_MIN``
+    zeroes the barycentric branch; the normaliser is gated by S ≥ 1e-12; the
+    edge clip weights ``tg`` are 1 inside (0, 1), 0.5 at uu = 0 or 1 and 0
+    outside; the nearest-edge ``picks`` split 0.5/0.5 at exact d² ties; the
+    soft term is gated by s ≤ 1 − 1e-6.  Rows that are not valid get exactly
+    zero; lanes 9 and 19-23 are zero."""
+    T, K, _ = attrs.shape
+    d_attrs = attrs.new_zeros((T, K, LANES))
+    px_all, py_all = tile_pixels(T, tiles_x, tile_h, tile_w, 0.5, attrs.device)
+    for s in range(0, T, chunk):
+        a = attrs[s:s + chunk]                                  # (C,K,24)
+        px = px_all[s:s + chunk, None, :]                       # (C,1,P)
+        py = py_all[s:s + chunk, None, :]
+        g = g_rgb[s:s + chunk]                                  # (C,P,3)
+        gs = g_soft[s:s + chunk, None, :]                       # (C,1,P)
+        ax, ay, bx, by, cx, cy = (a[..., i:i + 1] for i in range(6))
+        iw = [a[..., 6 + j:7 + j] for j in range(3)]
+        valid = a[..., 9:10] > 0.5
+
+        # ---- the forward's selection, recomputed
+        e0 = (cx - bx) * (py - by) - (cy - by) * (px - bx)      # (C,K,P)
+        e1 = (ax - cx) * (py - cy) - (ay - cy) * (px - cx)
+        e2 = (bx - ax) * (py - ay) - (by - ay) * (px - ax)
+        area_raw = (bx - ax) * (cy - ay) - (by - ay) * (cx - ax)
+        area_live = area_raw.abs() >= AREA_MIN
+        area = torch.where(area_live, area_raw, 1.0)
+        b = [e0 / area, e1 / area, e2 / area]
+        inside = (b[0] >= 0.0) & (b[1] >= 0.0) & (b[2] >= 0.0) & valid & area_live
+        zi = b[0] * iw[0] + b[1] * iw[1] + b[2] * iw[2]
+        zkey = torch.where(inside, zi, NEG)
+        winslot = torch.argmax(zkey, dim=1, keepdim=True)       # (C,1,P) first max
+        has_win = torch.gather(inside, 1, winslot)              # (C,1,P)
+        win = (torch.zeros_like(zkey).scatter_(1, winslot, 1.0)) * has_win
+
+        def pick(x):                                            # winner's value (C,1,P)
+            return torch.gather(x.expand(-1, -1, zkey.shape[-1]), 1, winslot) * has_win
+
+        bw = [pick(bj) for bj in b]
+        ww = [pick(w) for w in iw]
+        q = [bw[j] * ww[j] for j in range(3)]
+        S_raw = q[0] + q[1] + q[2]
+        S_live = (S_raw >= 1e-12).float()
+        S = torch.clamp_min(S_raw, 1e-12)
+        pw = [qj / S for qj in q]
+
+        # ---- rgb path
+        d = d_attrs[s:s + chunk]
+        u = []
+        for j in range(3):
+            col = a[..., 10 + 3 * j:13 + 3 * j]                 # (C,K,3)
+            d[..., 10 + 3 * j:13 + 3 * j] = torch.einsum("ckp,cpd->ckd", win * pw[j], g)
+            u.append(torch.einsum("ckp,ckp->cp", win,
+                                  torch.einsum("ckd,cpd->ckp", col, g))[:, None, :])
+        ubar = pw[0] * u[0] + pw[1] * u[1] + pw[2] * u[2]
+        dq = [(u[j] - ubar) / S * S_live for j in range(3)]
+        for j in range(3):
+            d[..., 6 + j] = (win * (dq[j] * bw[j])).sum(-1)
+        alive = area_live.float()
+        de = [win * (dq[j] * ww[j]) / area * alive for j in range(3)]
+        d_area = -(de[0] * b[0] + de[1] * b[1] + de[2] * b[2])
+        # e0: v0=b v1=c; e1: v0=c v1=a; e2: v0=a v1=b
+        d_ax = de[1] * (py - cy) + de[2] * (by - py)
+        d_ay = de[1] * (cx - px) + de[2] * (px - bx)
+        d_bx = de[2] * (py - ay) + de[0] * (cy - py)
+        d_by = de[2] * (ax - px) + de[0] * (px - cx)
+        d_cx = de[0] * (py - by) + de[1] * (ay - py)
+        d_cy = de[0] * (bx - px) + de[1] * (px - ax)
+        dA = d_area.sum(-1, keepdim=True)                       # (C,K,1)
+        face = [dA * (by - cy), dA * (cx - bx), dA * (cy - ay),
+                dA * (ax - cx), dA * (-(by - ay)), dA * (bx - ax)]
+
+        # ---- soft path
+        edges = ((ax, ay, bx, by), (bx, by, cx, cy), (cx, cy, ax, ay))
+        geo = []
+        for vx0, vy0, vx1, vy1 in edges:
+            ex, ey = vx1 - vx0, vy1 - vy0
+            qx, qy = px - vx0, py - vy0
+            h_raw = ex * ex + ey * ey
+            h = torch.clamp_min(h_raw, 1e-12)
+            uu = (qx * ex + qy * ey) / h
+            t = torch.clamp(uu, 0.0, 1.0)
+            dx, dy = qx - t * ex, qy - t * ey
+            tg = torch.where((uu > 0.0) & (uu < 1.0), 1.0,
+                             torch.where((uu == 0.0) | (uu == 1.0), 0.5, 0.0))
+            geo.append((dx * dx + dy * dy, t, qx, qy, ex, ey, h, uu, tg,
+                        (h_raw >= 1e-12).float()))
+        d2 = [x[0] for x in geo]
+        m01 = torch.minimum(d2[0], d2[1])
+        d2min = torch.minimum(m01, d2[2])
+        w0a = _half_split(d2[0], d2[1])
+        wm = _half_split(m01, d2[2])
+        picks = [w0a * wm, (1.0 - w0a) * wm, 1.0 - wm]
+        dist = torch.sqrt(d2min + 1e-12)
+        signed = torch.where(inside, -dist, dist)
+        sg = torch.where(valid, torch.sigmoid(-signed / sigma), 0.0)
+        sc_live = ((sg <= 1.0 - 1e-6) & valid).float()
+        log_keep = torch.log1p(-torch.clamp(sg, 0.0, 1.0 - 1e-6))
+        M = log_keep.sum(1, keepdim=True)                       # (C,1,P)
+        d_signed = (-gs * torch.exp(M) / sigma) * sg * sc_live
+        d_dist = torch.where(inside, -d_signed, d_signed)
+        d_d2min = d_dist / (2.0 * dist)
+        dv = [[d_ax, d_ay], [d_bx, d_by], [d_cx, d_cy]]
+        for j, (_, t, qx, qy, ex, ey, h, uu, tg, hl) in enumerate(geo):
+            d_d2 = d_d2min * picks[j]
+            dx, dy = qx - t * ex, qy - t * ey
+            g2x, g2y = d_d2 * 2.0 * dx, d_d2 * 2.0 * dy
+            dt = -(g2x * ex + g2y * ey)
+            d_qx = g2x + dt * tg * ex / h
+            d_qy = g2y + dt * tg * ey / h
+            d_ex = -t * g2x + dt * tg * (qx - 2.0 * ex * uu) * hl / h
+            d_ey = -t * g2y + dt * tg * (qy - 2.0 * ey * uu) * hl / h
+            v0, v1 = j, (j + 1) % 3                             # edge v0 → v1
+            dv[v0][0] = dv[v0][0] + (-d_qx - d_ex)
+            dv[v0][1] = dv[v0][1] + (-d_qy - d_ey)
+            dv[v1][0] = dv[v1][0] + d_ex
+            dv[v1][1] = dv[v1][1] + d_ey
+        for i in range(6):
+            d[..., i] = dv[i // 2][i % 2].sum(-1) + face[i][..., 0]
+    return d_attrs
+
+
+def shade_bwd(attrs: torch.Tensor, g_rgb: torch.Tensor, g_soft: torch.Tensor,
+              tiles_x: int, tile_h: int, tile_w: int, sigma: float) -> torch.Tensor:
+    """attrs (T,K,24), g_rgb (T,P,3), g_soft (T,P) f32 → d_attrs (T,K,24).
+
+    A CUDA tensor goes to the kernel (``shade_bwd.launches`` counts each
+    launch); a CPU tensor takes the plain twin."""
+    cuda_build.check_rows(attrs, LANES, "shade_bwd")
+    T, K, _ = attrs.shape
+    P = tile_h * tile_w
+    if tuple(g_rgb.shape) != (T, P, 3) or tuple(g_soft.shape) != (T, P):
+        raise ValueError(f"cotangents must be (T,P,3) and (T,P), got "
+                         f"{tuple(g_rgb.shape)} and {tuple(g_soft.shape)}")
+    if g_rgb.dtype != torch.float32 or g_soft.dtype != torch.float32:
+        raise TypeError("cotangents must be float32")
+    if attrs.device.type == "cpu":
+        return shade_bwd_ref(attrs, g_rgb, g_soft, tiles_x, tile_h, tile_w, sigma)
+    cuda_build.check_launch(K, P, "shade_bwd", attrs, g_rgb, g_soft, whole_warps=True)
+    d_attrs = torch.empty((T, K, LANES), dtype=torch.float32, device=attrs.device)
+    lib = cuda_build.library("shade_bwd")
+    fn = lib.shade_bwd_launch
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(attrs.device).cuda_stream
+    with torch.cuda.device(attrs.device):
+        err = fn(attrs.data_ptr(), g_rgb.data_ptr(), g_soft.data_ptr(), d_attrs.data_ptr(),
+                 T, K, tiles_x, tile_h, tile_w, float(sigma), stream)
+    cuda_build.check(err, "shade_bwd")
+    shade_bwd.launches += 1
+    return d_attrs
+
+
+shade_bwd.launches = 0
+
+
+class ShadeTiles(torch.autograd.Function):
+    """Forward kernel 3, backward kernel 4; gradients reach ``attrs`` through
+    rgb and soft only (hard coverage and the face id are step functions), as
+    JAX's ``make_shade_tiles`` custom_vjp
+    (dgmesh_tpu/ops/mesh_raster_pallas.py:453-486)."""
+
+    @staticmethod
+    def forward(ctx, attrs, tiles_x: int, tile_h: int, tile_w: int, sigma: float):
+        ctx.geo = (tiles_x, tile_h, tile_w, sigma)
+        ctx.save_for_backward(attrs)
+        rgb, hard, soft, fid = shade_tiles(attrs, tiles_x, tile_h, tile_w, sigma)
+        ctx.mark_non_differentiable(hard, fid)
+        return rgb, hard, soft, fid
+
+    @staticmethod
+    def backward(ctx, g_rgb, g_hard, g_soft, g_fid):
+        (attrs,) = ctx.saved_tensors
+        d = shade_bwd(attrs, g_rgb.contiguous(), g_soft.contiguous(), *ctx.geo)
+        return d, None, None, None, None

@@ -1,9 +1,12 @@
-"""3D Gaussian splatting, forward: project, bin, composite.
+"""3D Gaussian splatting: project, bin, composite; differentiable.
 
 Counterpart of dgmesh_tpu/ops/splat.py with ``use_pallas=True`` (every shipped
 config): preprocess (EWA projection) → tile binning (ops/binning.py) →
-per-tile compositing in the CUDA kernel (ops/splat_kernels.py), then the
-background blend and the untile.
+per-tile compositing in the CUDA kernels (ops/splat_kernels.py: kernel 1
+forward, kernel 2 its analytic backward, paired in ``CompositeTiles``), then
+the background blend and the untile.  Gradients reach the Gaussians through
+autograd of the preprocess and of the tile-row gather; the binning carries
+none (integer tile lists), as in JAX where it is stop-gradient.
 
 Splat pixel centres are integer (the kernel's px = tile origin + lane);
 the mesh rasterizer's are +0.5.
@@ -18,7 +21,7 @@ import torch
 
 from . import sh as sh_ops
 from .binning import bin_rects, quantize_depth
-from .splat_kernels import composite_tiles
+from .splat_kernels import CompositeTiles
 
 NEAR_CULL = 0.2  # reference: auxiliary.h in_frustum :139
 
@@ -121,7 +124,7 @@ def preprocess(means3d, scales, quats, opacities, shs, alive, cam: CameraArrays,
     dirs = means3d - cam.campos[None, :]
     dirs = dirs / (torch.linalg.norm(dirs, dim=-1, keepdim=True) + 1e-12)
     rgb = sh_ops.eval_sh(sh_degree, shs.transpose(-1, -2), dirs) + 0.5
-    color = torch.clamp_min(rgb, 0.0)
+    color = torch.maximum(rgb, rgb.new_zeros(()))     # ties split like jnp.maximum
 
     valid = alive & in_front & det_ok & (radius > 0)
     radius = torch.where(valid, radius, 0.0)
@@ -162,15 +165,20 @@ def _pack_attrs(pre):
 
 
 def tile_attrs(tile_idx, pre):
-    """The kernel's (T,K,16) input: packed rows of each tile's Gaussians, the
-    valid flag in lane 9, zero padding to 16 lanes."""
+    """The kernel's (T,K,16) input: packed rows of each tile's Gaussians in
+    lanes 0-8, the valid flag in lane 9, zeros elsewhere and in the empty
+    slots.  Only the valid slots are gathered: the gather's backward then
+    scatters each Gaussian's gradient once per tile that holds it (gathering
+    the empty slots as row 0, as JAX does, would pile every one of them on
+    row 0 and serialise the scatter on the card)."""
     packed = _pack_attrs(pre)
-    gi = tile_idx.clamp_min(0)
-    T, K = gi.shape
-    attrs = torch.zeros((T, K, 16), dtype=torch.float32, device=packed.device)
-    attrs[..., 0:9] = packed[gi]
-    attrs[..., 9] = (tile_idx >= 0).float()
-    return attrs
+    T, K = tile_idx.shape
+    flat = tile_idx.reshape(-1)
+    slots = torch.nonzero(flat >= 0).squeeze(1)
+    attrs = packed.new_zeros((T * K, 16))
+    attrs[slots, 0:9] = packed[flat[slots]]
+    attrs[:, 9] = (flat >= 0).float()
+    return attrs.reshape(T, K, 16)
 
 
 def untile(x, tiles_x: int, tiles_y: int, tile_h: int, tile_w: int, height: int,
@@ -182,20 +190,25 @@ def untile(x, tiles_x: int, tiles_y: int, tile_h: int, tile_w: int, height: int,
 
 
 def composite(tile_idx, pre, bg, cfg: SplatConfig):
-    """Composite all tiles through the kernel; returns image (H,W,3), alpha (H,W)."""
+    """Composite all tiles through the kernels; returns image (H,W,3), alpha (H,W)."""
     attrs = tile_attrs(tile_idx, pre)
-    rgb, alpha = composite_tiles(attrs, cfg.tiles_x, cfg.tile_h, cfg.tile_w)
+    rgb, alpha = CompositeTiles.apply(attrs, cfg.tiles_x, cfg.tile_h, cfg.tile_w)
     out = rgb + (1.0 - alpha)[..., None] * bg[None, None, :]
     geo = (cfg.tiles_x, cfg.tiles_y, cfg.tile_h, cfg.tile_w, cfg.height, cfg.width)
     return untile(out, *geo), untile(alpha, *geo)
 
 
 def render(means3d, scales, quats, opacities, shs, alive, cam: CameraArrays,
-           bg_color, cfg: SplatConfig, sh_degree: int):
+           bg_color, cfg: SplatConfig, sh_degree: int, screen_offset=None):
     """Full splatting pass (reference gaussian_renderer/__init__.py:32-119).
 
-    Returns render (3,H,W), alpha (H,W), radii (N,), visibility (N,), aux."""
+    Returns render (3,H,W), alpha (H,W), radii (N,), visibility (N,), aux.
+    ``screen_offset`` (N,2), if given, is added to the projected 2D means;
+    pass zeros and take its gradient for the reference's viewspace_points
+    densification statistic (gaussian_renderer/__init__.py:41-45)."""
     pre = preprocess(means3d, scales, quats, opacities, shs, alive, cam, cfg, sh_degree)
+    if screen_offset is not None:
+        pre = dict(pre, mean2d=pre["mean2d"] + screen_offset)
     tile_idx, aux = bin_gaussians(pre, cfg)
     bg = torch.as_tensor(bg_color, dtype=torch.float32, device=means3d.device)
     img, alpha = composite(tile_idx, pre, bg, cfg)

@@ -1,8 +1,11 @@
-"""Gaussian splat tile compositing: the CUDA kernel's wrapper and its plain twin.
+"""Gaussian splat tile compositing: the CUDA kernels' wrappers and their plain twins.
 
-Counterpart of dgmesh_tpu/ops/splat_pallas.py (forward).  ``composite_tiles``
-launches ``csrc/composite.cu`` for a CUDA tensor and runs the plain PyTorch
-twin ``composite_tiles_ref`` only for a CPU tensor; there is no fallback.
+Counterpart of dgmesh_tpu/ops/splat_pallas.py.  ``composite_tiles`` launches
+``csrc/composite.cu`` (forward) and ``composite_bwd`` launches
+``csrc/composite_bwd.cu`` (its analytic backward) for a CUDA tensor; each
+runs its plain PyTorch twin (``composite_tiles_ref``, ``composite_bwd_ref``)
+only for a CPU tensor; there is no fallback.  ``CompositeTiles`` pairs the
+two as one ``torch.autograd.Function``.
 
 Layout (T,K,16) float32 per tile row: 0,1 mean2d | 2-4 conic | 5 opacity |
 6-8 rgb | 9 valid | 10-15 padding.  Outputs rgb (T,P,3) and alpha (T,P),
@@ -63,20 +66,12 @@ def composite_tiles(attrs: torch.Tensor, tiles_x: int, tile_h: int, tile_w: int)
 
     A CUDA tensor goes to the kernel (``composite_tiles.launches`` counts
     each launch); a CPU tensor takes the plain twin."""
-    if attrs.dim() != 3 or attrs.shape[-1] != LANES:
-        raise ValueError(f"attrs must be (T,K,{LANES}), got {tuple(attrs.shape)}")
-    if attrs.dtype != torch.float32:
-        raise TypeError(f"attrs must be float32, got {attrs.dtype}")
+    cuda_build.check_rows(attrs, LANES, "composite_tiles")
     if attrs.device.type == "cpu":
         return composite_tiles_ref(attrs, tiles_x, tile_h, tile_w)
-    if attrs.device.type != "cuda":
-        raise ValueError(f"composite_tiles runs on cuda or cpu, not {attrs.device}")
     T, K, _ = attrs.shape
     P = tile_h * tile_w
-    if K == 0 or not 0 < P <= 1024:
-        raise ValueError(f"composite_tiles needs K > 0 and 0 < P <= 1024 (K={K}, P={P})")
-    if not attrs.is_contiguous():
-        raise ValueError("attrs must be contiguous")
+    cuda_build.check_launch(K, P, "composite_tiles", attrs)
     rgb = torch.empty((T, P, 3), dtype=torch.float32, device=attrs.device)
     alpha = torch.empty((T, P), dtype=torch.float32, device=attrs.device)
     lib = cuda_build.library("composite")
@@ -93,3 +88,107 @@ def composite_tiles(attrs: torch.Tensor, tiles_x: int, tile_h: int, tile_w: int)
 
 
 composite_tiles.launches = 0
+
+
+def composite_bwd_ref(attrs: torch.Tensor, g_rgb: torch.Tensor, g_alpha: torch.Tensor,
+                      tiles_x: int, tile_h: int, tile_w: int, chunk: int = 64):
+    """Plain PyTorch twin of the backward kernel, after ``_composite_bwd_kernel``
+    (dgmesh_tpu/ops/splat_pallas.py:116-202), chunked over tiles.
+
+    Recomputes the forward, then
+      dc_i = Σ_p w_i g_rgb,
+      dα_i = u_i T_i − (suffix_i − g_A T_fin)/(1 − α_i),  u_i = c_i·g_rgb,
+             suffix_i = Σ_{k>i} u_k w_k  (incl[K-1] − incl of a cumsum),
+    and dα through α = o·e^power to the mean, conic and opacity.  dα is gated
+    by live = ok & (o·e^power < 0.99): at exactly 0.99 it is 0.  Rows that
+    are not valid get exactly zero; lanes 9-15 are zero."""
+    T, K, _ = attrs.shape
+    d_attrs = attrs.new_zeros((T, K, LANES))
+    px_all, py_all = tile_pixels(T, tiles_x, tile_h, tile_w, 0.0, attrs.device)
+    for s in range(0, T, chunk):
+        at = attrs[s:s + chunk]                             # (C,K,16)
+        dx = at[..., 0:1] - px_all[s:s + chunk, None, :]    # (C,K,P)
+        dy = at[..., 1:2] - py_all[s:s + chunk, None, :]
+        ca, cb, cc = at[..., 2:3], at[..., 3:4], at[..., 4:5]
+        power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+        expp = torch.exp(power)
+        raw = at[..., 5:6] * expp
+        al = torch.clamp_max(raw, ALPHA_MAX)
+        ok = (at[..., 9:10] > 0.5) & (power <= 0.0) & (al >= ALPHA_MIN)
+        al = torch.where(ok, al, 0.0)
+        live = ok & (raw < ALPHA_MAX)
+        log1m = torch.log1p(-al)
+        csum = torch.cumsum(log1m, dim=1)
+        trans = torch.exp(csum - log1m)
+        w = al * trans
+        t_fin = torch.exp(csum[:, -1:, :])                  # (C,1,P)
+        g = g_rgb[s:s + chunk]                              # (C,P,3)
+        g_a = g_alpha[s:s + chunk, None, :]                 # (C,1,P)
+        d_rgb = torch.einsum("ckp,cpd->ckd", w, g)
+        u = torch.einsum("ckd,cpd->ckp", at[..., 6:9], g)
+        incl = torch.cumsum(u * w, dim=1)
+        suffix = incl[:, -1:, :] - incl
+        d_al = u * trans - (suffix - g_a * t_fin) / (1.0 - al)
+        d_al = torch.where(live, d_al, 0.0)
+        d_pow = d_al * al
+        d = d_attrs[s:s + chunk]
+        d[..., 0] = (d_pow * (-(ca * dx + cb * dy))).sum(-1)
+        d[..., 1] = (d_pow * (-(cc * dy + cb * dx))).sum(-1)
+        d[..., 2] = (d_pow * (-0.5 * dx * dx)).sum(-1)
+        d[..., 3] = (d_pow * (-dx * dy)).sum(-1)
+        d[..., 4] = (d_pow * (-0.5 * dy * dy)).sum(-1)
+        d[..., 5] = (d_al * expp).sum(-1)
+        d[..., 6:9] = d_rgb
+    return d_attrs
+
+
+def composite_bwd(attrs: torch.Tensor, g_rgb: torch.Tensor, g_alpha: torch.Tensor,
+                  tiles_x: int, tile_h: int, tile_w: int) -> torch.Tensor:
+    """attrs (T,K,16), g_rgb (T,P,3), g_alpha (T,P) f32 → d_attrs (T,K,16).
+
+    A CUDA tensor goes to the kernel (``composite_bwd.launches`` counts each
+    launch); a CPU tensor takes the plain twin."""
+    cuda_build.check_rows(attrs, LANES, "composite_bwd")
+    T, K, _ = attrs.shape
+    P = tile_h * tile_w
+    if tuple(g_rgb.shape) != (T, P, 3) or tuple(g_alpha.shape) != (T, P):
+        raise ValueError(f"cotangents must be (T,P,3) and (T,P), got "
+                         f"{tuple(g_rgb.shape)} and {tuple(g_alpha.shape)}")
+    if g_rgb.dtype != torch.float32 or g_alpha.dtype != torch.float32:
+        raise TypeError("cotangents must be float32")
+    if attrs.device.type == "cpu":
+        return composite_bwd_ref(attrs, g_rgb, g_alpha, tiles_x, tile_h, tile_w)
+    cuda_build.check_launch(K, P, "composite_bwd", attrs, g_rgb, g_alpha, whole_warps=True)
+    d_attrs = torch.empty((T, K, LANES), dtype=torch.float32, device=attrs.device)
+    lib = cuda_build.library("composite_bwd")
+    fn = lib.composite_bwd_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(attrs.device).cuda_stream
+    with torch.cuda.device(attrs.device):
+        err = fn(attrs.data_ptr(), g_rgb.data_ptr(), g_alpha.data_ptr(),
+                 d_attrs.data_ptr(), T, K, tiles_x, tile_h, tile_w, stream)
+    cuda_build.check(err, "composite_bwd")
+    composite_bwd.launches += 1
+    return d_attrs
+
+
+composite_bwd.launches = 0
+
+
+class CompositeTiles(torch.autograd.Function):
+    """Forward kernel 1, backward kernel 2; saves ``attrs`` and recomputes the
+    rest in the backward, as JAX's ``make_composite_tiles`` custom_vjp does
+    (dgmesh_tpu/ops/splat_pallas.py:264-290)."""
+
+    @staticmethod
+    def forward(ctx, attrs, tiles_x: int, tile_h: int, tile_w: int):
+        ctx.geo = (tiles_x, tile_h, tile_w)
+        ctx.save_for_backward(attrs)
+        return composite_tiles(attrs, tiles_x, tile_h, tile_w)
+
+    @staticmethod
+    def backward(ctx, g_rgb, g_alpha):
+        (attrs,) = ctx.saved_tensors
+        d = composite_bwd(attrs, g_rgb.contiguous(), g_alpha.contiguous(), *ctx.geo)
+        return d, None, None, None

@@ -1,15 +1,18 @@
-"""The pieces of the training step that the render path runs.
+"""The training step: the mesh-phase iteration, its losses, backward and Adam.
 
-Counterpart of dgmesh_tpu/train/step.py (``StepContext``, ``Batch``,
-``_deform_all``, ``extract_mesh``, ``_mesh_colors``) and of
-dgmesh_tpu/train/loop.py::make_batch.  Float32 only, and only what the render
-path reads: ``StepFlags``, ``mlp_bf16``, the losses, the backward pass and
-Adam come with training.
+Counterpart of dgmesh_tpu/train/step.py (``StepFlags``, ``StepContext``,
+``Batch``, ``_deform_all``, ``extract_mesh``, ``_mesh_colors``,
+``loss_and_aux``, ``train_step``) and of dgmesh_tpu/train/loop.py::make_batch
+(reference train.py:129-530): deform → GS splat → cycle consistency → DPSR →
+marching tets → mesh render → mask / mesh-image / Laplacian losses → GS image
+loss → one backward → masked Gaussian Adam and per-net Adam.  Phase gates
+are ``StepFlags``.  Float32 nets only (``mlp_bf16`` is not ported); the
+anchor loss comes with the structural ops.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -18,12 +21,29 @@ from ..cameras import Camera, gl_projection_from_K
 from ..config import Config
 from ..device import DeviceLike, resolve_device
 from ..models import gaussians as G
+from ..ops import losses as L
 from ..ops import mesh_raster as MR
 from ..ops import splat
 from ..ops.dpsr import DPSR
+from ..ops.laplacian import laplacian_uniform_tri
 from ..ops.marching_tets import MTConfig, marching_tets
+from ..schedules import linear_noise
+from .state import (NetParams, TrainState, gaussian_adam_update, gaussian_group_lrs,
+                    net_adam_update, net_lrs)
 
 SMALL = 1e-6
+
+
+class StepFlags(NamedTuple):
+    """Static phase gates (dgmesh_tpu/train/step.py StepFlags, reference
+    train.py:127-304); the anchor gate comes with the structural ops."""
+    warm: bool = False                  # iter < warm_up: no deformation
+    mesh: bool = False                  # iter >= dpsr_iter: the mesh branch
+    freeze_pos: bool = False            # iter < dpsr_iter + normal_warm_up
+    use_normal: bool = False            # iter >= dpsr_iter + 2000
+    skip_gaussian_update: bool = False  # densify/anchor iterations
+    densify_stats: bool = True
+    sh_degree: int = 3
 
 
 class Batch(NamedTuple):
@@ -83,11 +103,20 @@ class StepContext:
                          device=self.device)
 
 
-def _deform_all(nets, xyz, fid, with_normal: bool):
-    """Forward deformation offsets (reference train.py:154-175); the normal
-    offset only with ``with_normal``, else zeros."""
+def _time_input(fid: torch.Tensor, noise, rows: int, like: torch.Tensor) -> torch.Tensor:
+    """The (rows,1) time column fid + noise, on the device, without a sync."""
+    t = fid.to(device=like.device, dtype=like.dtype) + noise
+    return t.reshape(1, 1).expand(rows, 1)
+
+
+def _deform_all(nets, xyz, fid, with_normal: bool, warm: bool = False, noise=0.0):
+    """Forward deformation offsets (reference train.py:154-175): zeros when
+    ``warm``; the normal offset only with ``with_normal``, else zeros."""
     M = xyz.shape[0]
-    t_in = torch.full((M, 1), float(fid), dtype=xyz.dtype, device=xyz.device)
+    if warm:
+        z3 = xyz.new_zeros((M, 3))
+        return z3, xyz.new_zeros((M, 4)), z3, z3
+    t_in = _time_input(fid, noise, M, xyz)
     xyz_sg = xyz.detach()
     d_xyz, d_rot, d_scale, _ = nets.deform(xyz_sg, t_in)
     if with_normal:
@@ -98,11 +127,19 @@ def _deform_all(nets, xyz, fid, with_normal: bool):
 
 
 def extract_mesh(ctx: StepContext, gp: G.GaussianParams, gs: G.GaussianStats,
-                 d_xyz, d_normal):
-    """DPSR → marching tets → world-space mesh (reference renderer.py:150-175)."""
+                 d_xyz, d_normal, freeze_pos: bool = False, with_diag: bool = False):
+    """DPSR → marching tets → world-space mesh (reference renderer.py:150-175).
+
+    ``freeze_pos`` stops the gradient into the point positions.  With
+    ``with_diag``, also the field-health scalars (psr range, corner level,
+    mean live normal length, density_thres), without gradient."""
     pts = gp.xyz + d_xyz
+    if freeze_pos:
+        pts = pts.detach()
     p01 = (pts - gs.gaussian_center) / gs.gaussian_scale / 2.0 + 0.5
-    p01 = p01.clamp(SMALL, 1.0 - SMALL)
+    # jnp.clip's gradient at a bound: half, as minimum/maximum split ties
+    # (torch.clamp would pass all of it)
+    p01 = torch.minimum(torch.maximum(p01, p01.new_tensor(SMALL)), p01.new_tensor(1.0 - SMALL))
     normals = gp.normal + d_normal
     psr = ctx.dpsr(p01, normals, gs.alive)
     sign = torch.sign(psr[0, 0, 0].detach())
@@ -111,7 +148,16 @@ def extract_mesh(ctx: StepContext, gp: G.GaussianParams, gs: G.GaussianStats,
     m = marching_tets(psr, ctx.mt_cfg)
     verts_w = (m.verts * 2.0 - 1.0) * gs.gaussian_scale + gs.gaussian_center
     verts_w = torch.where(m.vert_valid[:, None], verts_w, 0.0)
-    return m._replace(verts=verts_w)
+    m = m._replace(verts=verts_w)
+    if not with_diag:
+        return m
+    with torch.no_grad():
+        alive_n = gs.alive.sum().clamp_min(1)
+        diag = dict(psr_min=psr.min(), psr_max=psr.max(), psr_corner=psr[0, 0, 0].clone(),
+                    normal_norm=torch.where(gs.alive, torch.linalg.norm(normals, dim=-1),
+                                            0.0).sum() / alive_n,
+                    density_thres=gp.density_thres.clone())
+    return m, diag
 
 
 def _mesh_colors(nets, verts_w, vert_valid, fid):
@@ -122,8 +168,222 @@ def _mesh_colors(nets, verts_w, vert_valid, fid):
     the same result)."""
     n = int(vert_valid.sum())
     v = verts_w[:n]
-    t_in = torch.full((n, 1), float(fid), dtype=v.dtype, device=v.device)
+    t_in = _time_input(fid, 0.0, n, v)
     d_back, _, _, _ = nets.deform_back(v.detach(), t_in)
     color = verts_w.new_zeros((verts_w.shape[0], 3))
     color[:n] = nets.appearance(v + d_back, t_in)
     return color
+
+
+def _normal_draws(gen: Optional[torch.Generator]) -> torch.Tensor:
+    """Two standard-normal draws from ``gen`` (torch's default CPU
+    generator when None)."""
+    return torch.randn((2,), generator=gen, device="cpu" if gen is None else gen.device)
+
+
+def _time_noise(ctx: StepContext, batch: Batch, step_f, gen: Optional[torch.Generator]):
+    """The two cycle time-noise draws (train.py:160-162, 200-202): the
+    deformation's and the cycle's; none for blender data, as in every
+    shipped synthetic config."""
+    if ctx.cfg.model.is_blender:
+        return 0.0, 0.0
+    mag = batch.time_interval * linear_noise(step_f)
+    z = _normal_draws(gen).to(mag.device)
+    return z[0] * mag, z[1] * mag
+
+
+def loss_and_aux(ctx: StepContext, gp: G.GaussianParams, nets: NetParams, screen_offset,
+                 gs: G.GaussianStats, batch: Batch, step_f, flags: StepFlags,
+                 gen: Optional[torch.Generator] = None):
+    """Total loss (reference train.py:193-321) and aux: the stop-gradient loss
+    terms under ``losses``, the splat's radii and visibility, the capacity
+    counters, the PSNRs, the mesh size and the field-health scalars."""
+    cfg = ctx.cfg
+    o = cfg.optimization
+    M = gp.xyz.shape[0]
+    aux: Dict[str, torch.Tensor] = {}
+    losses: Dict[str, torch.Tensor] = {}
+    noise1, noise2 = _time_noise(ctx, batch, step_f, gen)
+
+    d_xyz, d_rot, d_scale, d_normal = _deform_all(nets, gp.xyz, batch.fid, flags.use_normal,
+                                                  flags.warm, noise1)
+
+    # --- Gaussian splat render (gaussian_renderer/__init__.py:32-119)
+    means3d = gp.xyz + d_xyz
+    out = splat.render(means3d, G.get_scaling(gp) + d_scale, G.get_rotation(gp) + d_rot,
+                       G.get_opacity(gp), G.get_features(gp), gs.alive, batch.cam,
+                       batch.bg, ctx.splat_cfg, sh_degree=flags.sh_degree,
+                       screen_offset=screen_offset)
+    image = out["render"]
+    aux["radii"] = out["radii"].detach()
+    aux["visibility"] = out["visibility"]
+    aux["splat_overflow"] = out["aux"]["tile_overflow"]
+    aux["splat_dup_overflow"] = out["aux"]["dup_overflow"]
+
+    # --- cycle consistency (train.py:198-240)
+    if not flags.warm:
+        M_t = _time_input(batch.fid, noise2, M, gp.xyz)
+        d_back, d_rot_back, d_scale_back, _ = nets.deform_back(means3d.detach(), M_t)
+        n_live = gs.alive.sum()
+
+        def masked_l1(a, b):
+            diff = torch.where(gs.alive[:, None], a - b, 0.0)
+            return diff.abs().sum() / (n_live * a.shape[-1]).clamp_min(1)
+
+        cyc = [masked_l1(-d_back, d_xyz), masked_l1(-d_rot_back, d_rot),
+               masked_l1(-d_scale_back, d_scale)]
+        if flags.use_normal:
+            d_normal_back = nets.deform_back_normal(gp.xyz.detach(), M_t)
+            cyc.append(masked_l1(-d_normal_back, d_normal))
+        losses["cycle_loss"] = sum(cyc[1:], cyc[0]) / float(len(cyc))
+
+    # --- mesh branch (train.py:248-285)
+    if flags.mesh:
+        mesh, mesh_diag = extract_mesh(ctx, gp, gs, d_xyz, d_normal, flags.freeze_pos,
+                                       with_diag=True)
+        aux.update(mesh_diag)
+        vtx_color = _mesh_colors(nets, mesh.verts, mesh.vert_valid, batch.fid)
+        # one verts[faces] gather shared by the raster and the Laplacian, of
+        # the valid faces (a prefix) only: the padding faces all point at
+        # vertex 0, and their gather's backward would pile on it
+        nf = int(mesh.n_faces)
+        tri_w = mesh.verts.new_zeros(mesh.faces.shape + (3,))
+        tri_w[:nf] = mesh.verts[mesh.faces[:nf]]
+        mout = MR.render_mesh(mesh.verts, mesh.faces, mesh.face_valid, vtx_color,
+                              batch.mesh_pose, batch.mesh_proj, batch.bg, ctx.mr_cfg,
+                              want_soft=True, tri_w=tri_w)
+        # straight-through mask: the hard coverage value, the soft gradient
+        mask = mout["st_mask"]
+        mesh_image = mout["rgb"].permute(2, 0, 1)
+        losses["mask_loss"] = L.l1_loss(mask, batch.gt_mask) * 100.0 * o.mask_loss_weight
+        losses["mesh_img_loss"] = (L.image_loss(mesh_image, batch.gt_image, o.lambda_dssim)
+                                   * o.mesh_img_loss_weight)
+        t_iter = step_f / o.iterations
+        losses["laplacian_loss"] = (
+            laplacian_uniform_tri(tri_w, mesh.verts, mesh.faces, mesh.face_valid)
+            * 1000.0 * cfg.model.laplacian_loss_weight * (1.0 - t_iter))
+        aux["mesh_psnr"] = L.psnr(mesh_image.detach(), batch.gt_image)
+        aux["mesh_overflow"] = mesh.overflow
+        aux["mesh_n_verts"] = mesh.n_verts
+        aux["mesh_n_faces"] = mesh.n_faces
+        aux["raster_overflow"] = mout["aux"]["tile_overflow"]
+
+    # --- GS image loss (train.py:306-312)
+    losses["img_loss"] = L.image_loss(image, batch.gt_image, o.lambda_dssim)
+    aux["img_psnr"] = L.psnr(image.detach(), batch.gt_image)
+
+    total = image.new_zeros(())
+    for v in losses.values():
+        total = total + v
+    aux["losses"] = {k: v.detach() for k, v in losses.items()}
+    return total, aux
+
+
+class Grads(NamedTuple):
+    gp: G.GaussianParams            # one per Gaussian leaf
+    nets: NetParams                 # per net, one per tensor of net.parameters()
+    screen: torch.Tensor            # (M,2) view-space (screen_offset) gradient
+
+
+def backward(loss: torch.Tensor, gp: G.GaussianParams, nets: NetParams,
+             screen: torch.Tensor) -> Grads:
+    """d loss / d every Gaussian leaf, net parameter and the screen offset;
+    zeros for a leaf the loss does not reach (as JAX's grad gives)."""
+    params = [list(n.parameters()) for n in nets]
+    inputs = list(gp) + [screen] + [p for ps in params for p in ps]
+    grads = torch.autograd.grad(loss, inputs, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(inputs, grads)]
+    n = len(gp)
+    g_nets, i = [], n + 1
+    for ps in params:
+        g_nets.append(grads[i:i + len(ps)])
+        i += len(ps)
+    return Grads(gp=G.GaussianParams(*grads[:n]), nets=NetParams(*g_nets), screen=grads[n])
+
+
+def loss_and_grads(ctx: StepContext, state: TrainState, batch: Batch, flags: StepFlags,
+                   gen: Optional[torch.Generator] = None):
+    """The forward (``loss_and_aux``) and the backward of one step, from
+    ``state`` (which is not modified).  Returns (loss, aux, Grads)."""
+    M = state.gp.xyz.shape[0]
+    gp = G.GaussianParams(*[x.detach().requires_grad_(True) for x in state.gp])
+    screen = state.gp.xyz.new_zeros((M, 2), requires_grad=True)
+    loss, aux = loss_and_aux(ctx, gp, state.nets, screen, state.gs, batch,
+                             state.step.to(torch.float32), flags, gen)
+    return loss.detach(), aux, backward(loss, gp, state.nets, screen)
+
+
+def sanitize(grads: Grads):
+    """Zero every gradient leaf that holds a non-finite value, and count them
+    (JAX's sanitiser, dgmesh_tpu/train/step.py:410-431).  No host sync."""
+    bad = torch.zeros((), dtype=torch.int32, device=grads.screen.device)
+
+    def clean(leaves):
+        nonlocal bad
+        out = []
+        for g in leaves:
+            ok = torch.isfinite(g).all()
+            bad = bad + (~ok).to(torch.int32)
+            out.append(torch.where(ok, g, 0.0))
+        return out
+
+    gp = G.GaussianParams(*clean(grads.gp))
+    nets = NetParams(*[clean(g) for g in grads.nets])
+    return grads._replace(gp=gp, nets=nets), bad
+
+
+def apply_updates(ctx: StepContext, state: TrainState, aux, grads: Grads,
+                  flags: StepFlags) -> TrainState:
+    """The densify statistics (train.py:489-496) and the optimizer steps:
+    masked Gaussian Adam (unless ``skip_gaussian_update``) and Adam on each
+    net that the phase trains (train_step :443-457); an inactive net keeps
+    its parameters and moments.  Returns the new state."""
+    gs = state.gs
+    if flags.densify_stats:
+        vis = aux["visibility"] & gs.alive
+        gs = gs._replace(
+            max_radii2d=torch.where(vis, torch.maximum(gs.max_radii2d, aux["radii"]),
+                                    gs.max_radii2d),
+            xyz_grad_accum=gs.xyz_grad_accum + torch.where(
+                vis, torch.linalg.norm(grads.screen, dim=-1), 0.0),
+            denom=gs.denom + vis.to(gs.denom.dtype))
+    step_f = state.step.to(torch.float32)
+    if flags.skip_gaussian_update:
+        gp, g_mu, g_nu, g_count = state.gp, state.g_mu, state.g_nu, state.g_count
+    else:
+        gp, g_mu, g_nu, g_count = gaussian_adam_update(
+            state.gp, grads.gp, state.g_mu, state.g_nu, state.g_count,
+            gaussian_group_lrs(state.step, ctx.cfg), gs.alive)
+    nlrs = net_lrs(step_f, ctx.cfg)
+    active = dict(deform=not flags.warm, deform_normal=flags.use_normal,
+                  deform_back=not flags.warm, deform_back_normal=flags.use_normal,
+                  appearance=flags.mesh)
+    nets, opts = [], []
+    for name in NetParams._fields:
+        net, opt = getattr(state.nets, name), getattr(state.net_opt, name)
+        if active[name]:
+            net, opt = net_adam_update(net, getattr(grads.nets, name), opt,
+                                       getattr(nlrs, name))
+        nets.append(net)
+        opts.append(opt)
+    return TrainState(gp=gp, gs=gs, nets=NetParams(*nets), g_mu=g_mu, g_nu=g_nu,
+                      g_count=g_count, net_opt=NetParams(*opts), step=state.step + 1)
+
+
+METRIC_KEYS = ("mesh_psnr", "mesh_overflow", "splat_overflow", "splat_dup_overflow",
+               "raster_overflow", "mesh_n_verts", "mesh_n_faces", "psr_min", "psr_max",
+               "psr_corner", "normal_norm", "density_thres")
+
+
+def train_step(ctx: StepContext, state: TrainState, batch: Batch, flags: StepFlags,
+               gen: Optional[torch.Generator] = None):
+    """One optimisation step (dgmesh_tpu/train/step.py::train_step); returns
+    (new_state, metrics).  ``state`` is not modified, so a step can be taken
+    again from it; ``gen`` draws the time noise of non-blender data."""
+    loss, aux, grads = loss_and_grads(ctx, state, batch, flags, gen)
+    grads, nonfinite = sanitize(grads)
+    new_state = apply_updates(ctx, state, aux, grads, flags)
+    metrics = dict(loss=loss, **aux["losses"], img_psnr=aux["img_psnr"],
+                   n_alive=new_state.gs.alive.sum(), nonfinite_grad_leaves=nonfinite)
+    metrics.update({k: aux[k] for k in METRIC_KEYS if k in aux})
+    return new_state, metrics

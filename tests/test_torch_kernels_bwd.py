@@ -1,0 +1,182 @@
+"""The port's backward-kernel twins against the JAX Pallas backward kernels
+(interpret mode), and the autograd Functions that pair them with the forward
+kernels.
+
+``composite_bwd_ref`` and ``shade_bwd_ref`` are the plain PyTorch twins of
+the port's CUDA kernels ``csrc/composite_bwd.cu`` and ``csrc/shade_bwd.cu``;
+on the CPU the wrappers run them.  The same seeded rows and cotangents go
+through ``composite_bwd_pallas`` / ``shade_bwd_pallas``.  The shade rows hold
+built ties (a pixel centre on a vertex, on an edge's interior, on the
+symmetry axis of a triangle; uu exactly 0 and 1) where the Pallas kernel
+splits gradients in half.  The CUDA kernels themselves are held against
+these twins on the GPU by chip_smoke.py.
+"""
+
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402  (seeded rows shared with the GPU check)
+from dgmesh_torch.ops import mesh_raster_kernels as MK  # noqa: E402
+from dgmesh_torch.ops import splat_kernels as SK  # noqa: E402
+from dgmesh_tpu.ops.mesh_raster_pallas import shade_bwd_pallas  # noqa: E402
+from dgmesh_tpu.ops.splat_pallas import composite_bwd_pallas  # noqa: E402
+
+torch.set_num_threads(1)
+
+TILES_X, TILE = 2, 16
+T, P = 4, 256               # 2 x 2 tiles of 16 x 16
+
+
+def _area(a):
+    return ((a[..., 2] - a[..., 0]) * (a[..., 5] - a[..., 1])
+            - (a[..., 3] - a[..., 1]) * (a[..., 4] - a[..., 0]))
+
+
+@pytest.mark.parametrize("seed,K", [(0, 32), (1, 48)])
+def test_composite_bwd_twin_matches_pallas(seed, K):
+    """Every lane, abs 1e-5 + rel 1e-5 of the lane's largest value (the
+    Pallas kernel takes its prefix sums by tril matmul, the twin by cumsum);
+    invalid rows and lanes 9-15 exactly 0 on both sides."""
+    rng = np.random.default_rng(seed)
+    a = chip_smoke.random_composite_attrs(rng, T, K, TILES_X, TILE)
+    g, ga = chip_smoke.cotangents(rng, T, P)
+    want = np.asarray(composite_bwd_pallas(jnp.asarray(a), jnp.asarray(g), jnp.asarray(ga),
+                                           TILES_X, TILE, TILE, interpret=True))
+    got = SK.composite_bwd_ref(torch.as_tensor(a), torch.as_tensor(g), torch.as_tensor(ga),
+                               TILES_X, TILE, TILE).numpy()
+    for lane in range(16):
+        tol = 1e-5 + 1e-5 * np.abs(want[..., lane]).max()
+        np.testing.assert_allclose(got[..., lane], want[..., lane], rtol=0, atol=tol,
+                                   err_msg=f"lane {lane}")
+    invalid = a[..., 9] < 0.5
+    assert invalid.any() and not got[invalid].any() and not want[invalid].any()
+    assert not got[..., 9:].any()
+    assert np.abs(got[..., :9]).max(axis=(0, 1)).min() > 1e-3     # every lane is live
+
+
+@pytest.mark.parametrize("seed,K,sigma", [(0, 32, 1.0), (1, 40, 0.7)])
+def test_shade_bwd_twin_matches_pallas_with_ties(seed, K, sigma):
+    """Every lane, abs 1e-5 + rel 1e-5 of the lane's largest value, on rows
+    with built ties (the half-gradient splits agree exactly, or the error
+    would be half a row's term).  Slivers (|area| < AREA_MIN) put a and c
+    ~1e-5 px apart: the gradient of the distance to that ~1e-5 px edge is
+    ill-conditioned in float32 and moves with the rounding of each
+    multiply-add (the JAX CPU backend fuses some), so on sliver rows lanes
+    0, 1, 4 and 5 are left out here; the card check (chip_smoke.py) holds
+    the kernel to the twin there, both without fused multiply-adds.
+    Invalid rows and lanes 9, 19-23 exactly 0."""
+    rng = np.random.default_rng(seed)
+    a = chip_smoke.shade_tie_attrs(rng, T, K, TILES_X, TILE)
+    g, gs = chip_smoke.cotangents(rng, T, P)
+    want = np.asarray(shade_bwd_pallas(jnp.asarray(a), jnp.asarray(g), jnp.asarray(gs),
+                                       TILES_X, TILE, TILE, sigma, interpret=True))
+    got = MK.shade_bwd_ref(torch.as_tensor(a), torch.as_tensor(g), torch.as_tensor(gs),
+                           TILES_X, TILE, TILE, sigma).numpy()
+    sliver = (np.abs(_area(a)) < 1e-4) & (a[..., 9] > 0.5)
+    assert sliver.any()
+    for lane in range(24):
+        tol = 1e-5 + 1e-5 * np.abs(want[..., lane]).max()
+        keep = ~sliver if lane in (0, 1, 4, 5) else np.ones_like(sliver)
+        np.testing.assert_allclose(got[..., lane][keep], want[..., lane][keep], rtol=0,
+                                   atol=tol, err_msg=f"lane {lane}")
+    invalid = a[..., 9] < 0.5
+    assert invalid.any() and not got[invalid].any() and not want[invalid].any()
+    assert not got[..., [9, 19, 20, 21, 22, 23]].any()
+
+
+def test_shade_tie_rows_hold_the_ties():
+    """The built rows do produce the tie cases: a pixel centre exactly on a
+    vertex (uu 0 on one edge, 1 on the other, equal d2) and exactly on an
+    edge."""
+    rng = np.random.default_rng(0)
+    a = chip_smoke.shade_tie_attrs(rng, T, 32, TILES_X, TILE)
+    px = (np.arange(T)[:, None] % TILES_X) * TILE + np.arange(P)[None] % TILE + 0.5
+    py = (np.arange(T)[:, None] // TILES_X) * TILE + np.arange(P)[None] // TILE + 0.5
+    on_vertex = ((a[:, 0::8, 0][..., None] == px[:, None]) &
+                 (a[:, 0::8, 1][..., None] == py[:, None])).any(-1)
+    assert on_vertex[:, 0].all()                  # kind 0 rows: vertex a on a centre
+    mid = (a[:, 8, 0] + a[:, 8, 2]) / 2           # kind 1 rows: centre mid-edge
+    assert ((mid[:, None] == px) & (a[:, 8, 1][:, None] == py)).any(-1).all()
+    axis = a[:, 16, 0]                            # kind 2 rows: symmetric about x
+    assert ((a[:, 16, 2] + a[:, 16, 4]) / 2 == axis).all()
+    assert ((axis[:, None] == px).any(-1)).all()
+
+
+def test_composite_function_matches_autograd_of_forward_twin():
+    """CompositeTiles.backward (the analytic kernel-2 twin) against autograd
+    of the forward twin, abs 1e-5 + rel 1e-5, on random rows where no
+    o·e^power sits exactly at the 0.99 clamp."""
+    rng = np.random.default_rng(5)
+    a = torch.as_tensor(chip_smoke.random_composite_attrs(rng, T, 32, TILES_X, TILE))
+    g, ga = (torch.as_tensor(x) for x in chip_smoke.cotangents(rng, T, P))
+    x1 = a.clone().requires_grad_(True)
+    rgb, alpha = SK.CompositeTiles.apply(x1, TILES_X, TILE, TILE)
+    (d1,) = torch.autograd.grad((rgb * g).sum() + (alpha * ga).sum(), x1)
+    x2 = a.clone().requires_grad_(True)
+    rgb2, alpha2 = SK.composite_tiles_ref(x2, TILES_X, TILE, TILE)
+    (d2,) = torch.autograd.grad((rgb2 * g).sum() + (alpha2 * ga).sum(), x2)
+    assert torch.equal(rgb, rgb2.detach()) and torch.equal(alpha, alpha2.detach())
+    tol = 1e-5 + 1e-5 * float(d2.abs().max())
+    torch.testing.assert_close(d1[..., :10], d2[..., :10], rtol=0, atol=tol)
+
+
+def test_shade_function_matches_autograd_of_forward_twin():
+    """ShadeTiles.backward (the analytic kernel-4 twin) against autograd of
+    the forward twin through rgb and soft, abs 1e-5 + rel 1e-5, on random
+    rows with no half-gradient ties (no built ties; slivers made invalid)."""
+    rng = np.random.default_rng(6)
+    a = chip_smoke.random_shade_attrs(rng, T, 32, TILES_X, TILE)
+    a[..., 9] *= np.abs(_area(a)) > 1e-2
+    a = torch.as_tensor(a)
+    g, gs = (torch.as_tensor(x) for x in chip_smoke.cotangents(rng, T, P))
+    x1 = a.clone().requires_grad_(True)
+    rgb, hard, soft, fid = MK.ShadeTiles.apply(x1, TILES_X, TILE, TILE, 1.0)
+    assert not hard.requires_grad and not fid.requires_grad
+    (d1,) = torch.autograd.grad((rgb * g).sum() + (soft * gs).sum(), x1)
+    x2 = a.clone().requires_grad_(True)
+    rgb2, _, soft2, _ = MK.shade_tiles_ref(x2, TILES_X, TILE, TILE, 1.0)
+    (d2,) = torch.autograd.grad((rgb2 * g).sum() + (soft2 * gs).sum(), x2)
+    tol = 1e-5 + 1e-5 * float(d2[..., :19].abs().max())
+    torch.testing.assert_close(d1[..., :19], d2[..., :19], rtol=0, atol=tol)
+    assert float(d1[..., 10:19].abs().max()) > 0.1 and float(d1[..., :6].abs().max()) > 0.01
+
+
+def test_bwd_wrappers_take_the_twin_on_cpu_without_counting():
+    rng = np.random.default_rng(3)
+    a = torch.as_tensor(chip_smoke.random_composite_attrs(rng, T, 16, TILES_X, TILE))
+    s = torch.as_tensor(chip_smoke.random_shade_attrs(rng, T, 16, TILES_X, TILE))
+    g, g1 = (torch.as_tensor(x) for x in chip_smoke.cotangents(rng, T, P))
+    n1, n2 = SK.composite_bwd.launches, MK.shade_bwd.launches
+    assert torch.equal(SK.composite_bwd(a, g, g1, TILES_X, TILE, TILE),
+                       SK.composite_bwd_ref(a, g, g1, TILES_X, TILE, TILE))
+    assert torch.equal(MK.shade_bwd(s, g, g1, TILES_X, TILE, TILE, 1.0),
+                       MK.shade_bwd_ref(s, g, g1, TILES_X, TILE, TILE, 1.0))
+    assert (SK.composite_bwd.launches, MK.shade_bwd.launches) == (n1, n2)
+
+
+@pytest.mark.parametrize("which", ["composite", "shade"])
+def test_bwd_wrappers_check_their_inputs(which):
+    lanes = 16 if which == "composite" else 24
+
+    def fn(x, g, g1):
+        if which == "composite":
+            return SK.composite_bwd(x, g, g1, TILES_X, TILE, TILE)
+        return MK.shade_bwd(x, g, g1, TILES_X, TILE, TILE, 1.0)
+
+    g, g1 = torch.zeros((T, P, 3)), torch.zeros((T, P))
+    with pytest.raises(ValueError):
+        fn(torch.zeros((T, 8, lanes + 1)), g, g1)
+    with pytest.raises(TypeError):
+        fn(torch.zeros((T, 8, lanes), dtype=torch.float64), g, g1)
+    with pytest.raises(ValueError):
+        fn(torch.zeros((T, 8, lanes)), g[:, :-1], g1)
+    with pytest.raises(TypeError):
+        fn(torch.zeros((T, 8, lanes)), g, g1.double())

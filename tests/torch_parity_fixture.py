@@ -42,10 +42,12 @@ ROOMY = dict(max_verts=16384, max_faces=32768, max_faces_per_tile=1024,
              max_face_dup=1 << 16, mr_cull_backface=True)
 
 
-def jax_fixture(head_std=1e-3, seed=0, **caps):
+def jax_fixture(head_std=1e-3, seed=0, is_blender=True, **caps):
     """(cfg, img, ctx, state, batch) on the JAX side, Pallas kernels on;
-    ``caps`` override TpuParams capacities."""
+    ``caps`` override TpuParams capacities.  ``is_blender=False`` gives the
+    nets of real captures (no timenet) and the step's time noise."""
     cfg, img = ge._tiny_cfg()
+    cfg.model.is_blender = is_blender
     cfg.tpu.use_pallas = True
     for k, v in caps.items():
         setattr(cfg.tpu, k, v)
@@ -63,8 +65,7 @@ def port_fixture(cfg, img, state):
     from dgmesh_torch.train.step import StepContext, make_batch
 
     tcfg = Config.from_dict(cfg.to_dict())
-    tstate = convert.state_from_jax(tcfg, to_numpy(state.gp), to_numpy(state.gs),
-                                    to_numpy(state.nets), device="cpu")
+    tstate = convert.state_from_jax(tcfg, to_numpy(state), device="cpu")
     # the camera of _make_state_and_batch
     c2w = np.eye(4, dtype=np.float32)
     c2w[2, 3] = 2.5
@@ -75,3 +76,12 @@ def port_fixture(cfg, img, state):
 
 def t(x, dtype=torch.float32):
     return torch.tensor(np.asarray(x), dtype=dtype)
+
+
+def port_batch(batch):
+    """A JAX ``Batch`` (its camera arrays, GT image and mask) as the port's."""
+    from dgmesh_torch.ops.splat import CameraArrays
+    from dgmesh_torch.train.step import Batch
+    b = to_numpy(batch)
+    return Batch(cam=CameraArrays(*[t(x) for x in b.cam]),
+                 **{f: t(getattr(b, f)) for f in Batch._fields if f != "cam"})
