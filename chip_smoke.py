@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # from the root of a checkout, one GPU
 
     python3 chip_smoke.py --kernels-only   # phases 1-3, then stop (no result)
+    python3 chip_smoke.py --profile        # profile a float32 and a fused step
 
 Phases; any failure exits non-zero and prints no result:
   1. card     — the card's name and power limit (nvidia-smi);
@@ -14,7 +15,8 @@ Phases; any failure exits non-zero and prints no result:
                 the edge cases (invalid rows, alpha-clamped rows, slivers
                 below AREA_MIN, back faces, exact z ties; for the backward
                 kernels random cotangents, and built ties where the shade
-                backward splits gradients in half);
+                backward splits gradients in half); the fused trunk
+                (kernels 5 and 6) at 131,072 and 479,966 (ragged) rows;
   4. render   — configs/synthetic-quality-288.yaml with bench.py's shell
                 state (100k Gaussians, radius 0.45, seed 0) and seeded random
                 nets: render_frame for 4 orbit views at 800², grid 288, with
@@ -36,15 +38,27 @@ Phases; any failure exits non-zero and prints no result:
                 to a largest |value| of 1); all four kernels timed, each
                 beside the bound of the work its function needs on these
                 rows;
+     5f: the same in the fused configuration (tpu.mlp_bf16 and
+                tpu.mlp_fused set here): every kernel counted, kernels 5 and
+                6 six times a step; the stages; kernels 5 and 6 held against
+                their twins on every trunk call of a step (cotangents scaled
+                to 1), timed on the largest beside their bound and the bf16
+                mode's chain of cuBLAS GEMMs;
+     5g: the bf16 (cuBLAS) configuration, bench.py's own precision:
+                the same steps and checks and the stages, reported; then the
+                three steps side by side;
   6. check    — render, and a training step from each of SMALL_SEEDS
                 states, on the card and on the CPU (the plain twins) at a
-                small size with room in the mesh caps must agree;
+                small size with room in the mesh caps must agree; the
+                training step again in the fused configuration, from
+                SMALL_SEEDS_FUSED states;
   7. result   — one JSON line of per-kernel numbers, then the last line
                 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -64,6 +78,9 @@ CONFIG = os.path.join(ROOT, "configs", "synthetic-quality-288.yaml")
 # cores, and device memory bandwidth.  Used only for bound_ms.
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
+# ... and the dense bf16 tensor-core rate (NVIDIA H100 SXM data sheet,
+# without sparsity), the bound of kernels 5 and 6
+PEAK_BF16_TC = 989e12
 
 # Float32 operations the function needs, counted from the kernels' source
 # (an exp, log1p, sqrt, division, compare or select counts as one
@@ -87,11 +104,15 @@ SHADE_BWD_RGB_OPS = 117       # pixels with a winner and a non-zero g_rgb: the
 SOURCES = {"composite_tiles": "dgmesh_torch/csrc/composite.cu",
            "composite_bwd": "dgmesh_torch/csrc/composite_bwd.cu",
            "shade_tiles": "dgmesh_torch/csrc/shade.cu",
-           "shade_bwd": "dgmesh_torch/csrc/shade_bwd.cu"}
+           "shade_bwd": "dgmesh_torch/csrc/shade_bwd.cu",
+           "trunk_fwd": "dgmesh_torch/csrc/mlp_fwd.cu",
+           "trunk_bwd": "dgmesh_torch/csrc/mlp_bwd.cu"}
 REPLACES = {"composite_tiles": "dgmesh_tpu/ops/splat_pallas.py:34",
             "composite_bwd": "dgmesh_tpu/ops/splat_pallas.py:116",
             "shade_tiles": "dgmesh_tpu/ops/mesh_raster_pallas.py:40",
-            "shade_bwd": "dgmesh_tpu/ops/mesh_raster_pallas.py:164"}
+            "shade_bwd": "dgmesh_tpu/ops/mesh_raster_pallas.py:164",
+            "trunk_fwd": "dgmesh_tpu/ops/mlp_pallas.py:36",
+            "trunk_bwd": "dgmesh_tpu/ops/mlp_pallas.py:62"}
 
 DEVICE = "cuda"
 KERNELS_ONLY = "--kernels-only" in sys.argv[1:]   # build and check, then stop
@@ -116,6 +137,39 @@ TOL_SMALL_NET = 3e-2   # ... the other net leaves, ‖Δ‖/‖CPU‖ per leaf (
                        #     every layer below it moves: tests/test_torch_train.py);
                        #     ~3x the largest of eight sound card runs (0.0047-0.0108)
 SMALL_SEEDS = 6        # states (points and nets) of the small training check
+# Kernels 5 and 6 against their twins.  Both sum exact bf16 products in
+# float32 but in another order, so now and then an activation rounds to the
+# neighbouring bf16 value and the change runs down the later layers, where
+# it may move a pre-activation across 0 and flip a ReLU mask (the row's
+# gradient then differs at that unit by its whole value).  The limits are
+# at least twice how far summation order alone moves the twins on these
+# weights and rows: the float32 twins against twins that sum in float64
+# (tests/test_torch_mlp_fused.py::test_twins_summation_order_spread).  dx
+# is not held element by element: a mask flip changes whole elements.
+TOL_MLP_FWD_MAX = 2e-2    # output: max |Δ| / max |twin|
+TOL_MLP_FWD_NORM = 2e-3   # output: ‖Δ‖ / ‖twin‖
+TOL_MLP_BWD_NORM = 3e-2   # dx, dW, db: ‖Δ‖ / ‖twin‖
+TOL_MLP_BWD_MAX = 1e-1    # dW, db: max |Δ| / max |twin|
+MLP_ROWS = (131_072, 479_966)   # the step's Gaussian slots and mesh vertices
+MLP_DIN = 93                    # blender nets: 63 position + 30 timenet lanes
+TRUNKS = 6    # fused trunks per step: deform, deform_normal, the two cycle nets,
+              # deform_back and appearance on the mesh vertices
+# The small card-vs-CPU step in the fused configuration.  Card and CPU sum
+# the trunk's bf16 products in other orders, so an activation may round to
+# the neighbouring bf16 value and tip the ReLU masks below it (TOL_MLP_*).
+# The loss limit is the float32 step's.  The appearance head sees the bf16
+# trunk output, where a flip is one bf16 ulp of one element; the other net
+# leaves move with every mask a flip tips; the Gaussian leaves take the
+# appearance trunk's input gradient (kernel 6's dx) through the mesh
+# vertices, where a tipped mask changes whole elements.  Each limit is
+# 3-4x the worst of seeds 0-5 in the first card run of this check (head
+# 2.89e-3, other leaves 4.69e-2, Gaussian leaves 6.93e-3: the float32
+# step's 5e-3 for these, taken over unexamined, failed on one seed).
+# Seeds 6-11 were added after the limits were set, as held-out states.
+TOL_SMALL_HEAD_FUSED = 1e-2
+TOL_SMALL_NET_FUSED = 2e-1
+TOL_SMALL_GP_FUSED = 2e-2
+SMALL_SEEDS_FUSED = 2 * SMALL_SEEDS
 
 
 def log(msg: str) -> None:
@@ -202,6 +256,45 @@ def shade_tie_attrs(rng, T, K, tiles_x, tile):
         a[:, k, 0:6] = np.stack(tri, -1)
         a[:, k, 9] = 1.0
     return a
+
+
+def random_trunk(torch, din, device, seed):
+    """A flax-initialised 8x256 trunk (lecun-normal kernels) with seeded
+    N(0, 0.05) biases in place of flax's zeros, so the bias add is
+    exercised; with its bf16 pack and float32 biases."""
+    from dgmesh_torch.models.mlp import MLPTrunk
+    from dgmesh_torch.ops import mlp_fused as MF
+    gen = torch.Generator().manual_seed(seed)
+    trunk = MLPTrunk(din, gen=gen)
+    with torch.no_grad():
+        for layer in trunk.layers:
+            layer.bias.normal_(0.0, 0.05, generator=gen)
+    trunk = trunk.to(device)
+    wpack, bpack = MF.pack_trunk(trunk, din)
+    return trunk, wpack.detach().to(torch.bfloat16).contiguous(), bpack.detach().contiguous()
+
+
+def compare_trunk(torch, MF, x, wb, bp, g):
+    """Kernels 5 and 6 against their twins on rows x and cotangent g.
+    Returns (ok, {output: (max |Δ| / max |twin|, ‖Δ‖ / ‖twin‖, max |Δ|)})."""
+    got = [MF.trunk_fwd(x, wb, bp), *MF.trunk_bwd(x, wb, bp, g)]
+    want = [MF.trunk_fwd_ref(x, wb, bp), *MF.trunk_bwd_ref(x, wb, bp, g)]
+    torch.cuda.synchronize()
+    rep = {}
+    for name, a, b in zip(("out", "dx", "dW", "db"), got, want):
+        d = a.double() - b.double()
+        rep[name] = (float(d.abs().max()) / max(float(b.abs().max()), 1e-30),
+                     float(d.norm()) / max(float(b.double().norm()), 1e-30),
+                     float(d.abs().max()))
+    ok = (all(bool(torch.isfinite(a).all()) for a in got)
+          and rep["out"][0] <= TOL_MLP_FWD_MAX and rep["out"][1] <= TOL_MLP_FWD_NORM
+          and all(rep[k][1] <= TOL_MLP_BWD_NORM for k in ("dx", "dW", "db"))
+          and all(rep[k][0] <= TOL_MLP_BWD_MAX for k in ("dW", "db")))
+    return ok, rep
+
+
+def trunk_report(rep):
+    return ", ".join(f"{k} max {v[0]:.3g} norm {v[1]:.3g}" for k, v in rep.items())
 
 
 def cotangents(rng, T, P):
@@ -381,13 +474,18 @@ def build_shell_state(torch, cfg, n_gauss, device, seed=0):
     return st
 
 
-def call_by_stage(torch, targets, call, repeats, what="render_frame"):
+def call_by_stage(torch, targets, call, repeats, what="render_frame", per_call=None,
+                  keep=None):
     """Run ``call`` ``repeats`` times with each ``(owner, attribute, stage)``
     of ``targets`` replaced by a wrapper that times its call between two
     synchronisations and keeps its arguments; the originals are put back
-    after.  Returns ({stage: median ms}, median ms of the whole call,
-    {stage: arguments of its last call}).  A stage that is not called once
-    per call fails: the targets no longer match what ``what`` calls."""
+    after.  Returns ({stage: median over the repeats of its ms per call},
+    median ms of the whole call, {stage: arguments of its last call}).  A
+    stage is called once per call, or ``per_call[stage]`` times; otherwise
+    this fails: the targets no longer match what ``what`` calls.  With a
+    dict ``keep``, keep[stage] lists the arguments of each of its calls in
+    the last repeat."""
+    per_call = per_call or {}
     times = {stage: [] for _, _, stage in targets}
     args = {}
     saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in targets]
@@ -403,6 +501,8 @@ def call_by_stage(torch, targets, call, repeats, what="render_frame"):
             torch.cuda.synchronize()
             times[stage].append((time.perf_counter() - t0) * 1e3)
             args[stage] = a
+            if keep is not None:
+                keep.setdefault(stage, []).append(a)
             return res
         return wrapper
 
@@ -410,7 +510,9 @@ def call_by_stage(torch, targets, call, repeats, what="render_frame"):
     try:
         for (owner, attr, fn), (_, _, stage) in zip(saved, targets):
             setattr(owner, attr, timed(stage, fn))
-        for _ in range(repeats):
+        for r in range(repeats):
+            if keep is not None:
+                keep.clear()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             call()
@@ -419,10 +521,13 @@ def call_by_stage(torch, targets, call, repeats, what="render_frame"):
     finally:
         for owner, attr, fn in saved:
             setattr(owner, attr, fn)
-    missing = [k for k, ts in times.items() if len(ts) != repeats]
+    missing = [k for k, ts in times.items() if len(ts) != repeats * per_call.get(k, 1)]
     if missing:
-        raise RuntimeError(f"{what} did not call {missing} once per call")
-    return ({k: statistics.median(ts) for k, ts in times.items()},
+        raise RuntimeError(f"{what} did not call {missing} "
+                           f"{[per_call.get(k, 1) for k in missing]} times per call")
+    per_repeat = {k: [sum(ts[i * per_call.get(k, 1):(i + 1) * per_call.get(k, 1)])
+                      for i in range(repeats)] for k, ts in times.items()}
+    return ({k: statistics.median(ts) for k, ts in per_repeat.items()},
             statistics.median(totals), args)
 
 
@@ -568,6 +673,26 @@ def main() -> int:
         + f" {'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append("shade_bwd vs twin (random, ties)")
+    # kernels 5 and 6 (the fused trunk) at the step's row counts, din 93
+    from dgmesh_torch.ops import mlp_fused as MF
+    errs["trunk_fwd"], errs["trunk_bwd"] = [], []
+    _, wb, bp = random_trunk(torch, MLP_DIN, dev, seed=0)
+    for n in MLP_ROWS:
+        x = torch.as_tensor(rng.uniform(-1.0, 1.0, (n, MLP_DIN)).astype(np.float32), device=dev)
+        g = torch.as_tensor(rng.normal(size=(n, 256)).astype(np.float32), device=dev)
+        ok, rep = compare_trunk(torch, MF, x, wb, bp, g)
+        errs["trunk_fwd"].append(rep["out"][2])
+        errs["trunk_bwd"].append(max(rep[k][2] for k in ("dx", "dW", "db")))
+        log(f"# kernels/random: trunk_fwd/trunk_bwd ({n},{MLP_DIN}): {trunk_report(rep)} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"trunk kernels vs twins (random, {n} rows)")
+        if KERNELS_ONLY:
+            for name, fk in (("trunk_fwd", lambda: MF.trunk_fwd(x, wb, bp)),
+                             ("trunk_bwd", lambda: MF.trunk_bwd(x, wb, bp, g))):
+                log(f"# timing/random {name} ({n} rows): "
+                    f"{time_cuda(torch, fk, 5):.4f} ms/launch")
+        del x, g
     if KERNELS_ONLY:
         for name, fk in (("composite_bwd", lambda: SK.composite_bwd(a1, g1, g2, *geo_s)),
                          ("shade_bwd", lambda: MK.shade_bwd(a3, g3, g4, *geo_m, mc.sigma))):
@@ -724,37 +849,12 @@ def main() -> int:
     tbatch = bench_batch(W, H, dev)
     flags = train_flags(step, cfg.model.sh_degree)
     counters = (SK.composite_tiles, SK.composite_bwd, MK.shade_tiles, MK.shade_bwd)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for c in counters:
-        c.launches = 0
-    step_ms = []
-    for i in range(1 + TRAIN_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, m = step.train_step(ctx, tstate, tbatch, flags)
-        torch.cuda.synchronize()
-        if i:
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-        bad = step_problems(torch, m)
-        if bad:
-            failures.append(f"train step {i}: " + ", ".join(bad))
-    launches = {c.__name__: c.launches for c in counters}
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    med = statistics.median(step_ms)
-    log(f"# train: {1 + TRAIN_STEPS} steps at {W}x{H}, grid {cfg.model.grid_res}, "
-        f"{int(tstate.gs.alive.sum())} live Gaussians; V {int(m['mesh_n_verts'])} "
-        f"F {int(m['mesh_n_faces'])}; overflow mesh {int(m['mesh_overflow'])} splat "
-        f"{int(m['splat_overflow'])} dup {int(m['splat_dup_overflow'])} raster "
-        f"{int(m['raster_overflow'])}; nonfinite_grad_leaves {int(m['nonfinite_grad_leaves'])}")
-    log("#   losses: " + ", ".join(f"{k} {float(m[k]):.6g}" for k in (
-        "loss", "cycle_loss", "mask_loss", "mesh_img_loss", "laplacian_loss", "img_loss",
-        "img_psnr", "mesh_psnr")))
-    log(f"#   ms/step median of {TRAIN_STEPS}: {med:.2f} ({', '.join(f'{x:.2f}' for x in step_ms)}); "
-        f"{1e3 / med:.3f} steps/s; peak memory {peak:.3f} GiB; launches {launches}")
+    med, peak, launches = train_run(torch, step, ctx, tstate, tbatch, flags, counters,
+                                    failures)
     for k, n in launches.items():
         if n < 1 + TRAIN_STEPS:
             failures.append(f"{k}: {n} launches in {1 + TRAIN_STEPS} training steps")
+    summary = {"f32": (med, peak)}
 
     # 5b. where a step's time goes (forward / backward / optimizer, each
     #     between two synchronisations), and the backward kernels' real rows
@@ -821,6 +921,7 @@ def main() -> int:
         2 * sa.numel() * 4 + sg.numel() * 4 + sgs.numel() * 4,
         s_valid * SHADE_OPS + s_soft * SHADE_BWD_SOFT_OPS + s_rgb * SHADE_BWD_RGB_OPS)
     train_launches = launches
+    summary["f32"] += (stages,)
     for name, (fk, fp, nbytes, nops) in kernel_rows.items():
         ms = time_cuda(torch, fk, KERNEL_TIMING_LAUNCHES)
         plain_ms = time_cuda(torch, fp, 2)
@@ -833,7 +934,101 @@ def main() -> int:
         log(f"# timing {name}: {ms:.4f} ms/launch, twin {plain_ms:.3f} ms, bound "
             f"{max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB, {nops / 1e9:.2f} G ops); "
             f"no single PyTorch call computes it (library_ms null)")
-    del ca, cg, cga, sa, sg, sgs, ra1, ra2, args, tstate, kernel_rows
+    del ca, cg, cga, sa, sg, sgs, ra1, ra2, args, kernel_rows
+
+    # 5f. the fused configuration (tpu.mlp_bf16 = tpu.mlp_fused = True) from
+    #     the same state and view: every kernel counted, kernels 5 and 6
+    #     TRUNKS times a step; the stages; kernels 5 and 6 held against their
+    #     twins on every trunk call of a step, then timed on the largest one
+    #     beside their bound and the cuBLAS chain of the "bf16" mode --------
+    fcfg = load_cfg()
+    fcfg.tpu.mlp_bf16 = fcfg.tpu.mlp_fused = True
+    ctx_f = StepContext(fcfg, W, H, device=dev)
+    trunk_counters = (MF.trunk_fwd, MF.trunk_bwd)
+    med, peak, launches = train_run(torch, step, ctx_f, tstate, tbatch, flags,
+                                    counters + trunk_counters, failures, " fused")
+    for k, n in launches.items():
+        if n < 1 + TRAIN_STEPS:
+            failures.append(f"fused: {k}: {n} launches in {1 + TRAIN_STEPS} training steps")
+    for c in trunk_counters:
+        if launches[c.__name__] != TRUNKS * (1 + TRAIN_STEPS):
+            failures.append(f"fused: {c.__name__}: {launches[c.__name__]} launches, not "
+                            f"{TRUNKS} in each of {1 + TRAIN_STEPS} training steps")
+    targets = [(step, "loss_and_aux", "forward"), (step, "backward", "backward"),
+               (step, "apply_updates", "optimizer"),
+               (MF, "trunk_fwd", "trunk_fwd_kernel"), (MF, "trunk_bwd", "trunk_bwd_kernel")]
+    calls = {}
+    stages, total, _ = call_by_stage(
+        torch, targets, lambda: step.train_step(ctx_f, tstate, tbatch, flags), 2,
+        what="train_step", per_call={"trunk_fwd_kernel": TRUNKS, "trunk_bwd_kernel": TRUNKS},
+        keep=calls)
+    log_stages(stages, total, " fused", ("trunk_fwd", "trunk_bwd"))
+    summary["fused"] = (med, peak, stages)
+    rows = []
+    for x, wb, bp, g in calls["trunk_bwd_kernel"]:
+        x, g = x.detach(), g.detach()
+        gmax = float(g.abs().max())
+        # like kernels 2 and 4, each cotangent is scaled to a largest |value| of 1
+        ok, rep = compare_trunk(torch, MF, x, wb, bp, g / max(gmax, 1e-30))
+        errs["trunk_fwd"].append(rep["out"][2])
+        errs["trunk_bwd"].append(max(rep[k][2] for k in ("dx", "dW", "db")))
+        log(f"# kernels/train: trunk_fwd/trunk_bwd {tuple(x.shape)}, |g| max {gmax:.3g} "
+            f"scaled to 1: {trunk_report(rep)} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"trunk kernels vs twins (training rows, {x.shape[0]})")
+        rows.append((x, wb, bp, g / max(gmax, 1e-30)))
+    x, wb, bp, g = max(rows, key=lambda r: r[0].shape[0])
+    n, din = x.shape
+    chain = trunk_from_pack(torch, wb, bp, din)
+    xg = x.clone().requires_grad_(True)
+    out = chain(xg, "bf16")
+    params = [xg] + list(chain.parameters())
+    fwd_flops = 2 * n * (7 * 256 * 256 + 2 * din * 256)
+    w_bytes = wb.numel() * 2 + bp.numel() * 4
+    trunk_rows = {  # name: (kernel, twin, cuBLAS chain, bytes, operations)
+        "trunk_fwd": (lambda: MF.trunk_fwd(x, wb, bp), lambda: MF.trunk_fwd_ref(x, wb, bp),
+                      lambda: chain(x, "bf16"), n * din * 4 + n * 256 * 4 + w_bytes, fwd_flops),
+        "trunk_bwd": (lambda: MF.trunk_bwd(x, wb, bp, g), lambda: MF.trunk_bwd_ref(x, wb, bp, g),
+                      lambda: torch.autograd.grad(out, params, g, retain_graph=True),
+                      2 * n * din * 4 + n * 256 * 4 + w_bytes + 9 * 256 * 256 * 4 + 8 * 256 * 4,
+                      3 * fwd_flops),
+    }
+    for name, (fk, fp, fl, nbytes, nops) in trunk_rows.items():
+        with torch.no_grad() if name == "trunk_fwd" else contextlib.nullcontext():
+            ms = time_cuda(torch, fk, KERNEL_TIMING_LAUNCHES)
+            plain_ms = time_cuda(torch, fp, 2)
+            library_ms = time_cuda(torch, fl, KERNEL_TIMING_LAUNCHES)
+        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, nops / PEAK_BF16_TC * 1e3
+        kernels.append(dict(
+            name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
+            launches=launches[name], max_abs_err=max(errs[name]), ms=ms,
+            plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=library_ms))
+        log(f"# timing {name} ({n},{din}): {ms:.4f} ms/launch, twin {plain_ms:.3f} ms, bound "
+            f"{max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB, {nops / 1e12:.3f} TFLOP, "
+            f"{nops / ms / 1e9:.1f} TFLOP/s); library: the bf16 mode's chain of nine cuBLAS "
+            f"GEMMs + bias + ReLU{' (autograd backward)' if name == 'trunk_bwd' else ''} "
+            f"{library_ms:.4f} ms")
+    del rows, calls, x, g, xg, out, params, chain, trunk_rows
+
+    # 5g. the bf16 configuration (tpu.mlp_bf16, not fused; bench.py's own
+    #     precision): the same state, view and checks, reported -----------
+    bcfg = load_cfg()
+    bcfg.tpu.mlp_bf16 = True
+    ctx_b = StepContext(bcfg, W, H, device=dev)
+    med, peak, launches = train_run(torch, step, ctx_b, tstate, tbatch, flags, counters,
+                                    failures, " bf16")
+    targets = [(step, "loss_and_aux", "forward"), (step, "backward", "backward"),
+               (step, "apply_updates", "optimizer")]
+    stages, total, _ = call_by_stage(
+        torch, targets, lambda: step.train_step(ctx_b, tstate, tbatch, flags), 2,
+        what="train_step")
+    log_stages(stages, total, " bf16", ())
+    summary["bf16"] = (med, peak, stages)
+    log("# steps side by side (ms/step median; forward / backward / optimizer ms; peak GiB): "
+        + "; ".join(f"{k} {v[0]:.2f} ({v[2]['forward']:.1f} / {v[2]['backward']:.1f} / "
+                    f"{v[2]['optimizer']:.1f}; {v[1]:.3f})" for k, v in summary.items()))
+    del tstate
 
     # 6. the same path on the card and on the CPU at a small size ------------
     small = _small_cfg(Config)
@@ -861,7 +1056,36 @@ def main() -> int:
             failures.append(f"small view {i}: card and CPU disagree")
 
     # the training step on the card and on the CPU at the small size, from
-    # SMALL_SEEDS states
+    # SMALL_SEEDS states; then the same in the fused configuration, from
+    # SMALL_SEEDS_FUSED states
+    small_train_check(torch, step, small, dev, failures, TOL_SMALL_GP, TOL_SMALL_HEAD,
+                      TOL_SMALL_NET, "", SMALL_SEEDS)
+    fsmall = _small_cfg(Config)
+    fsmall.tpu.mlp_bf16 = fsmall.tpu.mlp_fused = True
+    small_train_check(torch, step, fsmall, dev, failures, TOL_SMALL_GP_FUSED,
+                      TOL_SMALL_HEAD_FUSED, TOL_SMALL_NET_FUSED, " fused", SMALL_SEEDS_FUSED)
+
+    if failures:
+        print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
+        return 1
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}),
+          flush=True)
+    return 0
+
+
+def small_train_check(torch, step, small, dev, failures, tol_gp, tol_head, tol_net, label,
+                      seeds):
+    """The training step on the card and on the CPU (the plain twins) at the
+    small size, from each of ``seeds`` states, held to the loss,
+    Gaussian-gradient, appearance-head and net-leaf tolerances."""
+    from dgmesh_torch.train.state import state_to
+    from dgmesh_torch.train.step import StepContext
+
+    ctx_g = StepContext(small, 64, 64, device=dev)
+    ctx_c = StepContext(small, 64, 64, device="cpu")
     sflags = train_flags(step, small.model.sh_degree)
     loss_keys = ("loss", "cycle_loss", "mask_loss", "mesh_img_loss", "laplacian_loss",
                  "img_loss")
@@ -873,7 +1097,7 @@ def main() -> int:
         return float((a.cpu() - b).norm()) / max(float(b.norm()), 1e-30)
 
     worst = dict(loss=0.0, gp=0.0, head=0.0, net=0.0)
-    for seed in range(SMALL_SEEDS):
+    for seed in range(seeds):
         st_c = build_shell_state(torch, small, 256, "cpu", seed=seed)
         st_g = state_to(st_c, dev)
         res = {}
@@ -907,54 +1131,115 @@ def main() -> int:
         same = all(int(m_g[k]) == int(m_c[k]) for k in ("mesh_n_verts", "mesh_n_faces",
                                                          "mesh_overflow",
                                                          "nonfinite_grad_leaves"))
-        ok = (same and d_loss <= TOL_SMALL_LOSS and d_gp <= TOL_SMALL_GP
-              and d_head <= TOL_SMALL_HEAD and d_net <= TOL_SMALL_NET
+        ok = (same and d_loss <= TOL_SMALL_LOSS and d_gp <= tol_gp
+              and d_head <= tol_head and d_net <= tol_net
               and not step_problems(torch, m_g) and not step_problems(torch, m_c))
-        log(f"# small train step, seed {seed}: card vs CPU loss terms rel {d_loss:.3g}; "
+        log(f"# small{label} train step, seed {seed}: card vs CPU loss terms rel {d_loss:.3g}; "
             f"Gaussian grads rel {d_gp:.3g}; appearance head grads rel {d_head:.3g}; other "
             f"net grads norm rel {d_net:.3g}; V {int(m_g['mesh_n_verts'])}/"
             f"{int(m_c['mesh_n_verts'])} F {int(m_g['mesh_n_faces'])}/"
             f"{int(m_c['mesh_n_faces'])} {'ok' if ok else 'FAIL'}")
         if not ok:
-            failures.append(f"small train step, seed {seed}: card and CPU disagree")
-    log(f"# small train step, worst of {SMALL_SEEDS} seeds: loss terms {worst['loss']:.3g} "
-        f"(tol {TOL_SMALL_LOSS}), Gaussian grads {worst['gp']:.3g} (tol {TOL_SMALL_GP}), "
-        f"appearance head {worst['head']:.3g} (tol {TOL_SMALL_HEAD}), other net leaves "
-        f"{worst['net']:.3g} (tol {TOL_SMALL_NET})")
+            failures.append(f"small{label} train step, seed {seed}: card and CPU disagree")
+    log(f"# small{label} train step, worst of {seeds} seeds: loss terms "
+        f"{worst['loss']:.3g} (tol {TOL_SMALL_LOSS}), Gaussian grads {worst['gp']:.3g} "
+        f"(tol {tol_gp}), appearance head {worst['head']:.3g} (tol {tol_head}), "
+        f"other net leaves {worst['net']:.3g} (tol {tol_net})")
 
-    if failures:
-        print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
-        return 1
-    print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                             "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}),
-          flush=True)
-    return 0
+
+def train_run(torch, step, ctx, state, batch, flags, counters, failures, label=""):
+    """1 warm-up and TRAIN_STEPS timed training steps, each from the same
+    frozen state and checked, with the launch counters zeroed just before
+    and read just after.  Logs and returns (median ms/step, peak GiB,
+    {counter: launches})."""
+    W, H = ctx.splat_cfg.width, ctx.splat_cfg.height
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    step_ms = []
+    for i in range(1 + TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = step.train_step(ctx, state, batch, flags)
+        torch.cuda.synchronize()
+        if i:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        bad = step_problems(torch, m)
+        if bad:
+            failures.append(f"{label.strip()}{' ' if label else ''}train step {i}: "
+                            + ", ".join(bad))
+    launches = {c.__name__: c.launches for c in counters}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = statistics.median(step_ms)
+    log(f"# train{label}: {1 + TRAIN_STEPS} steps at {W}x{H}, grid {ctx.cfg.model.grid_res}, "
+        f"{int(state.gs.alive.sum())} live Gaussians, nets {ctx.mlp_mode}; "
+        f"V {int(m['mesh_n_verts'])} "
+        f"F {int(m['mesh_n_faces'])}; overflow mesh {int(m['mesh_overflow'])} splat "
+        f"{int(m['splat_overflow'])} dup {int(m['splat_dup_overflow'])} raster "
+        f"{int(m['raster_overflow'])}; nonfinite_grad_leaves {int(m['nonfinite_grad_leaves'])}")
+    log("#   losses: " + ", ".join(f"{k} {float(m[k]):.6g}" for k in (
+        "loss", "cycle_loss", "mask_loss", "mesh_img_loss", "laplacian_loss", "img_loss",
+        "img_psnr", "mesh_psnr")))
+    log(f"#   ms/step median of {TRAIN_STEPS}: {med:.2f} ({', '.join(f'{x:.2f}' for x in step_ms)}); "
+        f"{1e3 / med:.3f} steps/s; peak memory {peak:.3f} GiB; launches {launches}")
+    return med, peak, launches
+
+
+def log_stages(stages, total, label, kernels):
+    """One line: a step's forward / backward / optimizer ms and the named
+    kernels' ms per step (host clock around synchronize)."""
+    log(f"# train{label} stages (ms, median of 2, host clock around synchronize): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items() if "kernel" not in k)
+        + f"; whole step {total:.2f}, of it outside them "
+        f"{total - stages['forward'] - stages['backward'] - stages['optimizer']:.2f}"
+        + "".join(f"; {k} per step {stages[k + '_kernel']:.3f}" for k in kernels))
+
+
+def trunk_from_pack(torch, wb, bp, din):
+    """An MLPTrunk holding the packed trunk's weights (bf16 values, float32
+    parameters): the library yardstick of kernels 5 and 6 runs its "bf16"
+    mode on them."""
+    from dgmesh_torch.models.mlp import MLPTrunk
+    from dgmesh_torch.ops.mlp_fused import DEPTH, SKIP
+    trunk = MLPTrunk(din, device=wb.device)
+    w = wb.float()
+    with torch.no_grad():
+        for i, layer in enumerate(trunk.layers):
+            k = w[i][:din] if i == 0 else w[i]
+            if i == SKIP + 1:
+                k = torch.cat([w[DEPTH][:din], w[i]], 0)
+            layer.weight.copy_(k.t())
+            layer.bias.copy_(bp[i])
+    return trunk
 
 
 def profile_train(torch, cfg, dev) -> int:
-    """``--profile``: one warm-up and one profiled full-width training step
-    (torch.profiler, CPU and CUDA activities).  Prints the operators with
-    the most device time, then those with the most host time.  No result
-    line."""
+    """``--profile``: for the float32 and then the fused configuration, one
+    warm-up and one profiled full-width training step (torch.profiler, CPU
+    and CUDA activities).  Prints the operators with the most device time,
+    then those with the most host time.  No result line."""
     from dgmesh_torch.train import step
     from dgmesh_torch.train.step import StepContext
 
-    ctx = StepContext(cfg, IMG, IMG, device=dev)
     st = build_shell_state(torch, cfg, N_GAUSS, dev)
     b = bench_batch(IMG, IMG, dev)
     flags = train_flags(step, cfg.model.sh_degree)
-    step.train_step(ctx, st, b, flags)
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    fcfg = load_cfg()
+    fcfg.tpu.mlp_bf16 = fcfg.tpu.mlp_fused = True
+    for c in (cfg, fcfg):
+        ctx = StepContext(c, IMG, IMG, device=dev)
         step.train_step(ctx, st, b, flags)
         torch.cuda.synchronize()
-    ka = prof.key_averages()
-    log(ka.table(sort_by="self_cuda_time_total", row_limit=40, max_name_column_width=60))
-    log(ka.table(sort_by="self_cpu_time_total", row_limit=20, max_name_column_width=60))
-    log("# --profile: stopping after the profile; no result line")
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            step.train_step(ctx, st, b, flags)
+            torch.cuda.synchronize()
+        ka = prof.key_averages()
+        log(f"# --profile: nets {ctx.mlp_mode}")
+        log(ka.table(sort_by="self_cuda_time_total", row_limit=40, max_name_column_width=60))
+        log(ka.table(sort_by="self_cpu_time_total", row_limit=20, max_name_column_width=60))
+    log("# --profile: stopping after the profiles; no result line")
     return 0
 
 

@@ -138,7 +138,8 @@ class TpuParams:
                                           # under the Gaussian low-pass)
     mlp_bf16: bool = False                # bf16 trunk matmuls (training only;
                                           # the render path is f32)
-    mlp_fused: bool = False               # fused MLP trunk kernel (not ported)
+    mlp_fused: bool = False               # with mlp_bf16: the fused trunk
+                                          # kernels (ops/mlp_fused.py)
     mlp_chunk: int = 0                    # TPU only: rows per lax.map MLP chunk
     dpsr_fft_matmul: bool = False         # TPU only: matmul-DFT Poisson solve
                                           # (the port uses torch.fft)

@@ -1,4 +1,4 @@
-"""Device resolution and the float32 precision switches.
+"""Device resolution and the matmul precision switches.
 
 Every entry point of the port runs on ``cuda`` unless the caller asks for the
 CPU (``device="cpu"``, as the tests do).  There is no silent fallback: asking
@@ -15,14 +15,18 @@ DeviceLike = Union[str, torch.device, None]
 
 
 def set_precision() -> None:
-    """Pin float32 math to full float32 on the card.
+    """Pin float32 math to full float32 on the card, and bf16 products to
+    float32 sums.
 
     The JAX reference pins ``Precision.HIGHEST`` on every geometry matmul and
     runs the nets in f32 on the render path; TF32 (about three decimal
-    digits) would move projected pixels and z-buffer winners.
+    digits) would move projected pixels and z-buffer winners.  The bf16 nets
+    (``mlp_bf16``) multiply in bf16 with one rounding of a float32 sum, as
+    XLA does; cuBLAS may otherwise round partial sums to bf16.
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

@@ -2,7 +2,9 @@
 
 Counterpart of dgmesh_tpu/eval/testing.py::render_frame (reference train.py
 testing() :559-760, per test camera): deform MLPs → Gaussian splat → DPSR →
-marching tets → deform-back + appearance MLPs → mesh raster.
+marching tets → deform-back + appearance MLPs → mesh raster.  The nets
+always apply in float32 (``ctx.f32()``), whatever the training step's
+``mlp_bf16``/``mlp_fused``, as in JAX.
 """
 
 from __future__ import annotations
@@ -21,8 +23,10 @@ def render_frame_with_aux(ctx: StepContext, state, batch, sh_degree: int,
     """``render_frame`` plus the capacity counters of the pass:
     ``splat_overflow``, ``splat_dup_overflow``, ``mesh_overflow``,
     ``raster_overflow`` (0-d tensors)."""
+    ctx = ctx.f32()     # eval path: the nets apply in float32
     gp, gs, nets = state.gp, state.gs, state.nets
-    d_xyz, d_rot, d_scale, d_normal = _deform_all(nets, gp.xyz, batch.fid, with_mesh)
+    d_xyz, d_rot, d_scale, d_normal = _deform_all(nets, gp.xyz, batch.fid, with_mesh,
+                                                  mode=ctx.mlp_mode)
     out = splat.render(gp.xyz + d_xyz, G.get_scaling(gp) + d_scale,
                        G.get_rotation(gp) + d_rot, G.get_opacity(gp),
                        G.get_features(gp), gs.alive, batch.cam, batch.bg,
@@ -32,7 +36,7 @@ def render_frame_with_aux(ctx: StepContext, state, batch, sh_degree: int,
                splat_dup_overflow=out["aux"]["dup_overflow"])
     if with_mesh:
         mesh = extract_mesh(ctx, gp, gs, d_xyz, d_normal)
-        vtx_color = _mesh_colors(nets, mesh.verts, mesh.vert_valid, batch.fid)
+        vtx_color = _mesh_colors(nets, mesh.verts, mesh.vert_valid, batch.fid, ctx.mlp_mode)
         mout = MR.render_mesh(mesh.verts, mesh.faces, mesh.face_valid, vtx_color,
                               batch.mesh_pose, batch.mesh_proj, batch.bg,
                               ctx.mr_cfg, want_soft=False)

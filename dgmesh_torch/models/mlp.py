@@ -1,10 +1,16 @@
-"""Deformation / appearance MLPs as ``nn.Module``s, float32.
+"""Deformation / appearance MLPs as ``nn.Module``s.
 
 Counterpart of dgmesh_tpu/models/mlp.py (reference utils/time_utils.py:
 Embedder :7-55, DeformNetwork :58-204, DeformNetworkNormalSep :207-266,
 AppearanceNetwork :269-323).  Layers are named after their role; convert.py
 maps flax's names (``Dense_0``…, ``MLPTrunk_0``) onto them.  The ``is_6dof``
 screw head is not ported yet and raises.
+
+Parameters are float32.  ``mode`` picks the trunk's arithmetic, as the JAX
+nets' ``dtype``/``fuse`` do: ``"f32"``; ``"bf16"`` (operands, products and
+bias add in bf16, the blender timenet too); ``"fused"`` (the bf16 trunk in
+one kernel per direction, ops/mlp_fused.py; the timenet as in ``"bf16"``).
+The heads and the trunk's output are float32 in every mode.
 """
 
 from __future__ import annotations
@@ -15,6 +21,10 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..ops.mlp_fused import FusedTrunk, pack_trunk
+
+MODES = ("f32", "bf16", "fused")
 
 
 def positional_encoding(x: torch.Tensor, num_freqs: int,
@@ -66,12 +76,33 @@ class MLPTrunk(nn.Module):
             layers.append(Dense(d_in, width, gen=gen, device=device))
         self.layers = nn.ModuleList(layers)
 
-    def forward(self, inp: torch.Tensor) -> torch.Tensor:
-        h = inp
+    def forward(self, inp: torch.Tensor, mode: str = "f32") -> torch.Tensor:
+        din = inp.shape[-1]
+        width = self.layers[0].out_features
+        if mode == "fused" and width == 256 and din <= 256:
+            return FusedTrunk.apply(inp, *pack_trunk(self, din))
+        if mode == "f32":
+            h = inp
+            for i, layer in enumerate(self.layers):
+                x_in = torch.cat([inp, h], dim=-1) if i == self.skip + 1 else h
+                h = F.relu(layer(x_in))
+            return h
+        if mode not in MODES:
+            raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+        # "bf16" (and "fused" where the kernel does not apply, as in JAX):
+        # flax's dense with dtype bf16 (dgmesh_tpu/models/mlp.py:89-104)
+        h = inp.to(torch.bfloat16)
         for i, layer in enumerate(self.layers):
-            x_in = torch.cat([inp, h], dim=-1) if i == self.skip + 1 else h
-            h = F.relu(layer(x_in))
-        return h
+            x_in = torch.cat([inp.to(torch.bfloat16), h], dim=-1) if i == self.skip + 1 else h
+            h = F.relu(dense_bf16(layer, x_in))
+        return h.float()
+
+
+def dense_bf16(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """A Dense with operands, product and bias add in bf16, the bias as a
+    second op (flax's ``nn.Dense(dtype=bf16)`` and the JAX trunk's dense)."""
+    return x.to(torch.bfloat16) @ layer.weight.to(torch.bfloat16).t() \
+        + layer.bias.to(torch.bfloat16)
 
 
 class _TimeConditioned(nn.Module):
@@ -91,12 +122,16 @@ class _TimeConditioned(nn.Module):
         self.trunk = MLPTrunk(3 * (2 * multires + 1) + t_dim, depth, width,
                               gen=gen, device=device)
 
-    def features(self, xyz: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    def features(self, xyz: torch.Tensor, t: torch.Tensor, mode: str = "f32") -> torch.Tensor:
         t_emb = positional_encoding(t, self.t_multires)
         if self.is_blender:
-            t_emb = self.timenet1(F.relu(self.timenet0(t_emb)))
+            if mode == "f32":
+                t_emb = self.timenet1(F.relu(self.timenet0(t_emb)))
+            else:   # flax's Dense(dtype=bf16) timenet, cast back to float32
+                t_emb = dense_bf16(self.timenet1, F.relu(dense_bf16(self.timenet0, t_emb)))
+                t_emb = t_emb.float()
         x_emb = positional_encoding(xyz, self.multires)
-        return self.trunk(torch.cat([x_emb, t_emb], dim=-1))
+        return self.trunk(torch.cat([x_emb, t_emb], dim=-1), mode)
 
 
 class DeformNetwork(_TimeConditioned):
@@ -117,8 +152,8 @@ class DeformNetwork(_TimeConditioned):
         if with_normal:
             self.head_normal = Dense(width, 3, zero=z, gen=gen, device=device)
 
-    def forward(self, xyz, t):
-        h = self.features(xyz, t)
+    def forward(self, xyz, t, mode: str = "f32"):
+        h = self.features(xyz, t, mode)
         out = (self.head_xyz(h), self.head_rot(h), self.head_scale(h))
         if self.with_normal:
             return out + (self.head_normal(h),)
@@ -134,8 +169,8 @@ class DeformNetworkNormalSep(_TimeConditioned):
         super().__init__(is_blender, depth, width, multires, gen, device)
         self.head_normal = Dense(width, 3, zero=True, gen=gen, device=device)
 
-    def forward(self, xyz, t):
-        return self.head_normal(self.features(xyz, t))
+    def forward(self, xyz, t, mode: str = "f32"):
+        return self.head_normal(self.features(xyz, t, mode))
 
 
 class AppearanceNetwork(_TimeConditioned):
@@ -147,5 +182,5 @@ class AppearanceNetwork(_TimeConditioned):
         super().__init__(is_blender, depth, width, multires, gen, device)
         self.head_rgb = Dense(width, 3, gen=gen, device=device)
 
-    def forward(self, xyz, t):
-        return torch.sigmoid(self.head_rgb(self.features(xyz, t)))
+    def forward(self, xyz, t, mode: str = "f32"):
+        return torch.sigmoid(self.head_rgb(self.features(xyz, t, mode)))

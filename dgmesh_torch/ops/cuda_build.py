@@ -4,8 +4,8 @@ Each source has a plain C interface and is compiled by ``nvcc`` into its own
 shared library, loaded with ``ctypes`` (no PyTorch headers, so a build takes
 seconds).  The build happens at first use, into ``build/kernels/`` at the
 root of the checkout (listed in ``.gitignore``), keyed by a hash of the
-source and the flags.  ``build()`` starts one ``nvcc`` per source, all at
-once.
+source, the shared headers (``csrc/*.cuh``) and the flags.  ``build()``
+starts one ``nvcc`` per source, all at once.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``--fmad=false``: no multiply-add
 contraction, so every float operation rounds as the plain PyTorch twin's
@@ -26,7 +26,7 @@ from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
-SOURCES = ("composite", "composite_bwd", "shade", "shade_bwd")
+SOURCES = ("composite", "composite_bwd", "shade", "shade_bwd", "mlp_fwd", "mlp_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -46,6 +46,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

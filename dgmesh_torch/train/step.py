@@ -6,12 +6,15 @@ Counterpart of dgmesh_tpu/train/step.py (``StepFlags``, ``StepContext``,
 (reference train.py:129-530): deform → GS splat → cycle consistency → DPSR →
 marching tets → mesh render → mask / mesh-image / Laplacian losses → GS image
 loss → one backward → masked Gaussian Adam and per-net Adam.  Phase gates
-are ``StepFlags``.  Float32 nets only (``mlp_bf16`` is not ported); the
-anchor loss comes with the structural ops.
+are ``StepFlags``.  The nets run in ``StepContext.mlp_mode``: float32,
+bf16 (``mlp_bf16``) or the fused bf16 trunk kernels (``mlp_bf16`` and
+``mlp_fused``); the render path applies them in float32
+(``StepContext.f32``).  The anchor loss comes with the structural ops.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
@@ -81,12 +84,24 @@ def make_batch(cam: Camera, time_interval: float, bg: np.ndarray,
     )
 
 
+def mlp_mode(cfg: Config) -> str:
+    """The nets' arithmetic from the config, as JAX's build_nets reads it
+    (dgmesh_tpu/train/state.py:69-70): fused only together with bf16."""
+    t = cfg.tpu
+    if t.mlp_bf16:
+        return "fused" if t.mlp_fused else "bf16"
+    return "f32"
+
+
 class StepContext:
-    """Static pieces shared by the step variants: shapes, operators, configs."""
+    """Static pieces shared by the step variants: shapes, operators, configs,
+    and ``mlp_mode``, the arithmetic of the training step's nets."""
 
     def __init__(self, cfg: Config, width: int, height: int, device: DeviceLike = None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mlp_mode = mlp_mode(cfg)
+        self._f32_view = None
         t = cfg.tpu
         self.splat_cfg = splat.SplatConfig(
             width=width, height=height, tile_h=t.tile_h, tile_w=t.tile_w,
@@ -102,6 +117,19 @@ class StepContext:
                          div_mode="splat" if t.dpsr_div_splat else "spectral",
                          device=self.device)
 
+    def f32(self) -> "StepContext":
+        """A shallow view whose nets apply in float32, for the render path
+        (the per-phase precision policy of dgmesh_tpu/train/step.py:117-143).
+        Cached; ``self`` when the nets already are float32."""
+        if self.mlp_mode == "f32":
+            return self
+        if self._f32_view is None:
+            v = copy.copy(self)
+            v.mlp_mode = "f32"
+            v._f32_view = v
+            self._f32_view = v
+        return self._f32_view
+
 
 def _time_input(fid: torch.Tensor, noise, rows: int, like: torch.Tensor) -> torch.Tensor:
     """The (rows,1) time column fid + noise, on the device, without a sync."""
@@ -109,18 +137,20 @@ def _time_input(fid: torch.Tensor, noise, rows: int, like: torch.Tensor) -> torc
     return t.reshape(1, 1).expand(rows, 1)
 
 
-def _deform_all(nets, xyz, fid, with_normal: bool, warm: bool = False, noise=0.0):
-    """Forward deformation offsets (reference train.py:154-175): zeros when
-    ``warm``; the normal offset only with ``with_normal``, else zeros."""
+def _deform_all(nets, xyz, fid, with_normal: bool, warm: bool = False, noise=0.0,
+                mode: str = "f32"):
+    """Forward deformation offsets (reference train.py:154-175), the nets in
+    ``mode``: zeros when ``warm``; the normal offset only with
+    ``with_normal``, else zeros."""
     M = xyz.shape[0]
     if warm:
         z3 = xyz.new_zeros((M, 3))
         return z3, xyz.new_zeros((M, 4)), z3, z3
     t_in = _time_input(fid, noise, M, xyz)
     xyz_sg = xyz.detach()
-    d_xyz, d_rot, d_scale, _ = nets.deform(xyz_sg, t_in)
+    d_xyz, d_rot, d_scale, _ = nets.deform(xyz_sg, t_in, mode)
     if with_normal:
-        d_normal = nets.deform_normal(xyz_sg, t_in)
+        d_normal = nets.deform_normal(xyz_sg, t_in, mode)
     else:
         d_normal = xyz.new_zeros((M, 3))
     return d_xyz, d_rot, d_scale, d_normal
@@ -160,8 +190,9 @@ def extract_mesh(ctx: StepContext, gp: G.GaussianParams, gs: G.GaussianStats,
     return m, diag
 
 
-def _mesh_colors(nets, verts_w, vert_valid, fid):
-    """deform_back to canonical + appearance colours (renderer.py:177-181).
+def _mesh_colors(nets, verts_w, vert_valid, fid, mode: str = "f32"):
+    """deform_back to canonical + appearance colours (renderer.py:177-181),
+    the nets in ``mode``.
 
     Valid vertices are a prefix of the padded buffer; only they go through
     the nets (the JAX version runs every padded row and zeroes the rest —
@@ -169,9 +200,9 @@ def _mesh_colors(nets, verts_w, vert_valid, fid):
     n = int(vert_valid.sum())
     v = verts_w[:n]
     t_in = _time_input(fid, 0.0, n, v)
-    d_back, _, _, _ = nets.deform_back(v.detach(), t_in)
+    d_back, _, _, _ = nets.deform_back(v.detach(), t_in, mode)
     color = verts_w.new_zeros((verts_w.shape[0], 3))
-    color[:n] = nets.appearance(v + d_back, t_in)
+    color[:n] = nets.appearance(v + d_back, t_in, mode)
     return color
 
 
@@ -205,8 +236,9 @@ def loss_and_aux(ctx: StepContext, gp: G.GaussianParams, nets: NetParams, screen
     losses: Dict[str, torch.Tensor] = {}
     noise1, noise2 = _time_noise(ctx, batch, step_f, gen)
 
+    mode = ctx.mlp_mode
     d_xyz, d_rot, d_scale, d_normal = _deform_all(nets, gp.xyz, batch.fid, flags.use_normal,
-                                                  flags.warm, noise1)
+                                                  flags.warm, noise1, mode)
 
     # --- Gaussian splat render (gaussian_renderer/__init__.py:32-119)
     means3d = gp.xyz + d_xyz
@@ -223,7 +255,7 @@ def loss_and_aux(ctx: StepContext, gp: G.GaussianParams, nets: NetParams, screen
     # --- cycle consistency (train.py:198-240)
     if not flags.warm:
         M_t = _time_input(batch.fid, noise2, M, gp.xyz)
-        d_back, d_rot_back, d_scale_back, _ = nets.deform_back(means3d.detach(), M_t)
+        d_back, d_rot_back, d_scale_back, _ = nets.deform_back(means3d.detach(), M_t, mode)
         n_live = gs.alive.sum()
 
         def masked_l1(a, b):
@@ -233,7 +265,7 @@ def loss_and_aux(ctx: StepContext, gp: G.GaussianParams, nets: NetParams, screen
         cyc = [masked_l1(-d_back, d_xyz), masked_l1(-d_rot_back, d_rot),
                masked_l1(-d_scale_back, d_scale)]
         if flags.use_normal:
-            d_normal_back = nets.deform_back_normal(gp.xyz.detach(), M_t)
+            d_normal_back = nets.deform_back_normal(gp.xyz.detach(), M_t, mode)
             cyc.append(masked_l1(-d_normal_back, d_normal))
         losses["cycle_loss"] = sum(cyc[1:], cyc[0]) / float(len(cyc))
 
@@ -242,7 +274,7 @@ def loss_and_aux(ctx: StepContext, gp: G.GaussianParams, nets: NetParams, screen
         mesh, mesh_diag = extract_mesh(ctx, gp, gs, d_xyz, d_normal, flags.freeze_pos,
                                        with_diag=True)
         aux.update(mesh_diag)
-        vtx_color = _mesh_colors(nets, mesh.verts, mesh.vert_valid, batch.fid)
+        vtx_color = _mesh_colors(nets, mesh.verts, mesh.vert_valid, batch.fid, mode)
         # one verts[faces] gather shared by the raster and the Laplacian, of
         # the valid faces (a prefix) only: the padding faces all point at
         # vertex 0, and their gather's backward would pile on it
