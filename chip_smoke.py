@@ -16,7 +16,10 @@ Phases; any failure exits non-zero and prints no result:
                 below AREA_MIN, back faces, exact z ties; for the backward
                 kernels random cotangents, and built ties where the shade
                 backward splits gradients in half); the fused trunk
-                (kernels 5 and 6) at 131,072 and 479,966 (ragged) rows;
+                (kernels 5 and 6) at 131,072 and 479,966 (ragged) rows,
+                kernel 6 launched twice there for identical bits and its
+                two passes timed apart, then at the shapes its tiling
+                makes special (MLP_EDGE_SHAPES);
   4. render   — configs/synthetic-quality-288.yaml with bench.py's shell
                 state (100k Gaussians, radius 0.45, seed 0) and seeded random
                 nets: render_frame for 4 orbit views at 800², grid 288, with
@@ -152,6 +155,11 @@ TOL_MLP_BWD_NORM = 3e-2   # dx, dW, db: ‖Δ‖ / ‖twin‖
 TOL_MLP_BWD_MAX = 1e-1    # dW, db: max |Δ| / max |twin|
 MLP_ROWS = (131_072, 479_966)   # the step's Gaussian slots and mesh vertices
 MLP_DIN = 93                    # blender nets: 63 position + 30 timenet lanes
+# kernel 6's special shapes: (rows, din).  1, 37 and 64 rows leave the
+# second warpgroup of the only CTA with no row; 65 and 129 rows a ragged
+# last CTA; din 1 and 256 the narrowest and the widest input
+MLP_EDGE_SHAPES = ((1, 93), (37, 93), (64, 93), (65, 93), (129, 93), (131_072 + 37, 93),
+                   (129, 1), (129, 256))
 TRUNKS = 6    # fused trunks per step: deform, deform_normal, the two cycle nets,
               # deform_back and appearance on the mesh vertices
 # The small card-vs-CPU step in the fused configuration.  Card and CPU sum
@@ -291,6 +299,26 @@ def compare_trunk(torch, MF, x, wb, bp, g):
           and all(rep[k][1] <= TOL_MLP_BWD_NORM for k in ("dx", "dW", "db"))
           and all(rep[k][0] <= TOL_MLP_BWD_MAX for k in ("dW", "db")))
     return ok, rep
+
+
+def trunk_pass_times(torch, MF, x, wb, bp, g):
+    """Kernel 6's two passes timed apart on these rows (the launches go
+    straight to the passes and are not counted), as one log line with each
+    pass's rate on the products it needs: twice the forward's for the row
+    pass (the recompute and the products with Wᵀ), once for the
+    weight-gradient pass."""
+    n, din = x.shape
+    dx = torch.empty_like(x)
+    dw = torch.empty((9, 256, 256), dtype=torch.float32, device=x.device)
+    db = torch.empty((8, 256), dtype=torch.float32, device=x.device)
+    ws, db_part, dw_part = MF._bwd_buffers(n, x.device)
+    wt = MF.transpose_pack(wb)
+    rows_ms = time_cuda(torch, lambda: MF._bwd_rows(x, wb, wt, bp, g, dx, ws, db_part), 5)
+    wgrad_ms = time_cuda(torch, lambda: MF._bwd_wgrad(ws, db_part, dw_part, dw, db), 5)
+    flops = 2 * n * (7 * 256 * 256 + 2 * din * 256)
+    return (f"# timing/passes trunk_bwd ({n},{din}): row pass {rows_ms:.4f} ms "
+            f"({2 * flops / rows_ms / 1e9:.1f} TFLOP/s), weight-gradient pass + reductions "
+            f"{wgrad_ms:.4f} ms ({flops / wgrad_ms / 1e9:.1f} TFLOP/s)")
 
 
 def trunk_report(rep):
@@ -617,7 +645,8 @@ def main() -> int:
         + ", ".join(f"{n} {s:.2f} s" for n, s in cuda_build.build_seconds.items()))
     for n, text in cuda_build.build_log.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            # ptxas reports a serialised wgmma pipeline as info C7515
+            if any(k in line for k in ("registers", "spill", "warning", "C75")):
                 log(f"#   {n}: {line.strip()}")
 
     cfg = load_cfg()
@@ -687,11 +716,35 @@ def main() -> int:
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"trunk kernels vs twins (random, {n} rows)")
+        # kernel 6 twice on the same inputs: fixed-order sums, the same bits
+        first, again = MF.trunk_bwd(x, wb, bp, g), MF.trunk_bwd(x, wb, bp, g)
+        same = all(torch.equal(a, b) for a, b in zip(first, again))
+        log(f"# kernels/random: trunk_bwd ({n},{MLP_DIN}) twice: "
+            f"{'identical' if same else 'DIFFERENT'} dx, dW, db")
+        if not same:
+            failures.append(f"trunk_bwd not deterministic ({n} rows)")
+        del first, again
+        log(trunk_pass_times(torch, MF, x, wb, bp, g))
         if KERNELS_ONLY:
             for name, fk in (("trunk_fwd", lambda: MF.trunk_fwd(x, wb, bp)),
                              ("trunk_bwd", lambda: MF.trunk_bwd(x, wb, bp, g))):
                 log(f"# timing/random {name} ({n} rows): "
                     f"{time_cuda(torch, fk, 5):.4f} ms/launch")
+        del x, g
+    # ... at the shapes kernel 6's tiling makes special: one row, a second
+    # warpgroup wholly past n, a ragged last CTA, din 1 and 256
+    for n, din in MLP_EDGE_SHAPES:
+        _, wbe, bpe = (random_trunk(torch, din, dev, seed=din) if din != MLP_DIN
+                       else (None, wb, bp))
+        x = torch.as_tensor(rng.uniform(-1.0, 1.0, (n, din)).astype(np.float32), device=dev)
+        g = torch.as_tensor(rng.normal(size=(n, 256)).astype(np.float32), device=dev)
+        ok, rep = compare_trunk(torch, MF, x, wbe, bpe, g)
+        errs["trunk_fwd"].append(rep["out"][2])
+        errs["trunk_bwd"].append(max(rep[k][2] for k in ("dx", "dW", "db")))
+        log(f"# kernels/edge: trunk_fwd/trunk_bwd ({n},{din}): {trunk_report(rep)} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"trunk kernels vs twins (edge shape {n}x{din})")
         del x, g
     if KERNELS_ONLY:
         for name, fk in (("composite_bwd", lambda: SK.composite_bwd(a1, g1, g2, *geo_s)),

@@ -24,20 +24,36 @@
 // the whole dW (2.36 MB float32) resident in VMEM, accumulating dW over a
 // sequential grid.  Neither fits a Hopper CTA's 227 KB, and CTAs do not run
 // in order.  So the backward is three passes, each deterministic:
-//  1. mlp_bwd_rows: one CTA per 128 rows (the forward's tiles and weight
-//     pipeline, mlp_common.cuh) recomputes the forward and walks back.  It
-//     writes its bf16 x, the activations a_0..a_6 and the 8 masked
-//     gradients gmb to a workspace of 16 (rows, 256) bf16 buffers (8 KB a
-//     row; buffer 0 x, 1 + i a_i, 8 + i gmb_i), its dx, and its per-column
-//     sums of gm (fixed order: the thread's rows, a shuffle tree over the
-//     warp, the two row-warps in order).  Every tile goes out from shared
-//     memory as whole 512-byte rows (store_tile) after the epilogue that
-//     made it.  The mask of layer i is read from shared memory: a_7 is
-//     still in H, and a_{i-1} is copied back into the free X tile while
-//     layer i's product with Wᵀ runs.
+//  1. mlp_bwd_rows: one CTA per 128 rows recomputes the forward and walks
+//     back, every product on wgmma from shared memory (mlp_wgmma.cuh): two
+//     warpgroups of 64 rows x 256 columns, the activation tiles and a
+//     three-stage weight ring in 128-byte-swizzled K-major layout, so the
+//     tensor cores read both operands without register staging.  It writes
+//     its bf16 x, the activations a_0..a_6 and the 8 masked gradients gmb
+//     to a workspace of 16 (rows, 256) bf16 buffers (8 KB a row; buffer 0
+//     x, 1 + i a_i, 8 + i gmb_i), its dx, and its per-column sums of gm
+//     (fixed order: the thread's two rows, a reduce-scatter shuffle tree
+//     over the warp's 8 row groups, then the 8 warps in order).  Each tile
+//     leaves shared memory as whole 512-byte rows, in parts, while the
+//     next chunks multiply.  The mask of layer i is read from shared
+//     memory: a_7 is still in H, and a_{i-1} is copied back into the free X
+//     tile while layer i's product with Wᵀ runs.  The skip's dx part,
+//     gmb_5·W[8]ᵀ, is multiplied last, from gmb_5 copied back into X, into
+//     the accumulators that hold layer 0's g, so dx is written once.
+//     Floors at 479,966 rows: 18 products of 128x256x256 a CTA, ~1.2 ms of
+//     tensor-core time; 3.9 GB of workspace written, ~1.2 ms at 3.35 TB/s;
+//     2.3 MB of weight stages a CTA read from L2.  What holds it above them:
+//     the epilogues, masks and bias sums run on the CUDA cores while the
+//     tensor cores wait, as both warpgroups move in step through one ring
+//     and one CTA fills an SM; each chunk's products are waited for before
+//     the ring moves on (three stages leave no room for a second batch in
+//     flight while the loads stay two chunks ahead).
 //  2. mlp_bwd_wgrad: the weight gradients as 9 products Aᵀ·G over the rows,
 //     split into S = 32 row ranges; each CTA computes a 128x128 block of
-//     one range with mma.sync and writes it as a float32 partial.
+//     one range with mma.sync and writes it as a float32 partial.  Its
+//     blocks read their own 128 columns of A and G over all rows (up to
+//     8.8 GB at 479,966 rows): bound by the bytes its tile shape costs,
+//     which a larger dW tile, not another instruction, would cut.
 //  3. mlp_bwd_reduce_dw / _db: the partials summed in a fixed order.
 // No atomics: the result is the same from run to run.  The workspace
 // (8 KB a row: 3.9 GB at 479,966 rows) is the price of not holding dW in
@@ -45,148 +61,147 @@
 // nothing to dW or db.
 
 #include "mlp_common.cuh"
+#include "mlp_wgmma.cuh"
 
 namespace {
 
 using namespace mlp;
 
-constexpr size_t ROWS_SMEM = (size_t)(2 * BM * LDA + 2 * STAGE) * sizeof(bf16)
-                             + 2 * W * sizeof(float);
+constexpr size_t ROWS_SMEM = wg::TILES_BYTES + 1024;   // + room to align the tiles to 1 KB
+
+// One level of rows_sum8: lanes with bit S keep the upper half of v[0..2M),
+// the others the lower half, each adding its partner's copy of it.
+template <int S>
+__device__ __forceinline__ void rows_sum_level(float (&v)[8], int lane) {
+  constexpr int M = S / 4;
+  const bool up = lane & S;
+#pragma unroll
+  for (int k = 0; k < M; ++k) {
+    const float give = up ? v[k] : v[k + M];
+    v[k] = (up ? v[k + M] : v[k]) + __shfl_xor_sync(0xffffffffu, give, S);
+  }
+}
+
+// v[k], k < 8, summed over the 8 lanes of the warp that share lane & 3 (the
+// accumulators' 8 row groups), as a reduce-scatter tree (xor 16, 8, 4):
+// returns the sum of element lane >> 2.
+__device__ __forceinline__ float rows_sum8(float (&v)[8], int lane) {
+  rows_sum_level<16>(v, lane);
+  rows_sum_level<8>(v, lane);
+  rows_sum_level<4>(v, lane);
+  return v[0];
+}
 
 __global__ void __launch_bounds__(THREADS, 1)
-mlp_bwd_rows(const float* __restrict__ x, const bf16* __restrict__ w,
+mlp_bwd_rows(const float* __restrict__ x, const bf16* __restrict__ w, const bf16* __restrict__ wt,
              const float* __restrict__ b, const float* __restrict__ gin,
              float* __restrict__ dx, bf16* __restrict__ ws, float* __restrict__ db_part,
              int n, int din) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* X = reinterpret_cast<bf16*>(smem);
-  bf16* H = X + BM * LDA;
-  bf16* stages = H + BM * LDA;
-  float* dbs = reinterpret_cast<float*>(stages + 2 * STAGE);   // [2][W]
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  bf16* X = reinterpret_cast<bf16*>(smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
+  bf16* H = X + wg::TILE;
+  bf16* stages = H + wg::TILE;
   const int row0 = blockIdx.x * BM;
   const size_t buf = (size_t)gridDim.x * BM * W;                // one workspace buffer
   bf16* wsr = ws + (size_t)row0 * W;                            // this CTA's rows
-  const int lane = threadIdx.x & 31, wm = (threadIdx.x >> 5) >> 2;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   constexpr int TOTAL = 2 * CHUNKS;
 
   // 1. the forward, keeping x and the activations a_0..a_6 in the workspace
   //    (a_7 stays in H for the first mask of the walk)
-  stage_x(X, x, n, din, row0);
-  __syncthreads();
-  store_tile(wsr, X);
-  float acc[4][8][4];
-  forward_pass(acc, X, H, stages, w, TOTAL, [&](int layer, float (&a)[4][8][4]) {
+  wg::stage_x(X, x, n, din, row0);
+  float acc[32][4];
+  wg::forward_pass(acc, X, H, stages, w, wt, TOTAL, [&](int layer, float (&a)[32][4]) {
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
+    for (int j = 0; j < 32; ++j) {
+      const int col = wg::acc_col(j);
+      const float b0 = b[layer * W + col], b1 = b[layer * W + col + 1];
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int row = frag_row(mt, half), col = frag_col(nt);
-          *reinterpret_cast<bf162*>(H + row * LDA + col) = __floats2bfloat162_rn(
-              fmaxf(a[mt][nt][2 * half] + b[layer * W + col], 0.f),
-              fmaxf(a[mt][nt][2 * half + 1] + b[layer * W + col + 1], 0.f));
-        }
-  }, [&](int layer) {
-    if (layer < DEPTH - 1) store_tile(wsr + (1 + layer) * buf, H);
+      for (int half = 0; half < 2; ++half)
+        *reinterpret_cast<bf162*>(H + wg::tile_at(wg::acc_row(half), col)) =
+            __floats2bfloat162_rn(fmaxf(a[j][2 * half] + b0, 0.f),
+                                  fmaxf(a[j][2 * half + 1] + b1, 0.f));
+    }
+  }, [&](int layer, int part) {
+    wg::store_tile(wsr + (1 + layer) * buf, layer < 0 ? X : H, part);
   });
 
-  // 2. the walk back; g lives in acc, in the accumulators' layout.  The mask
-  //    of layer i comes from shared memory: a_7 from H, a_{i-1} copied into
-  //    the free X tile while layer i's product with Wᵀ runs
+  // 2. the walk back; g lives in acc, in the accumulators' layout, all of
+  //    its loads in flight at once.  The mask of layer i comes from shared
+  //    memory: a_7 from H, a_{i-1} copied into the free X tile while layer
+  //    i's product with Wᵀ runs.  c is the next chunk; chunk c - 1's stage
+  //    is idle from the barrier after the mask until pipe_next(c), and holds
+  //    the 8 warps' column sums meanwhile.
+#pragma unroll
+  for (int j = 0; j < 32; ++j)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + wg::acc_row(half);
+      const float2 gv = row < n
+          ? *reinterpret_cast<const float2*>(gin + (size_t)row * W + wg::acc_col(j))
+          : make_float2(0.f, 0.f);
+      acc[j][2 * half] = gv.x;
+      acc[j][2 * half + 1] = gv.y;
+    }
   int c = CHUNKS;
   for (int i = DEPTH - 1; i >= 0; --i) {
     const bf16* act = i == DEPTH - 1 ? H : X;
-    // one column pair at a time, so that only two column sums are live
+    float colsum[8];          // the warp's sums, one column per group of 4 j
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int col = frag_col(nt);
-      bf162 a2[4][2];
+    for (int grp = 0; grp < 8; ++grp) {
+      float v[8];
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int row = frag_row(mt, half);
-          a2[mt][half] = *reinterpret_cast<const bf162*>(act + row * LDA + col);
-          if (i == DEPTH - 1) {
-            const float2 v = row0 + row < n
-                ? *reinterpret_cast<const float2*>(gin + (size_t)(row0 + row) * W + col)
-                : make_float2(0.f, 0.f);
-            acc[mt][nt][2 * half] = v.x;
-            acc[mt][nt][2 * half + 1] = v.y;
-          }
-        }
-      float colsum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = grp * 4 + jj, col = wg::acc_col(j);
+        v[2 * jj] = v[2 * jj + 1] = 0.f;
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
-          const int row = frag_row(mt, half);
-          const float g0 = acc[mt][nt][2 * half], g1 = acc[mt][nt][2 * half + 1];
-          const float m0 = __low2float(a2[mt][half]) > 0.f ? g0 : 0.f;
-          const float m1 = __high2float(a2[mt][half]) > 0.f ? g1 : 0.f;
-          colsum[0] += m0;
-          colsum[1] += m1;
-          *reinterpret_cast<bf162*>(H + row * LDA + col) = __floats2bfloat162_rn(m0, m1);
+          const int at = wg::tile_at(wg::acc_row(half), col);
+          const bf162 a2 = *reinterpret_cast<const bf162*>(act + at);
+          const float m0 = __low2float(a2) > 0.f ? acc[j][2 * half] : 0.f;
+          const float m1 = __high2float(a2) > 0.f ? acc[j][2 * half + 1] : 0.f;
+          v[2 * jj] += m0;
+          v[2 * jj + 1] += m1;
+          *reinterpret_cast<bf162*>(H + at) = __floats2bfloat162_rn(m0, m1);
         }
-      // db: this thread's 8 rows, then the warp's 8 row groups (shuffle
-      // tree), then (below) the two row-warps of a column in order
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float v = colsum[e];
-        v += __shfl_xor_sync(0xffffffffu, v, 4);
-        v += __shfl_xor_sync(0xffffffffu, v, 8);
-        v += __shfl_xor_sync(0xffffffffu, v, 16);
-        if (lane < 4) dbs[wm * W + col + e] = v;
       }
+      colsum[grp] = rows_sum8(v, lane);
     }
+    __syncthreads();          // gmb_i is in H; every warpgroup is past chunk c - 1
+    float* dbs = reinterpret_cast<float*>(stages + ((c - 1) % wg::NSTAGE) * wg::STAGE);
+    // element lane >> 2 of group grp is column 8·(4·grp + (lane >> 3)) + 2·(lane & 3) + ((lane >> 2) & 1)
+#pragma unroll
+    for (int grp = 0; grp < 8; ++grp)
+      dbs[warp * W + wg::acc_col(grp * 4 + (lane >> 3)) + ((lane >> 2) & 1)] = colsum[grp];
     __syncthreads();
-    db_part[((size_t)blockIdx.x * DEPTH + i) * W + threadIdx.x] =
-        dbs[threadIdx.x] + dbs[W + threadIdx.x];
-    store_tile(wsr + (DEPTH + i) * buf, H);    // gmb_i
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < THREADS / 32; ++k) s += dbs[k * W + threadIdx.x];
+    db_part[((size_t)blockIdx.x * DEPTH + i) * W + threadIdx.x] = s;
 
-    if (i == SKIP + 1) {        // dx's skip part: gmb · W[8]ᵀ, kept in dx
-      zero(acc);
-      for (int k = 0; k < W / KC; ++k, ++c) {
-        const bf16* st = next_chunk(stages, w, c, TOTAL);
-        mma_stage_nk(acc, H, k * KC, st);
-        __syncthreads();
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int row = row0 + frag_row(mt, half), col = frag_col(nt);
-            if (row >= n) continue;
-            if (col < din) dx[(size_t)row * din + col] = acc[mt][nt][2 * half];
-            if (col + 1 < din) dx[(size_t)row * din + col + 1] = acc[mt][nt][2 * half + 1];
-          }
-    }
-    zero(acc);                  // g = gmb · W[i]ᵀ
-    for (int k = 0; k < W / KC; ++k, ++c) {
-      // a_{i-1} into X, in the pipeline group of the next weight chunk: it
-      // has arrived when that chunk has, well before layer i-1's mask
-      if (k == 0 && i > 0) load_tile_async(X, wsr + i * buf);
-      const bf16* st = next_chunk(stages, w, c, TOTAL);
-      mma_stage_nk(acc, H, k * KC, st);
-      __syncthreads();
-    }
+    for (int k = 0; k < W / KC; ++k, ++c)       // g = gmb_i · W[i]ᵀ
+      wg::mma_chunk(acc, H + k * wg::SUB, wg::pipe_next(stages, w, wt, c, TOTAL), k == 0, [&] {
+        // while the chunks multiply: gmb_i out to the workspace in parts,
+        // and in the first, the next mask's a_{i-1} (after layer 0, the
+        // skip's gmb_5) into X, in the pipeline group of chunk c + 3
+        if (k < wg::STORE_PARTS) wg::store_tile(wsr + (DEPTH + i) * buf, H, k);
+        if (k == 0) wg::load_tile_async(X, wsr + (i > 0 ? i : DEPTH + SKIP + 1) * buf);
+      });
   }
+  // dx's skip part, gmb_5 · W[8]ᵀ, added to g in the accumulators
+  for (int k = 0; k < W / KC; ++k, ++c)
+    wg::mma_chunk(acc, X + k * wg::SUB, wg::pipe_next(stages, w, wt, c, TOTAL), false, [] {});
 
-  // 3. dx = (skip part) + g, each element by the thread that wrote it
+  // 3. dx, each element by the thread that holds it
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
+  for (int j = 0; j < 32; ++j)
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = row0 + frag_row(mt, half), col = frag_col(nt);
-        if (row >= n) continue;
-        if (col < din) dx[(size_t)row * din + col] += acc[mt][nt][2 * half];
-        if (col + 1 < din) dx[(size_t)row * din + col + 1] += acc[mt][nt][2 * half + 1];
-      }
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + wg::acc_row(half), col = wg::acc_col(j);
+      if (row >= n) continue;
+      if (col < din) dx[(size_t)row * din + col] = acc[j][2 * half];
+      if (col + 1 < din) dx[(size_t)row * din + col + 1] = acc[j][2 * half + 1];
+    }
 }
 
 // Weight gradients: partial[s][e] = A_eᵀ · G_e over row range s, as 128x128
@@ -304,28 +319,39 @@ __global__ void mlp_bwd_reduce_db(const float* __restrict__ db_part, float* __re
 
 }  // namespace
 
-// x (n,din) f32, wpack (9,256,256) bf16, bpack (8,256) f32, g (n,256) f32
-// → dx (n,din), dw (9,256,256), db (8,256) f32.  Scratch from the caller:
-// ws (16, ceil(n/128)·128, 256) bf16, db_part (ceil(n/128), 8, 256) f32,
-// dw_part (splits, 9, 256, 256) f32.  All contiguous, on the device.
-// Launches the four passes on `stream`; returns the first launch error.
-extern "C" int mlp_bwd_launch(const float* x, const void* wpack, const float* bpack,
-                              const float* g, float* dx, float* dw, float* db, void* ws,
-                              float* db_part, float* dw_part, int n, int din, int splits,
-                              void* stream) {
+// The backward in two calls, made in this order on one stream.  All
+// tensors contiguous, on the device; each returns the first launch error.
+//
+// Pass 1: x (n,din) f32, wpack (9,256,256) bf16 and wpackt, its per-matrix
+// transpose, bpack (8,256) f32, g (n,256) f32 → dx (n,din) f32, the
+// workspace ws (16, ceil(n/128)·128, 256) bf16 and db_part (ceil(n/128),
+// 8, 256) f32.
+extern "C" int mlp_bwd_rows_launch(const float* x, const void* wpack, const void* wpackt,
+                                   const float* bpack, const float* g, float* dx, void* ws,
+                                   float* db_part, int n, int din, void* stream) {
   if (n <= 0) return 0;
-  if (din <= 0 || din > W || splits <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int blocks = (n + BM - 1) / BM;
+  if (din <= 0 || din > W) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(mlp_bwd_rows, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)ROWS_SMEM);
   if (e != cudaSuccess) return (int)e;
-  const bf16* w = static_cast<const bf16*>(wpack);
-  bf16* wsb = static_cast<bf16*>(ws);
-  mlp_bwd_rows<<<blocks, THREADS, ROWS_SMEM, st>>>(x, w, bpack, g, dx, wsb, db_part, n, din);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  mlp_bwd_wgrad<<<dim3(splits, 4, DEPTH + 1), THREADS, 0, st>>>(wsb, dw_part, blocks * BM, splits);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  mlp_bwd_rows<<<(n + BM - 1) / BM, THREADS, ROWS_SMEM, (cudaStream_t)stream>>>(
+      x, static_cast<const bf16*>(wpack), static_cast<const bf16*>(wpackt), bpack, g, dx,
+      static_cast<bf16*>(ws), db_part, n, din);
+  return (int)cudaGetLastError();
+}
+
+// Passes 2 and 3: that workspace and db_part (blocks = ceil(n/128) row
+// blocks) → dw (9,256,256) and db (8,256) f32, through the scratch dw_part
+// (splits, 9, 256, 256) f32.
+extern "C" int mlp_bwd_wgrad_launch(const void* ws, const float* db_part, float* dw_part,
+                                    float* dw, float* db, int blocks, int splits, void* stream) {
+  if (blocks <= 0) return 0;
+  if (splits <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  mlp_bwd_wgrad<<<dim3(splits, 4, DEPTH + 1), THREADS, 0, st>>>(
+      static_cast<const bf16*>(ws), dw_part, blocks * BM, splits);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
   const int total = (DEPTH + 1) * W * W;
   mlp_bwd_reduce_dw<<<(total + 255) / 256, 256, 0, st>>>(dw_part, dw, splits);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;

@@ -1,8 +1,11 @@
-// Shared pieces of the fused MLP trunk kernels (mlp_fwd.cu, mlp_bwd.cu):
-// the trunk's shape, the shared-memory tiles and their copies to and from
-// device memory, the weight pipeline, the bf16 tensor-core product
-// (mma.sync m16n8k16, float32 accumulators) and the forward pass over one
-// block of rows.
+// Shared pieces of the fused MLP trunk kernels: the trunk's shape and the
+// order in which a pass reads the packed matrices (mlp_fwd.cu, mlp_bwd.cu,
+// mlp_wgmma.cuh), the cp.async copies, and the mma.sync pieces of the
+// forward kernel (mlp_fwd.cu) and of the backward's weight-gradient pass:
+// padded shared-memory tiles, the two-stage weight pipeline, the bf16
+// tensor-core product (mma.sync m16n8k16, float32 accumulators) and the
+// forward pass over one block of rows.  The backward's row pass runs on
+// wgmma instead (mlp_wgmma.cuh).
 //
 // Tiles.  A CTA of 8 warps owns BM = 128 rows.  Its input x (rounded to
 // bf16, zero-padded to 256 lanes) and its current activation live in shared
@@ -12,12 +15,10 @@
 // holds its 64 x 64 block in registers (acc[4][8][4]).
 //
 // Weights stream from device memory (they stay in L2: 1.18 MB bf16) through
-// a two-stage cp.async pipeline of KC = 64 reduction steps each.  A
-// forward stage holds rows k0..k0+63 of a (in,out) matrix ([k][n], read
-// with ldmatrix.trans); a backward stage holds its columns j0..j0+63 as
-// [n][j] (the product with Wᵀ, read with plain ldmatrix).  The chunks of a
-// pass follow one fixed sequence, so the next one is always in flight while
-// the current one is multiplied.
+// a two-stage cp.async pipeline of KC = 64 reduction steps each: rows
+// k0..k0+63 of a (in,out) matrix ([k][n], read with ldmatrix.trans).  The
+// chunks of a pass follow one fixed sequence, so the next one is always in
+// flight while the current one is multiplied.
 
 #pragma once
 
@@ -33,9 +34,8 @@ constexpr int SKIP = DEPTH / 2;         // the input is concatenated into layer 
 constexpr int BM = 128;                 // rows per CTA
 constexpr int THREADS = 256;            // 8 warps: 2 along rows x 4 along columns
 constexpr int KC = 64;                  // reduction steps per pipeline stage
-constexpr int LDA = W + 8;              // bf16 pitch of X, H and a forward stage
-constexpr int LDR = KC + 8;             // bf16 pitch of a backward stage
-constexpr int STAGE = (KC * LDA > W * LDR) ? KC * LDA : W * LDR;   // bf16 elements
+constexpr int LDA = W + 8;              // bf16 pitch of X, H and a weight stage
+constexpr int STAGE = KC * LDA;         // bf16 elements of a weight stage
 constexpr int CHUNKS = (W / KC) * (DEPTH + 1);   // stages of one pass over the trunk
 static_assert(DEPTH == 8 && SKIP == 4, "the chunk sequences below are written for 8 layers");
 static_assert(THREADS == W, "one thread per column in the bias-gradient sums");
@@ -80,29 +80,13 @@ __device__ __forceinline__ void cp_async_wait1() { asm volatile("cp.async.wait_g
 __device__ __forceinline__ int fwd_mat(int q) {
   return q <= SKIP + 1 ? q : (q == SKIP + 2 ? DEPTH : q - 1);
 }
-// ... and of the backward walk: 7, 6, then at layer 5 first the x-part
-// (for dx) and then the h-part, then 4..0.
-__device__ __forceinline__ int bwd_mat(int q) {
-  return q < DEPTH - 2 - SKIP ? DEPTH - 1 - q : (q == DEPTH - 2 - SKIP ? DEPTH : DEPTH - q);
-}
-
-// Start the cp.async copies of chunk c: c < CHUNKS is forward chunk c
-// (rows k0.. of its matrix as [k][n]); c >= CHUNKS is backward chunk
-// c - CHUNKS (columns j0.. of its matrix as [n][j]).
+// Start the cp.async copies of forward chunk c (rows k0.. of its matrix
+// as [k][n]).
 __device__ __forceinline__ void load_chunk(bf16* stage, const bf16* w, int c) {
-  if (c < CHUNKS) {
-    const bf16* src = w + ((size_t)fwd_mat(c >> 2) * W + (c & 3) * KC) * W;
-    for (int i = threadIdx.x; i < KC * (W / 8); i += THREADS) {
-      const int r = i / (W / 8), p = i % (W / 8);
-      cp_async16(stage + r * LDA + p * 8, src + (size_t)r * W + p * 8);
-    }
-  } else {
-    c -= CHUNKS;
-    const bf16* src = w + (size_t)bwd_mat(c >> 2) * W * W + (c & 3) * KC;
-    for (int i = threadIdx.x; i < W * (KC / 8); i += THREADS) {
-      const int r = i / (KC / 8), p = i % (KC / 8);
-      cp_async16(stage + r * LDR + p * 8, src + (size_t)r * W + p * 8);
-    }
+  const bf16* src = w + ((size_t)fwd_mat(c >> 2) * W + (c & 3) * KC) * W;
+  for (int i = threadIdx.x; i < KC * (W / 8); i += THREADS) {
+    const int r = i / (W / 8), p = i % (W / 8);
+    cp_async16(stage + r * LDA + p * 8, src + (size_t)r * W + p * 8);
   }
 }
 
@@ -141,31 +125,6 @@ __device__ __forceinline__ void mma_stage_kn(float (&acc)[4][8][4], const bf16* 
   }
 }
 
-// acc += A[:, ka:ka+KC] · stageᵀ, with the stage [n][j] (backward: columns
-// of W, so the product is with Wᵀ).
-__device__ __forceinline__ void mma_stage_nk(float (&acc)[4][8][4], const bf16* A, int ka,
-                                             const bf16* B) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int m0 = (warp >> 2) * 64, n0 = (warp & 3) * 64;
-  const int q = lane >> 3, r = lane & 7;
-#pragma unroll
-  for (int ks = 0; ks < KC; ks += 16) {
-    uint32_t a[4][4], b[8][2];
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-      ldsm_x4(a[mt][0], a[mt][1], a[mt][2], a[mt][3],
-              A + (m0 + mt * 16 + (q & 1) * 8 + r) * LDA + ka + ks + (q >> 1) * 8);
-#pragma unroll
-    for (int np = 0; np < 4; ++np)
-      ldsm_x4(b[2 * np][0], b[2 * np][1], b[2 * np + 1][0], b[2 * np + 1][1],
-              B + (n0 + np * 16 + (q >> 1) * 8 + r) * LDR + ks + (q & 1) * 8);
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) mma(acc[mt][nt], a[mt], b[nt]);
-  }
-}
-
 __device__ __forceinline__ void zero(float (&acc)[4][8][4]) {
 #pragma unroll
   for (int mt = 0; mt < 4; ++mt)
@@ -195,29 +154,10 @@ __device__ __forceinline__ void stage_x(bf16* X, const float* __restrict__ x, in
   }
 }
 
-// A [BM][LDA] tile of shared memory to [BM][W] bf16 rows of device memory,
-// 16 bytes a thread: each warp writes one whole 512-byte row at a time.
-__device__ __forceinline__ void store_tile(bf16* dst, const bf16* src) {
-  for (int i = threadIdx.x; i < BM * (W / 8); i += THREADS) {
-    const int r = i / (W / 8), p = i % (W / 8);
-    *reinterpret_cast<uint4*>(dst + (size_t)r * W + p * 8) =
-        *reinterpret_cast<const uint4*>(src + r * LDA + p * 8);
-  }
-}
-
-// ... and back, as cp.async copies that join the next committed group.
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src) {
-  for (int i = threadIdx.x; i < BM * (W / 8); i += THREADS) {
-    const int r = i / (W / 8), p = i % (W / 8);
-    cp_async16(dst + r * LDA + p * 8, src + (size_t)r * W + p * 8);
-  }
-}
-
 // The forward pass over the CTA's rows: for each layer, acc = h·W (+ x·W_x
 // at layer SKIP + 1) in float32, then epi(layer, acc) rounds
 // relu(acc + b) to bf16 and stores it; post(layer) runs once every thread's
-// epilogue is done.  Chunk numbers run from 0; returns with the next chunk
-// (CHUNKS) already in flight when total > CHUNKS.
+// epilogue is done.
 template <typename Epilogue, typename Post>
 __device__ __forceinline__ void forward_pass(float (&acc)[4][8][4], const bf16* X, const bf16* H,
                                              bf16* stages, const bf16* w, int total,

@@ -164,13 +164,51 @@ BWD_SPLITS = 32
 BWD_BUFFERS = 2 * DEPTH         # bf16 x, activations 0..6, the 8 masked gradients
 
 
+def transpose_pack(wpack: torch.Tensor) -> torch.Tensor:
+    """Each (256,256) matrix of the pack transposed, contiguous: kernel 6's
+    row pass reads the forward's W[k][n] from it as rows n, so that the
+    forward's and the backward's weight stages are both K-major slices."""
+    return wpack.transpose(1, 2).contiguous()
+
+
+def _bwd_buffers(n: int, dev):
+    """Kernel 6's scratch for n rows: the workspace (16, rows padded to 128,
+    256) bf16, the row blocks' bias-gradient sums and the weight-gradient
+    pass's partials, float32."""
+    blocks = -(-n // BWD_ROWS)
+    return (torch.empty((BWD_BUFFERS, blocks * BWD_ROWS, WIDTH), dtype=torch.bfloat16, device=dev),
+            torch.empty((blocks, DEPTH, WIDTH), dtype=torch.float32, device=dev),
+            torch.empty((BWD_SPLITS, DEPTH + 1, WIDTH, WIDTH), dtype=torch.float32, device=dev))
+
+
+def _bwd_rows(x, wpack, wpackt, bpack, g, dx, ws, db_part) -> None:
+    """Kernel 6's row pass on the current stream: dx, the workspace and the
+    row blocks' bias-gradient sums."""
+    n, din = x.shape
+    _launch("mlp_bwd", "mlp_bwd_rows_launch",
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+            x.data_ptr(), wpack.data_ptr(), wpackt.data_ptr(), bpack.data_ptr(), g.data_ptr(),
+            dx.data_ptr(), ws.data_ptr(), db_part.data_ptr(), n, din,
+            torch.cuda.current_stream(x.device).cuda_stream)
+
+
+def _bwd_wgrad(ws, db_part, dw_part, dw, db) -> None:
+    """Kernel 6's weight-gradient pass and both reductions, on the current
+    stream: dW and db from the row pass's workspace and sums."""
+    _launch("mlp_bwd", "mlp_bwd_wgrad_launch",
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+            ws.data_ptr(), db_part.data_ptr(), dw_part.data_ptr(), dw.data_ptr(), db.data_ptr(),
+            db_part.shape[0], dw_part.shape[0], torch.cuda.current_stream(ws.device).cuda_stream)
+
+
 def trunk_bwd(x: torch.Tensor, wpack: torch.Tensor, bpack: torch.Tensor,
               g: torch.Tensor):
     """x (N,din) f32, wpack bf16, bpack f32, g (N,256) f32 → dx (N,din),
     dW (9,256,256), db (8,256), all f32 (dW and db summed over the rows).
 
-    A CUDA tensor goes to kernel 6 (``trunk_bwd.launches`` counts each call
-    that launches it); a CPU tensor takes the plain twin."""
+    A CUDA tensor goes to kernel 6, its row pass and then its weight-gradient
+    pass (``trunk_bwd.launches`` counts each call that launches it); a CPU
+    tensor takes the plain twin."""
     _check(x, wpack, bpack, "trunk_bwd")
     if tuple(g.shape) != (x.shape[0], WIDTH) or g.dtype != torch.float32:
         raise ValueError(f"trunk_bwd: g must be ({x.shape[0]},256) float32, got "
@@ -185,18 +223,10 @@ def trunk_bwd(x: torch.Tensor, wpack: torch.Tensor, bpack: torch.Tensor,
     db = torch.empty((DEPTH, WIDTH), dtype=torch.float32, device=dev)
     if n == 0:
         return dx, dw.zero_(), db.zero_()
-    blocks = -(-n // BWD_ROWS)
-    ws = torch.empty((BWD_BUFFERS, blocks * BWD_ROWS, WIDTH), dtype=torch.bfloat16, device=dev)
-    db_part = torch.empty((blocks, DEPTH, WIDTH), dtype=torch.float32, device=dev)
-    dw_part = torch.empty((BWD_SPLITS, DEPTH + 1, WIDTH, WIDTH), dtype=torch.float32,
-                          device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    ws, db_part, dw_part = _bwd_buffers(n, dev)
     with torch.cuda.device(dev):
-        _launch("mlp_bwd", "mlp_bwd_launch",
-                [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
-                x.data_ptr(), wpack.data_ptr(), bpack.data_ptr(), g.data_ptr(),
-                dx.data_ptr(), dw.data_ptr(), db.data_ptr(), ws.data_ptr(),
-                db_part.data_ptr(), dw_part.data_ptr(), n, din, BWD_SPLITS, stream)
+        _bwd_rows(x, wpack, transpose_pack(wpack), bpack, g, dx, ws, db_part)
+        _bwd_wgrad(ws, db_part, dw_part, dw, db)
     trunk_bwd.launches += 1
     return dx, dw, db
 

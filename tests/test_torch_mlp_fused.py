@@ -119,7 +119,11 @@ def _clean_rows(got, want):
 
 # --- the twins of kernels 5 and 6 against fused_trunk ---------------------------
 
-@pytest.mark.parametrize("n,din", [(64, 93), (37, 93), (64, 84), (37, 84)])
+# (1, 93), (65, 93), (129, 1) and (129, 256) are shapes that kernel 6's
+# tiling makes special (chip_smoke.py's MLP_EDGE_SHAPES): one row, a ragged
+# second row block, the narrowest and the widest input
+@pytest.mark.parametrize("n,din", [(64, 93), (37, 93), (64, 84), (37, 84),
+                                   (1, 93), (65, 93), (129, 1), (129, 256)])
 def test_twins_match_jax_fused_trunk(n, din):
     """Forward and vjp (dx, dwpack, dbpack) of fused_trunk (interpret mode)
     against trunk_fwd_ref/trunk_bwd_ref, on the clean rows: the output
@@ -202,6 +206,19 @@ def test_twins_summation_order_spread(seed, monkeypatch):
         assert rel[name][0] <= cs.TOL_MLP_BWD_MAX / 2, (name, rel[name])
 
 
+def test_transposed_pack_is_each_matrix_transposed():
+    """Kernel 6's row pass reads the forward's weights from the transposed
+    pack: matrix m of it holds W[m]ᵀ, contiguous, so that a 64-column slice
+    of its rows n is the forward's B[n][k0:k0+64] = W[m][k0:k0+64, n]."""
+    rng = np.random.default_rng(5)
+    w = torch.tensor(rng.normal(size=(9, 256, 256)).astype(np.float32)).to(torch.bfloat16)
+    wt = MF.transpose_pack(w)
+    assert wt.shape == w.shape and wt.dtype == torch.bfloat16 and wt.is_contiguous()
+    for m, k, n in ((0, 3, 200), (5, 255, 0), (8, 64, 17)):
+        assert torch.equal(wt[m, n, k], w[m, k, n])
+    assert torch.equal(wt[4, :, 64:128], w[4, 64:128, :].t())
+
+
 def test_wrappers_take_the_twins_on_the_cpu_and_check_their_inputs():
     """On CPU tensors the wrappers return the twins' results and count no
     launch; wrong shapes or types raise."""
@@ -224,6 +241,12 @@ def test_wrappers_take_the_twins_on_the_cpu_and_check_their_inputs():
         MF.trunk_fwd(x, wb[:8], bp)
     with pytest.raises(ValueError):
         MF.trunk_bwd(x, wb, bp, g[:, :128])
+    with pytest.raises(ValueError):
+        MF.trunk_bwd(x, wb, bp, g.double())
+    with pytest.raises(TypeError):
+        MF.trunk_bwd(x, wb.float(), bp, g)
+    with pytest.raises(ValueError):
+        MF.trunk_bwd(torch.zeros((9, 257)), wb, bp, g)
 
 
 # --- MLPTrunk in its three modes against flax's ----------------------------------------
