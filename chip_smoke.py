@@ -15,7 +15,8 @@ Phases; any failure exits non-zero and prints no result:
                 the edge cases (invalid rows, alpha-clamped rows, slivers
                 below AREA_MIN, back faces, exact z ties; for the backward
                 kernels random cotangents, and built ties where the shade
-                backward splits gradients in half); the fused trunk
+                backward splits gradients in half; the shade backward also
+                at SHADE_EDGE_SHAPES); the fused trunk
                 (kernels 5 and 6) at 131,072 and 479,966 (ragged) rows,
                 kernel 6 launched twice there for identical bits and its
                 two passes timed apart, then at the shapes its tiling
@@ -38,7 +39,8 @@ Phases; any failure exits non-zero and prints no result:
                 two steps with forward / backward / optimizer timed, and the
                 backward kernels held against their twins on the rows and
                 cotangents they got inside the step (each cotangent scaled
-                to a largest |value| of 1); all four kernels timed, each
+                to a largest |value| of 1), the shade backward launched
+                twice there for identical bits; all four kernels timed, each
                 beside the bound of the work its function needs on these
                 rows;
      5f: the same in the fused configuration (tpu.mlp_bf16 and
@@ -263,6 +265,32 @@ def shade_tie_attrs(rng, T, K, tiles_x, tile):
             tri = [x0, y0 - 4, x0 - 4, y0, x0 + 4, y0]
         a[:, k, 0:6] = np.stack(tri, -1)
         a[:, k, 9] = 1.0
+    return a
+
+
+# kernel 4's special shapes, (case, K) over SHADE_EDGE_TILES tiles of 16x16
+# (CPU tests hold the twin to JAX at the same shapes): one row; a ragged K;
+# a tile with no valid row beside a tile with some; every row valid; valid
+# rows interleaved with invalid ones (the first invalid, so the valid rows
+# are no prefix); one small triangle, so most pixels have no winner
+SHADE_EDGE_SHAPES = (("one row", 1), ("37 rows", 37), ("all invalid", 40),
+                     ("all valid", 48), ("interleaved", 48), ("no winner", 3))
+SHADE_EDGE_TILES = 2
+
+
+def shade_edge_attrs(rng, case, K, T, tiles_x, tile):
+    """shade_tie_attrs's rows (built ties in rows 0, 8, ...) recut into one
+    of SHADE_EDGE_SHAPES's cases."""
+    a = shade_tie_attrs(rng, T, K, tiles_x, tile)
+    if case == "all invalid":
+        a[0, :, 9] = 0.0
+    elif case == "all valid":
+        a[..., 9] = 1.0
+    elif case == "interleaved":
+        a[:, 0::2, 9] = 0.0
+        a[:, 1::2, 9] = 1.0
+    elif case == "no winner":
+        a[:, 1:, 9] = 0.0           # row 0 alone: a built triangle of area 16
     return a
 
 
@@ -702,6 +730,22 @@ def main() -> int:
         + f" {'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append("shade_bwd vs twin (random, ties)")
+    # ... and at the shapes that are special to its compaction and row sums
+    for case, K in SHADE_EDGE_SHAPES:
+        nt = SHADE_EDGE_TILES
+        erng = np.random.default_rng(K)   # the CPU test's rows
+        ae = torch.as_tensor(shade_edge_attrs(erng, case, K, nt, 2, mc.tile_w), device=dev)
+        ge, gse = (torch.as_tensor(x, device=dev) for x in cotangents(erng, nt, P))
+        geo_e = (2, mc.tile_h, mc.tile_w, mc.sigma)
+        e, ok, rep = compare_bwd(torch, MK.shade_bwd(ae, ge, gse, *geo_e),
+                                 MK.shade_bwd_ref(ae, ge, gse, *geo_e),
+                                 SHADE_GROUPS, ZERO_LANES["shade"], ae[..., 9] < 0.5)
+        errs["shade_bwd"].append(e)
+        log(f"# kernels/edge: shade_bwd {case} {tuple(ae.shape)} "
+            + ", ".join(f"{k} {v[0]:.3g} (tol {v[1]:.3g})" for k, v in rep.items())
+            + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"shade_bwd vs twin (edge shape {case})")
     # kernels 5 and 6 (the fused trunk) at the step's row counts, din 93
     from dgmesh_torch.ops import mlp_fused as MF
     errs["trunk_fwd"], errs["trunk_bwd"] = [], []
@@ -957,11 +1001,22 @@ def main() -> int:
         if not ok:
             failures.append(f"{name} vs twin (training rows)")
         del got, want
+    # kernel 4 twice on the same rows: fixed-order sums, the same bits
+    first, again = (MK.shade_bwd(sa, sg, sgs, *geo_m, mc.sigma) for _ in range(2))
+    same = bool(torch.equal(first, again))
+    log(f"# kernels/train: shade_bwd twice: {'identical' if same else 'DIFFERENT'} d_attrs")
+    if not same:
+        failures.append("shade_bwd not deterministic (training rows)")
+    del first, again
     c_valid, c_pass, c_live = composite_pairs(torch, SK, ca, sc)
     s_valid, s_soft, s_rgb = shade_pairs(torch, SK, sa, sg, sgs, mc)
+    rows_per_tile = (sa[..., 9] > 0.5).sum(1)
     log(f"# train rows: composite {c_valid} valid (pixel, row) pairs, {c_pass} passing, "
         f"{c_live} below the clamp; shade {s_valid} valid pairs, {s_soft} with a soft "
-        f"gradient, {s_rgb} winner pixels with a colour gradient")
+        f"gradient, {s_rgb} winner pixels with a colour gradient; shade rows "
+        f"{int(rows_per_tile.sum())} valid of {sa.shape[0] * sa.shape[1]} in "
+        f"{int((rows_per_tile > 0).sum())} of {sa.shape[0]} tiles, largest tile "
+        f"{int(rows_per_tile.max())}, {int((rows_per_tile == sa.shape[1]).sum())} tiles at K")
     kernel_rows["composite_bwd"] = (
         lambda: SK.composite_bwd(ca, cg, cga, *geo_s),
         lambda: SK.composite_bwd_ref(ca, cg, cga, *geo_s),

@@ -27,29 +27,35 @@
 // forward's ~118 operations per (pixel, valid face) pair once, ~159 more
 // per pair whose soft gradient is not zero (three edges' partials and their
 // six sums), and ~117 per pixel with a winner for the rgb path;
-// chip_smoke.py counts these on a training step's rows.  This design
-// recomputes the forward in its second walk and reduces 18 values per row
-// (5 shuffle steps each) in every warp with a non-zero contribution.  The
-// bytes are the (T,K,24) rows in and out plus the cotangents: ~250 MB at
-// T=2500, K=512 (~0.075 ms at 3.35 TB/s).
+// chip_smoke.py counts these on a training step's rows.  The bytes are the
+// (T,K,24) rows in and out plus the cotangents: ~250 MB at T=2500, K=512
+// (~0.075 ms at 3.35 TB/s).
 //
-// Design: one CTA per tile, one thread per pixel, faces staged in shared
-// memory in batches of RB rows and broadcast.
-//   walk 1: the forward's loop (shade.cu): the winner (a strictly greater
-//           1/w wins, so the first maximum in K order), its barycentrics and
-//           1/w, and the soft silhouette's sum of log1p terms M; then the
-//           per-pixel rgb-path quantities (pw_j, u_j, ubar, dq_j, S) stay in
-//           registers;
-//   walk 2: each pixel forms its 18 contributions to each valid row (six
-//           screen coordinates, three 1/w, nine colours; the rgb path feeds
-//           only its winner row); they are summed across the tile in a fixed
-//           order: an xor-shuffle tree within each warp, then one partial per
-//           warp in shared memory, summed in warp order.  No atomics, so the
-//           result is deterministic; each tile writes only its own rows.
-// Built with --fmad=false, so d2, uu and every tie and gate test round as
-// the twin's separate PyTorch ops do: equality tests agree with it exactly.
-// A simple, correct first kernel; its reductions are the slow part, and
-// tuning comes later.
+// Design: one CTA per tile, in three phases.  The per-row gradient is a sum
+// over the tile's pixels, so a thread that owns a row forms it in registers.
+//   compaction: the tile's valid rows, listed in K order (a ballot and a
+//           prefix count per warp, so the list is deterministic); the rows
+//           that are not valid are written 0 here, coalesced;
+//   phase A, one thread per pixel: the forward's walk over the valid rows
+//           (staged in shared memory in batches of RB and broadcast): the
+//           z-buffer winner (a strictly greater 1/w wins, so the first
+//           maximum in K order), its barycentrics and 1/w, and the soft
+//           silhouette's sum of log1p terms M.  Each pixel then leaves its
+//           state in shared memory: its winner row (or -1), its soft factor
+//           gs = -g_soft e^M / sigma, and its 18 rgb-path contributions to
+//           the winner row (six screen coordinates, three 1/w, nine colours);
+//   phase B, one thread per valid row (rows t, t + blockDim, ...): the row's
+//           coordinates, edges, squared edge lengths and signed area in
+//           registers; the loop over the tile's pixels in row-major order
+//           adds the pair's soft-path terms and, at the pixels the row wins,
+//           the pixel's rgb contributions to 18 sums in registers.  The sums
+//           leave through shared memory as whole 16-byte stores.
+// No shuffles, no partial buffers, no atomics: every sum runs in one thread
+// in a fixed order, so two launches give the same bits; each tile writes
+// only its own rows.
+// Built with --fmad=false and IEEE division and square root, so d2, uu and
+// every tie and gate test round as the twin's separate PyTorch ops do:
+// equality tests agree with it exactly.
 
 #include <cuda_runtime.h>
 
@@ -57,21 +63,25 @@ namespace {
 
 constexpr int LANES = 24;   // row width of attrs
 constexpr int USED = 19;    // lanes read from the staged rows (0-18)
-constexpr int NOUT = 18;    // contributions per row: 6 coords, 3 1/w, 9 colours
-constexpr int RB = 32;      // rows per staged batch
+constexpr int NOUT = 18;    // sums per row: 6 coords, 3 1/w, 9 colours
+constexpr int OSTRIDE = NOUT + 1;  // staged sums per row, padded (banks)
+constexpr int RB = 32;      // rows per staged batch in phase A
 constexpr float AREA_MIN = 1e-4f;
 constexpr float NEG = -3.0e38f;
 constexpr float S_MAX = 0.999999f;  // 1 - 1e-6 in float32
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 // jnp.minimum's gradient share of the first argument
 __device__ __forceinline__ float half_split(float a, float b) {
   return a < b ? 1.f : (a == b ? 0.5f : 0.f);
+}
+
+// dynamic shared memory, in 4-byte words, for K rows and P pixel threads
+__host__ __device__ constexpr size_t smem_words(int K, int P) {
+  return (size_t)2 * K            // vrow, rowslot
+         + 32                     // per-warp counts of the compaction
+         + RB * USED              // phase A's staged rows
+         + (size_t)P * (2 + NOUT) // pixel state: winner, gs, 18 rgb terms
+         + (size_t)P * OSTRIDE;   // phase B's sums on their way out
 }
 
 __global__ void shade_bwd_kernel(const float* __restrict__ attrs,
@@ -81,37 +91,68 @@ __global__ void shade_bwd_kernel(const float* __restrict__ attrs,
                                  int K, int tiles_x, int tile_h, int tile_w,
                                  float sigma) {
   extern __shared__ float smem[];
-  float* rows = smem;                       // [RB][USED]
-  float* part = smem + RB * USED;           // [RB][nwarps][NOUT]
-  const int nwarps = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int tile = blockIdx.x;
   const int P = tile_h * tile_w;
-  const int p = threadIdx.x;
-  const float px = (float)((tile % tiles_x) * tile_w + p % tile_w) + 0.5f;
-  const float py = (float)((tile / tiles_x) * tile_h + p / tile_w) + 0.5f;
+  int* vrow = reinterpret_cast<int*>(smem);           // [K] valid rows, K order
+  int* rowslot = vrow + K;                            // [K] slot in vrow, or -1
+  int* wcnt = rowslot + K;                            // [32]
+  float* rows = reinterpret_cast<float*>(wcnt + 32);  // [RB][USED]
+  int* pix_win = reinterpret_cast<int*>(rows + RB * USED);  // [P]
+  float* pix_gs = reinterpret_cast<float*>(pix_win + P);    // [P]
+  float* pix_rgb = pix_gs + P;                        // [NOUT][P]
+  float* stage = pix_rgb + NOUT * P;                  // [P][OSTRIDE]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  const int tile = blockIdx.x;
+  const int ox = (tile % tiles_x) * tile_w, oy = (tile / tiles_x) * tile_h;
   const float* a = attrs + (size_t)tile * K * LANES;
-  float* d = d_attrs + (size_t)tile * K * LANES;
+  float4* d4 = reinterpret_cast<float4*>(d_attrs + (size_t)tile * K * LANES);
+
+  // compaction: the valid rows in K order
+  int nv = 0;
+  for (int base = 0; base < K; base += blockDim.x) {
+    const int r = base + threadIdx.x;
+    const bool v = r < K && a[(size_t)r * LANES + 9] > 0.5f;
+    const unsigned m = __ballot_sync(0xffffffffu, v);
+    if (lane == 0) wcnt[warp] = __popc(m);
+    __syncthreads();
+    int before = nv, total = nv;
+    for (int w = 0; w < nwarps; ++w) {
+      before += w < warp ? wcnt[w] : 0;
+      total += wcnt[w];
+    }
+    const int pos = before + __popc(m & ((1u << lane) - 1u));
+    if (r < K) rowslot[r] = v ? pos : -1;
+    if (v) vrow[pos] = r;
+    nv = total;
+    __syncthreads();
+  }
+  // rows that are not valid: exactly 0
+  for (int i = threadIdx.x; i < K * (LANES / 4); i += blockDim.x)
+    if (rowslot[i / (LANES / 4)] < 0) d4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (nv == 0) return;
+
+  // phase A, one thread per pixel: the forward's winner and soft sum
+  const int p = threadIdx.x;
+  const float px = (float)(ox + p % tile_w) + 0.5f;
+  const float py = (float)(oy + p / tile_w) + 0.5f;
   const size_t o = (size_t)tile * P + p;
   const float gr = g_rgb[o * 3 + 0], gg = g_rgb[o * 3 + 1], gb = g_rgb[o * 3 + 2];
   const float gsoft = g_soft[o];
-
-  // walk 1: the forward's winner and soft sum
   float best = NEG;
   int win = -1;
   float bw0 = 0.f, bw1 = 0.f, bw2 = 0.f, ww0 = 0.f, ww1 = 0.f, ww2 = 0.f;
   float log_keep = 0.f;
-  for (int base = 0; base < K; base += RB) {
-    const int n = min(RB, K - base);
+  for (int base = 0; base < nv; base += RB) {
+    const int n = min(RB, nv - base);
     __syncthreads();
     for (int i = threadIdx.x; i < n * USED; i += blockDim.x) {
       const int row = i / USED, ln = i - row * USED;
-      rows[i] = a[(size_t)(base + row) * LANES + ln];
+      rows[i] = a[(size_t)vrow[base + row] * LANES + ln];
     }
     __syncthreads();
     for (int j = 0; j < n; ++j) {
       const float* q = rows + j * USED;
-      if (!(q[9] > 0.5f)) continue;
       const float ax = q[0], ay = q[1], bx = q[2], by = q[3], cx = q[4], cy = q[5];
       const float e0 = (cx - bx) * (py - by) - (cy - by) * (px - bx);
       const float e1 = (ax - cx) * (py - cy) - (ay - cy) * (px - cx);
@@ -125,7 +166,7 @@ __global__ void shade_bwd_kernel(const float* __restrict__ attrs,
         const float zi = b0 * q[6] + b1 * q[7] + b2 * q[8];
         if (zi > best) {
           best = zi;
-          win = base + j;
+          win = vrow[base + j];
           bw0 = b0; bw1 = b1; bw2 = b2;
           ww0 = q[6]; ww1 = q[7]; ww2 = q[8];
         }
@@ -150,146 +191,150 @@ __global__ void shade_bwd_kernel(const float* __restrict__ attrs,
     }
   }
 
-  // the rgb-path quantities of the pixel
-  const float q0 = bw0 * ww0, q1 = bw1 * ww1, q2 = bw2 * ww2;
-  const float S_raw = q0 + q1 + q2;
-  const float S_live = (S_raw >= 1e-12f) ? 1.f : 0.f;
-  const float S = fmaxf(S_raw, 1e-12f);
-  const float pw0 = q0 / S, pw1 = q1 / S, pw2 = q2 / S;
-  float dq0 = 0.f, dq1 = 0.f, dq2 = 0.f;
+  // the pixel's state: its winner, its soft factor, its rgb-path terms
+  pix_win[p] = win;
+  pix_gs[p] = -gsoft * expf(log_keep) / sigma;
   if (win >= 0) {
-    const float* c = a + (size_t)win * LANES + 10;
-    const float u0 = c[0] * gr + c[1] * gg + c[2] * gb;
-    const float u1 = c[3] * gr + c[4] * gg + c[5] * gb;
-    const float u2 = c[6] * gr + c[7] * gg + c[8] * gb;
+    const float* w = a + (size_t)win * LANES;
+    const float ax = w[0], ay = w[1], bx = w[2], by = w[3], cx = w[4], cy = w[5];
+    const float q0 = bw0 * ww0, q1 = bw1 * ww1, q2 = bw2 * ww2;
+    const float S_raw = q0 + q1 + q2;
+    const float S_live = (S_raw >= 1e-12f) ? 1.f : 0.f;
+    const float S = fmaxf(S_raw, 1e-12f);
+    const float pw0 = q0 / S, pw1 = q1 / S, pw2 = q2 / S;
+    const float u0 = w[10] * gr + w[11] * gg + w[12] * gb;
+    const float u1 = w[13] * gr + w[14] * gg + w[15] * gb;
+    const float u2 = w[16] * gr + w[17] * gg + w[18] * gb;
     const float ubar = pw0 * u0 + pw1 * u1 + pw2 * u2;
-    dq0 = (u0 - ubar) / S * S_live;
-    dq1 = (u1 - ubar) / S * S_live;
-    dq2 = (u2 - ubar) / S * S_live;
+    const float dq0 = (u0 - ubar) / S * S_live;
+    const float dq1 = (u1 - ubar) / S * S_live;
+    const float dq2 = (u2 - ubar) / S * S_live;
+    // the winner is inside, so its area is live
+    const float area = (bx - ax) * (cy - ay) - (by - ay) * (cx - ax);
+    const float de0 = dq0 * ww0 / area, de1 = dq1 * ww1 / area, de2 = dq2 * ww2 / area;
+    const float d_area = -(de0 * bw0 + de1 * bw1 + de2 * bw2);
+    const float v[NOUT] = {
+        de1 * (py - cy) + de2 * (by - py) + d_area * (by - cy),
+        de1 * (cx - px) + de2 * (px - bx) + d_area * (cx - bx),
+        de2 * (py - ay) + de0 * (cy - py) + d_area * (cy - ay),
+        de2 * (ax - px) + de0 * (px - cx) + d_area * (ax - cx),
+        de0 * (py - by) + de1 * (ay - py) + d_area * (-(by - ay)),
+        de0 * (bx - px) + de1 * (px - ax) + d_area * (bx - ax),
+        dq0 * bw0, dq1 * bw1, dq2 * bw2,
+        pw0 * gr, pw0 * gg, pw0 * gb,
+        pw1 * gr, pw1 * gg, pw1 * gb,
+        pw2 * gr, pw2 * gg, pw2 * gb};
+#pragma unroll
+    for (int c = 0; c < NOUT; ++c) pix_rgb[c * P + p] = v[c];
   }
-  const float gs = -gsoft * expf(log_keep) / sigma;
+  __syncthreads();
 
-  // walk 2: the 18 contributions of each valid row, reduced in a fixed order
-  for (int base = 0; base < K; base += RB) {
-    const int n = min(RB, K - base);
-    __syncthreads();
-    for (int i = threadIdx.x; i < n * USED; i += blockDim.x) {
-      const int row = i / USED, ln = i - row * USED;
-      rows[i] = a[(size_t)(base + row) * LANES + ln];
-    }
-    __syncthreads();
-    for (int j = 0; j < n; ++j) {
-      const float* q = rows + j * USED;
-      float* pwp = part + (j * nwarps + warp) * NOUT;
-      if (!(q[9] > 0.5f)) {                 // uniform across the block
-        if (lane == 0) {
+  // phase B, one thread per valid row: its 18 sums over the tile's pixels
+  for (int r0 = 0; r0 < nv; r0 += blockDim.x) {
+    const int slot = r0 + threadIdx.x;
+    if (slot < nv) {
+      const int row = vrow[slot];
+      const float* q = a + (size_t)row * LANES;
+      float vx[3], vy[3], ex[3], ey[3], h[3], hl[3];
 #pragma unroll
-          for (int c = 0; c < NOUT; ++c) pwp[c] = 0.f;
-        }
-        continue;
+      for (int e = 0; e < 3; ++e) {
+        vx[e] = q[2 * e];
+        vy[e] = q[2 * e + 1];
       }
-      float v[NOUT];
 #pragma unroll
-      for (int c = 0; c < NOUT; ++c) v[c] = 0.f;
-      const float ax = q[0], ay = q[1], bx = q[2], by = q[3], cx = q[4], cy = q[5];
-      const float e0 = (cx - bx) * (py - by) - (cy - by) * (px - bx);
-      const float e1 = (ax - cx) * (py - cy) - (ay - cy) * (px - cx);
-      const float e2 = (bx - ax) * (py - ay) - (by - ay) * (px - ax);
+      for (int e = 0; e < 3; ++e) {   // edge e runs from vertex e to e + 1
+        ex[e] = vx[(e + 1) % 3] - vx[e];
+        ey[e] = vy[(e + 1) % 3] - vy[e];
+        const float h_raw = ex[e] * ex[e] + ey[e] * ey[e];
+        h[e] = fmaxf(h_raw, 1e-12f);
+        hl[e] = (h_raw >= 1e-12f) ? 1.f : 0.f;
+      }
+      const float ax = vx[0], ay = vy[0], bx = vx[1], by = vy[1], cx = vx[2], cy = vy[2];
       const float area_raw = (bx - ax) * (cy - ay) - (by - ay) * (cx - ax);
       const bool live = fabsf(area_raw) >= AREA_MIN;
       const float area = live ? area_raw : 1.f;
-      const float b0 = e0 / area, b1 = e1 / area, b2 = e2 / area;
-      const bool inside = (b0 >= 0.f) && (b1 >= 0.f) && (b2 >= 0.f) && live;
-      const bool winner = (base + j == win);
-      if (winner) {
-        const float de0 = dq0 * ww0 / area, de1 = dq1 * ww1 / area, de2 = dq2 * ww2 / area;
-        const float d_area = -(de0 * b0 + de1 * b1 + de2 * b2);
-        v[0] = de1 * (py - cy) + de2 * (by - py) + d_area * (by - cy);
-        v[1] = de1 * (cx - px) + de2 * (px - bx) + d_area * (cx - bx);
-        v[2] = de2 * (py - ay) + de0 * (cy - py) + d_area * (cy - ay);
-        v[3] = de2 * (ax - px) + de0 * (px - cx) + d_area * (ax - cx);
-        v[4] = de0 * (py - by) + de1 * (ay - py) + d_area * (-(by - ay));
-        v[5] = de0 * (bx - px) + de1 * (px - ax) + d_area * (bx - ax);
-        v[6] = dq0 * bw0;
-        v[7] = dq1 * bw1;
-        v[8] = dq2 * bw2;
-        v[9] = pw0 * gr;  v[10] = pw0 * gg; v[11] = pw0 * gb;
-        v[12] = pw1 * gr; v[13] = pw1 * gg; v[14] = pw1 * gb;
-        v[15] = pw2 * gr; v[16] = pw2 * gg; v[17] = pw2 * gb;
-      }
-      // soft path: the nearest edge segment, recomputed
-      float d2[3], tt[3], uu[3], h[3], hl[3];
+      float acc[NOUT];
 #pragma unroll
-      for (int e = 0; e < 3; ++e) {
-        const float vx0 = q[2 * e], vy0 = q[2 * e + 1];
-        const float vx1 = q[(2 * e + 2) % 6], vy1 = q[(2 * e + 3) % 6];
-        const float ex = vx1 - vx0, ey = vy1 - vy0;
-        const float qx = px - vx0, qy = py - vy0;
-        const float h_raw = ex * ex + ey * ey;
-        h[e] = fmaxf(h_raw, 1e-12f);
-        hl[e] = (h_raw >= 1e-12f) ? 1.f : 0.f;
-        uu[e] = (qx * ex + qy * ey) / h[e];
-        tt[e] = fminf(fmaxf(uu[e], 0.f), 1.f);
-        const float dx = qx - tt[e] * ex, dy = qy - tt[e] * ey;
-        d2[e] = dx * dx + dy * dy;
-      }
-      const float m01 = fminf(d2[0], d2[1]);
-      const float d2min = fminf(m01, d2[2]);
-      const float w0a = half_split(d2[0], d2[1]);
-      const float wm = half_split(m01, d2[2]);
-      const float picks[3] = {w0a * wm, (1.f - w0a) * wm, 1.f - wm};
-      const float dist = sqrtf(d2min + 1e-12f);
-      const float sd = inside ? -dist : dist;
-      const float s = 1.f / (1.f + expf(sd / sigma));
-      const float sc_live = (s <= S_MAX) ? 1.f : 0.f;
-      const float d_signed = gs * s * sc_live;
-      const float d_dist = inside ? -d_signed : d_signed;
-      const float d_d2min = d_dist / (2.f * dist);
-      if (d_d2min != 0.f) {
+      for (int c = 0; c < NOUT; ++c) acc[c] = 0.f;
+      for (int yy = 0; yy < tile_h; ++yy) {
+        const float py = (float)(oy + yy) + 0.5f;
+        for (int xx = 0; xx < tile_w; ++xx) {
+          const int pp = yy * tile_w + xx;
+          const float px = (float)(ox + xx) + 0.5f;
+          const float e0 = (cx - bx) * (py - by) - (cy - by) * (px - bx);
+          const float e1 = (ax - cx) * (py - cy) - (ay - cy) * (px - cx);
+          const float e2 = (bx - ax) * (py - ay) - (by - ay) * (px - ax);
+          const float b0 = e0 / area, b1 = e1 / area, b2 = e2 / area;
+          const bool inside = (b0 >= 0.f) && (b1 >= 0.f) && (b2 >= 0.f) && live;
+          // soft path: the nearest edge segment
+          float qx[3], qy[3], d2[3], tt[3], uu[3];
 #pragma unroll
-        for (int e = 0; e < 3; ++e) {
-          const float vx0 = q[2 * e], vy0 = q[2 * e + 1];
-          const float vx1 = q[(2 * e + 2) % 6], vy1 = q[(2 * e + 3) % 6];
-          const float ex = vx1 - vx0, ey = vy1 - vy0;
-          const float qx = px - vx0, qy = py - vy0;
-          const float tg = (uu[e] > 0.f && uu[e] < 1.f) ? 1.f
-                           : ((uu[e] == 0.f || uu[e] == 1.f) ? 0.5f : 0.f);
-          const float d_d2 = d_d2min * picks[e];
-          const float dx = qx - tt[e] * ex, dy = qy - tt[e] * ey;
-          const float g2x = d_d2 * 2.f * dx, g2y = d_d2 * 2.f * dy;
-          const float dt = -(g2x * ex + g2y * ey);
-          const float d_qx = g2x + dt * tg * ex / h[e];
-          const float d_qy = g2y + dt * tg * ey / h[e];
-          const float d_ex = -tt[e] * g2x + dt * tg * (qx - 2.f * ex * uu[e]) * hl[e] / h[e];
-          const float d_ey = -tt[e] * g2y + dt * tg * (qy - 2.f * ey * uu[e]) * hl[e] / h[e];
-          const int v0 = e, v1 = (e + 1) % 3;   // edge v0 → v1
-          v[2 * v0] += -d_qx - d_ex;
-          v[2 * v0 + 1] += -d_qy - d_ey;
-          v[2 * v1] += d_ex;
-          v[2 * v1 + 1] += d_ey;
+          for (int e = 0; e < 3; ++e) {
+            qx[e] = px - vx[e];
+            qy[e] = py - vy[e];
+            uu[e] = (qx[e] * ex[e] + qy[e] * ey[e]) / h[e];
+            tt[e] = fminf(fmaxf(uu[e], 0.f), 1.f);
+            const float dx = qx[e] - tt[e] * ex[e], dy = qy[e] - tt[e] * ey[e];
+            d2[e] = dx * dx + dy * dy;
+          }
+          const float m01 = fminf(d2[0], d2[1]);
+          const float d2min = fminf(m01, d2[2]);
+          const float w0a = half_split(d2[0], d2[1]);
+          const float wm = half_split(m01, d2[2]);
+          const float picks[3] = {w0a * wm, (1.f - w0a) * wm, 1.f - wm};
+          const float dist = sqrtf(d2min + 1e-12f);
+          const float sd = inside ? -dist : dist;
+          const float s = 1.f / (1.f + expf(sd / sigma));
+          const float sc_live = (s <= S_MAX) ? 1.f : 0.f;
+          const float d_signed = pix_gs[pp] * s * sc_live;
+          const float d_dist = inside ? -d_signed : d_signed;
+          const float d_d2min = d_dist / (2.f * dist);
+          if (d_d2min != 0.f) {
+#pragma unroll
+            for (int e = 0; e < 3; ++e) {
+              const float tg = (uu[e] > 0.f && uu[e] < 1.f) ? 1.f
+                               : ((uu[e] == 0.f || uu[e] == 1.f) ? 0.5f : 0.f);
+              const float d_d2 = d_d2min * picks[e];
+              const float dx = qx[e] - tt[e] * ex[e], dy = qy[e] - tt[e] * ey[e];
+              const float g2x = d_d2 * 2.f * dx, g2y = d_d2 * 2.f * dy;
+              const float dt = -(g2x * ex[e] + g2y * ey[e]);
+              const float d_qx = g2x + dt * tg * ex[e] / h[e];
+              const float d_qy = g2y + dt * tg * ey[e] / h[e];
+              const float d_ex = -tt[e] * g2x + dt * tg * (qx[e] - 2.f * ex[e] * uu[e]) * hl[e] / h[e];
+              const float d_ey = -tt[e] * g2y + dt * tg * (qy[e] - 2.f * ey[e] * uu[e]) * hl[e] / h[e];
+              const int v1 = (e + 1) % 3;
+              acc[2 * e] += -d_qx - d_ex;
+              acc[2 * e + 1] += -d_qy - d_ey;
+              acc[2 * v1] += d_ex;
+              acc[2 * v1 + 1] += d_ey;
+            }
+          }
+          if (pix_win[pp] == row) {
+#pragma unroll
+            for (int c = 0; c < NOUT; ++c) acc[c] += pix_rgb[c * P + pp];
+          }
         }
       }
-      if (__any_sync(0xffffffffu, winner || d_d2min != 0.f)) {
 #pragma unroll
-        for (int c = 0; c < NOUT; ++c) v[c] = warp_sum(v[c]);
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int c = 0; c < NOUT; ++c) pwp[c] = v[c];
-      }
+      for (int c = 0; c < NOUT; ++c) stage[threadIdx.x * OSTRIDE + c] = acc[c];
     }
     __syncthreads();
-    for (int i = threadIdx.x; i < n * LANES; i += blockDim.x) {
-      const int row = i / LANES, c = i - row * LANES;
-      // lanes 0-8 ← contributions 0-8, lanes 10-18 ← 9-17, lanes 9, 19-23 ← 0
-      const int src = c < 9 ? c : (c >= 10 && c < 19 ? c - 1 : -1);
-      float s = 0.f;
-      if (src >= 0) {
-        const float* pr = part + row * nwarps * NOUT + src;
-        for (int w = 0; w < nwarps; ++w) s += pr[w * NOUT];
+    // the round's rows leave as whole 16-byte stores: lanes 0-8 ← sums
+    // 0-8, lanes 10-18 ← 9-17, lanes 9 and 19-23 ← 0
+    const int n = min((int)blockDim.x, nv - r0);
+    for (int i = threadIdx.x; i < n * (LANES / 4); i += blockDim.x) {
+      const int s = i / (LANES / 4), part = i - s * (LANES / 4);
+      const float* st = stage + s * OSTRIDE;
+      float out[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int c = part * 4 + k;
+        const int src = c < 9 ? c : (c >= 10 && c < 19 ? c - 1 : -1);
+        out[k] = src >= 0 ? st[src] : 0.f;
       }
-      d[(size_t)(base + row) * LANES + c] = s;
+      d4[(size_t)vrow[r0 + s] * (LANES / 4) + part] = make_float4(out[0], out[1], out[2], out[3]);
     }
+    __syncthreads();
   }
 }
 
@@ -305,7 +350,12 @@ extern "C" int shade_bwd_launch(const float* attrs, const float* g_rgb,
   const int P = tile_h * tile_w;
   if (T <= 0 || K <= 0) return 0;
   if (P <= 0 || P > 1024 || P % 32 != 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(RB * USED + RB * (P / 32) * NOUT) * sizeof(float);
+  const size_t smem = smem_words(K, P) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        shade_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   shade_bwd_kernel<<<T, P, smem, (cudaStream_t)stream>>>(
       attrs, g_rgb, g_soft, d_attrs, K, tiles_x, tile_h, tile_w, sigma);
   return (int)cudaGetLastError();

@@ -64,7 +64,7 @@ def point_rasterize(points: torch.Tensor, values: torch.Tensor, res) -> torch.Te
     i0, frac = _base_and_frac(points, res)
     flat, bits = _corners(i0, res)
     hat = torch.where(bits[None].bool(), frac[:, None, :], 1.0 - frac[:, None, :])  # (N,8,3)
-    w = hat.prod(-1)                                           # (N,8)
+    w = hat[..., 0] * hat[..., 1] * hat[..., 2]                # (N,8)
     C = values.shape[-1]
     grid = torch.zeros((int(np.prod(res)), C), dtype=values.dtype, device=values.device)
     grid.index_add_(0, flat.reshape(-1), (w[..., None] * values[:, None, :]).reshape(-1, C))
@@ -105,7 +105,7 @@ def grid_interp(grid: torch.Tensor, points: torch.Tensor, res) -> torch.Tensor:
     i0, frac = _base_and_frac(points, res)
     flat, bits = _corners(i0, res)
     hat = torch.where(bits[None].bool(), frac[:, None, :], 1.0 - frac[:, None, :])
-    w = hat.prod(-1)                                           # (N,8)
+    w = hat[..., 0] * hat[..., 1] * hat[..., 2]                # (N,8)
     out = (w[..., None] * g[flat]).sum(1)                      # (N,C)
     return out[:, 0] if squeeze else out
 

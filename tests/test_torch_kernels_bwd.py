@@ -92,6 +92,43 @@ def test_shade_bwd_twin_matches_pallas_with_ties(seed, K, sigma):
     assert not got[..., [9, 19, 20, 21, 22, 23]].any()
 
 
+@pytest.mark.parametrize("case,K", chip_smoke.SHADE_EDGE_SHAPES)
+def test_shade_bwd_twin_matches_pallas_at_edge_shapes(case, K):
+    """The twin against the Pallas kernel at the shapes chip_smoke.py also
+    holds the CUDA kernel to (one row, a ragged K, a tile with no valid row,
+    every row valid, valid rows interleaved with invalid ones, pixels with
+    no winner), over 2 tiles with built ties: every lane within abs 1e-5 +
+    rel 1e-5 of the lane's largest value (lanes 0, 1, 4, 5 of sliver rows
+    left out, as above); invalid rows and lanes 9, 19-23 exactly 0."""
+    rng = np.random.default_rng(K)
+    nt = chip_smoke.SHADE_EDGE_TILES
+    a = chip_smoke.shade_edge_attrs(rng, case, K, nt, TILES_X, TILE)
+    g, gs = chip_smoke.cotangents(rng, nt, P)
+    want = np.asarray(shade_bwd_pallas(jnp.asarray(a), jnp.asarray(g), jnp.asarray(gs),
+                                       TILES_X, TILE, TILE, 1.0, interpret=True))
+    got = MK.shade_bwd_ref(torch.as_tensor(a), torch.as_tensor(g), torch.as_tensor(gs),
+                           TILES_X, TILE, TILE, 1.0).numpy()
+    valid = a[..., 9] > 0.5
+    sliver = (np.abs(_area(a)) < 1e-4) & valid
+    for lane in range(24):
+        tol = 1e-5 + 1e-5 * np.abs(want[..., lane]).max()
+        keep = ~sliver if lane in (0, 1, 4, 5) else np.ones_like(sliver)
+        np.testing.assert_allclose(got[..., lane][keep], want[..., lane][keep], rtol=0,
+                                   atol=tol, err_msg=f"lane {lane}")
+    assert not got[~valid].any() and not want[~valid].any()
+    assert not got[..., [9, 19, 20, 21, 22, 23]].any()
+    assert np.abs(got[valid][:, :19]).max() > 0          # the valid rows carry gradient
+    if case == "all invalid":
+        assert not valid[0].any() and valid[1].any()
+    elif case == "all valid":
+        assert valid.all()
+    elif case == "interleaved":
+        assert not valid[:, 0::2].any() and valid[:, 1::2].all()
+    elif case == "no winner":
+        _, hard, _, _ = MK.shade_tiles_ref(torch.as_tensor(a), TILES_X, TILE, TILE, 1.0)
+        assert (hard == 0).any(dim=1).all() and (hard == 1).any(dim=1).all()
+
+
 def test_shade_tie_rows_hold_the_ties():
     """The built rows do produce the tie cases: a pixel centre exactly on a
     vertex (uu 0 on one edge, 1 on the other, equal d2) and exactly on an

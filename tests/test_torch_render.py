@@ -68,7 +68,8 @@ FORBIDDEN = ("jax", "flax", "optax", "dgmesh_tpu")
 
 
 def _port_files():
-    return sorted((ROOT / "dgmesh_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted((ROOT / "dgmesh_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "tools").glob("torch_*.py")))
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
