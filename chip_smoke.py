@@ -382,6 +382,23 @@ def compare_bwd(torch, got, want, groups, zero_lanes, invalid):
     return max(e for e, _ in rep.values()), ok, rep
 
 
+def check_shade_bwd(torch, MK, attrs, g, gs, geo, what, errs, failures, res=None):
+    """Kernel 4 against its twin, and given the forward's residuals (kernel
+    3's, or ``res``) against itself without them: the same bits."""
+    got = MK.shade_bwd(attrs, g, gs, *geo)
+    res = res if res is not None else MK.shade_tiles(attrs, *geo, residuals=True)[4:]
+    same = bool(torch.equal(MK.shade_bwd(attrs, g, gs, *geo, *res), got))
+    e, ok, rep = compare_bwd(torch, got, MK.shade_bwd_ref(attrs, g, gs, *geo), SHADE_GROUPS,
+                             ZERO_LANES["shade"], attrs[..., 9] < 0.5)
+    errs["shade_bwd"].append(e)
+    log(f"# kernels/{what} {tuple(attrs.shape)} "
+        + ", ".join(f"{k} {v[0]:.3g} (tol {v[1]:.3g})" for k, v in rep.items())
+        + f" {'ok' if ok else 'FAIL'}; with kernel 3's residuals "
+        f"{'the same bits' if same else 'DIFFERENT'}")
+    if not (ok and same):
+        failures.append(f"shade_bwd vs twin ({what})")
+
+
 # ---------------------------------------------------------------------------
 # the work these rows need, for bound_ms
 
@@ -481,14 +498,22 @@ def compare_composite(torch, SK, attrs, geo):
 
 
 def compare_shade(torch, MK, attrs, geo, sigma):
+    """Kernel 3 against its twin; and with its residuals against without:
+    the four outputs the same bits, the winner rows equal to the twin's,
+    M within TOL_SHADE of the twin's relative to max(1, |M|).  Returns (max
+    abs err of rgb and soft, ok, fid mismatches, residuals ok)."""
     got = MK.shade_tiles(attrs, *geo, sigma)
-    want = MK.shade_tiles_ref(attrs, *geo, sigma)
+    res = MK.shade_tiles(attrs, *geo, sigma, residuals=True)
+    want = MK.shade_tiles_ref(attrs, *geo, sigma, residuals=True)
     torch.cuda.synchronize()
     err = max_err((got[0], got[2]), (want[0], want[2]))
     exact = bool(torch.equal(got[1], want[1])) and bool(torch.equal(got[3], want[3]))
     n_fid = int((got[3] != want[3]).sum())
     ok = all(bool(torch.isfinite(x).all()) for x in got) and err <= TOL_SHADE and exact
-    return err, ok, n_fid
+    res_ok = (all(bool(torch.equal(x, y)) for x, y in zip(got, res[:4]))
+              and bool(torch.equal(res[4], want[4]))
+              and bool(((res[5] - want[5]).abs() <= TOL_SHADE * want[5].abs().clamp_min(1.0)).all()))
+    return err, ok, n_fid, res_ok
 
 
 # ---------------------------------------------------------------------------
@@ -700,12 +725,15 @@ def main() -> int:
         failures.append("composite_tiles vs twin (random)")
     a2 = torch.as_tensor(random_shade_attrs(rng, mc.num_tiles, mc.max_per_tile,
                                             mc.tiles_x, mc.tile_w), device=dev)
-    e, ok, nf = compare_shade(torch, MK, a2, geo_m, mc.sigma)
+    e, ok, nf, res_ok = compare_shade(torch, MK, a2, geo_m, mc.sigma)
     errs["shade_tiles"].append(e)
     log(f"# kernels/random: shade_tiles {tuple(a2.shape)} max_abs_err {e:.3g} "
-        f"(tol {TOL_SHADE}; hard/fid exact, {nf} fid mismatches) {'ok' if ok else 'FAIL'}")
+        f"(tol {TOL_SHADE}; hard/fid exact, {nf} fid mismatches) {'ok' if ok else 'FAIL'}; "
+        f"with residuals: {'the same outputs, residuals ok' if res_ok else 'FAIL'}")
     if not ok:
         failures.append("shade_tiles vs twin (random)")
+    if not res_ok:
+        failures.append("shade_tiles residuals (random)")
     P = sc.tile_h * sc.tile_w
     errs["composite_bwd"], errs["shade_bwd"] = [], []
     g1, g2 = (torch.as_tensor(x, device=dev) for x in cotangents(rng, sc.num_tiles, P))
@@ -721,31 +749,16 @@ def main() -> int:
     a3 = torch.as_tensor(shade_tie_attrs(rng, mc.num_tiles, mc.max_per_tile,
                                          mc.tiles_x, mc.tile_w), device=dev)
     g3, g4 = (torch.as_tensor(x, device=dev) for x in cotangents(rng, mc.num_tiles, P))
-    e, ok, rep = compare_bwd(torch, MK.shade_bwd(a3, g3, g4, *geo_m, mc.sigma),
-                             MK.shade_bwd_ref(a3, g3, g4, *geo_m, mc.sigma),
-                             SHADE_GROUPS, ZERO_LANES["shade"], a3[..., 9] < 0.5)
-    errs["shade_bwd"].append(e)
-    log(f"# kernels/random: shade_bwd {tuple(a3.shape)} with built ties "
-        + ", ".join(f"{k} {v[0]:.3g} (tol {v[1]:.3g})" for k, v in rep.items())
-        + f" {'ok' if ok else 'FAIL'}")
-    if not ok:
-        failures.append("shade_bwd vs twin (random, ties)")
+    check_shade_bwd(torch, MK, a3, g3, g4, geo_m + (mc.sigma,), "random: shade_bwd with built ties",
+                    errs, failures)
     # ... and at the shapes that are special to its compaction and row sums
     for case, K in SHADE_EDGE_SHAPES:
         nt = SHADE_EDGE_TILES
         erng = np.random.default_rng(K)   # the CPU test's rows
         ae = torch.as_tensor(shade_edge_attrs(erng, case, K, nt, 2, mc.tile_w), device=dev)
         ge, gse = (torch.as_tensor(x, device=dev) for x in cotangents(erng, nt, P))
-        geo_e = (2, mc.tile_h, mc.tile_w, mc.sigma)
-        e, ok, rep = compare_bwd(torch, MK.shade_bwd(ae, ge, gse, *geo_e),
-                                 MK.shade_bwd_ref(ae, ge, gse, *geo_e),
-                                 SHADE_GROUPS, ZERO_LANES["shade"], ae[..., 9] < 0.5)
-        errs["shade_bwd"].append(e)
-        log(f"# kernels/edge: shade_bwd {case} {tuple(ae.shape)} "
-            + ", ".join(f"{k} {v[0]:.3g} (tol {v[1]:.3g})" for k, v in rep.items())
-            + f" {'ok' if ok else 'FAIL'}")
-        if not ok:
-            failures.append(f"shade_bwd vs twin (edge shape {case})")
+        check_shade_bwd(torch, MK, ae, ge, gse, (2, mc.tile_h, mc.tile_w, mc.sigma),
+                        f"edge: shade_bwd {case}", errs, failures)
     # kernels 5 and 6 (the fused trunk) at the step's row counts, din 93
     from dgmesh_torch.ops import mlp_fused as MF
     errs["trunk_fwd"], errs["trunk_bwd"] = [], []
@@ -896,12 +909,15 @@ def main() -> int:
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append("composite_tiles vs twin (view 0)")
-    e, ok, nf = compare_shade(torch, MK, ra2, geo_m, mc.sigma)
+    e, ok, nf, res_ok = compare_shade(torch, MK, ra2, geo_m, mc.sigma)
     errs["shade_tiles"].append(e)
     log(f"# kernels/view0: shade_tiles {tuple(ra2.shape)} max_abs_err {e:.3g} "
-        f"({nf} fid mismatches) {'ok' if ok else 'FAIL'}")
+        f"({nf} fid mismatches) {'ok' if ok else 'FAIL'}; with residuals: "
+        f"{'the same outputs, residuals ok' if res_ok else 'FAIL'}")
     if not ok:
         failures.append("shade_tiles vs twin (view 0)")
+    if not res_ok:
+        failures.append("shade_tiles residuals (view 0)")
 
     P = sc.tile_h * sc.tile_w
     T1, K1 = ra1.shape[:2]
@@ -974,6 +990,7 @@ def main() -> int:
     # of 1 (zeros stay zeros) before the kernels and the twins see them
     ca = args["composite_bwd_kernel"][0].detach()
     sa = args["shade_bwd_kernel"][0].detach()
+    s_res = args["shade_bwd_kernel"][7:9]       # kernel 3's residuals in the step
     cg, cga, sg, sgs = (x.detach() / x.detach().abs().max().clamp_min(1e-30)
                         for x in (*args["composite_bwd_kernel"][1:3],
                                   *args["shade_bwd_kernel"][1:3]))
@@ -984,25 +1001,24 @@ def main() -> int:
             ("shade g_rgb", args["shade_bwd_kernel"][1]),
             ("g_soft", args["shade_bwd_kernel"][2]))))
     if (args["composite_bwd_kernel"][3:] != geo_s
-            or args["shade_bwd_kernel"][3:] != geo_m + (mc.sigma,)):
-        failures.append("backward kernels called with another geometry than the config's")
-    for name, got, want, groups, zl, inv in (
-            ("composite_bwd", SK.composite_bwd(ca, cg, cga, *geo_s),
-             SK.composite_bwd_ref(ca, cg, cga, *geo_s), COMPOSITE_GROUPS,
-             ZERO_LANES["composite"], ca[..., 9] < 0.5),
-            ("shade_bwd", MK.shade_bwd(sa, sg, sgs, *geo_m, mc.sigma),
-             MK.shade_bwd_ref(sa, sg, sgs, *geo_m, mc.sigma), SHADE_GROUPS,
-             ZERO_LANES["shade"], sa[..., 9] < 0.5)):
-        e, ok, rep = compare_bwd(torch, got, want, groups, zl, inv)
-        errs[name].append(e)
-        log(f"# kernels/train: {name} {tuple(got.shape)} "
-            + ", ".join(f"{k} {v[0]:.3g} (tol {v[1]:.3g})" for k, v in rep.items())
-            + f" {'ok' if ok else 'FAIL'}")
-        if not ok:
-            failures.append(f"{name} vs twin (training rows)")
-        del got, want
-    # kernel 4 twice on the same rows: fixed-order sums, the same bits
-    first, again = (MK.shade_bwd(sa, sg, sgs, *geo_m, mc.sigma) for _ in range(2))
+            or args["shade_bwd_kernel"][3:7] != geo_m + (mc.sigma,) or len(s_res) != 2):
+        failures.append("backward kernels called with another geometry or residuals than "
+                        "the config's")
+    got = SK.composite_bwd(ca, cg, cga, *geo_s)
+    e, ok, rep = compare_bwd(torch, got, SK.composite_bwd_ref(ca, cg, cga, *geo_s),
+                             COMPOSITE_GROUPS, ZERO_LANES["composite"], ca[..., 9] < 0.5)
+    errs["composite_bwd"].append(e)
+    log(f"# kernels/train: composite_bwd {tuple(got.shape)} "
+        + ", ".join(f"{k} {v[0]:.3g} (tol {v[1]:.3g})" for k, v in rep.items())
+        + f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("composite_bwd vs twin (training rows)")
+    del got
+    check_shade_bwd(torch, MK, sa, sg, sgs, geo_m + (mc.sigma,), "train: shade_bwd", errs,
+                    failures, s_res)
+    # kernel 4 twice on the same rows, as the step calls it: fixed-order
+    # sums, the same bits
+    first, again = (MK.shade_bwd(sa, sg, sgs, *geo_m, mc.sigma, *s_res) for _ in range(2))
     same = bool(torch.equal(first, again))
     log(f"# kernels/train: shade_bwd twice: {'identical' if same else 'DIFFERENT'} d_attrs")
     if not same:
@@ -1024,9 +1040,9 @@ def main() -> int:
         c_valid * COMPOSITE_TEST_OPS + c_pass * COMPOSITE_BWD_PASS_OPS
         + c_live * COMPOSITE_BWD_LIVE_OPS)
     kernel_rows["shade_bwd"] = (
-        lambda: MK.shade_bwd(sa, sg, sgs, *geo_m, mc.sigma),
+        lambda: MK.shade_bwd(sa, sg, sgs, *geo_m, mc.sigma, *s_res),
         lambda: MK.shade_bwd_ref(sa, sg, sgs, *geo_m, mc.sigma),
-        2 * sa.numel() * 4 + sg.numel() * 4 + sgs.numel() * 4,
+        2 * sa.numel() * 4 + sg.numel() * 4 + sgs.numel() * 4 + sum(x.numel() * 4 for x in s_res),
         s_valid * SHADE_OPS + s_soft * SHADE_BWD_SOFT_OPS + s_rgb * SHADE_BWD_RGB_OPS)
     train_launches = launches
     summary["f32"] += (stages,)
@@ -1042,7 +1058,7 @@ def main() -> int:
         log(f"# timing {name}: {ms:.4f} ms/launch, twin {plain_ms:.3f} ms, bound "
             f"{max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB, {nops / 1e9:.2f} G ops); "
             f"no single PyTorch call computes it (library_ms null)")
-    del ca, cg, cga, sa, sg, sgs, ra1, ra2, args, kernel_rows
+    del ca, cg, cga, sa, sg, sgs, s_res, ra1, ra2, args, kernel_rows
 
     # 5f. the fused configuration (tpu.mlp_bf16 = tpu.mlp_fused = True) from
     #     the same state and view: every kernel counted, kernels 5 and 6

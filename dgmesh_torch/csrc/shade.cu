@@ -13,7 +13,10 @@
 //   perspective-correct colour pw_j = b_j/w_j / max(sum, 1e-12);
 //   hard coverage, winner face id (0 where no winner), and the SoftRas
 //   silhouette 1 - prod(1 - clip(sigmoid(-signed_d/sigma), 0, 1-1e-6)),
-//   accumulated as a sum of log1p terms.
+//   accumulated as a sum of log1p terms M.
+// When asked (training), it also writes each pixel's winner row within the
+// tile (-1 where none) and M: the backward kernel (shade_bwd.cu) reads
+// them instead of walking the rows again.
 // The soft silhouette is computed although the render path does not read
 // it: training needs it.
 //
@@ -50,6 +53,8 @@ __global__ void shade_kernel(const float* __restrict__ attrs,
                              float* __restrict__ hard_out,
                              float* __restrict__ soft_out,
                              float* __restrict__ fid_out,
+                             int* __restrict__ win_out,
+                             float* __restrict__ m_out,
                              int K, int tiles_x, int tile_h, int tile_w,
                              float sigma) {
   extern __shared__ float rows[];  // [blockDim.x][USED]
@@ -137,23 +142,29 @@ __global__ void shade_kernel(const float* __restrict__ attrs,
     hard_out[o] = covered ? 1.f : 0.f;
     soft_out[o] = 1.f - expf(log_keep);
     fid_out[o] = f;
+    if (win_out) {
+      win_out[o] = win;
+      m_out[o] = log_keep;
+    }
   }
 }
 
 }  // namespace
 
-// attrs (T,K,24) → rgb (T,P,3), hard, soft, fid (T,P); all float32,
-// contiguous, on the device.  Launches on `stream`; returns
+// attrs (T,K,24) → rgb (T,P,3), hard, soft, fid (T,P) float32 and, where
+// win and M are not null, the residuals win (T,P) int32 and M (T,P)
+// float32; contiguous, on the device.  Launches on `stream`; returns
 // cudaGetLastError() of the launch.
 extern "C" int shade_tiles_launch(const float* attrs, float* rgb, float* hard,
-                                  float* soft, float* fid, int T, int K,
+                                  float* soft, float* fid, int* win, float* M,
+                                  int T, int K,
                                   int tiles_x, int tile_h, int tile_w,
                                   float sigma, void* stream) {
   const int P = tile_h * tile_w;
   if (T <= 0 || K <= 0) return 0;
   if (P <= 0 || P > 1024) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)P * USED * sizeof(float);
-  shade_kernel<<<T, P, smem, (cudaStream_t)stream>>>(attrs, rgb, hard, soft, fid,
+  shade_kernel<<<T, P, smem, (cudaStream_t)stream>>>(attrs, rgb, hard, soft, fid, win, M,
                                                      K, tiles_x, tile_h, tile_w, sigma);
   return (int)cudaGetLastError();
 }

@@ -31,31 +31,46 @@
 // (T,K,24) rows in and out plus the cotangents: ~250 MB at T=2500, K=512
 // (~0.075 ms at 3.35 TB/s).
 //
-// Design: one CTA per tile, in three phases.  The per-row gradient is a sum
-// over the tile's pixels, so a thread that owns a row forms it in registers.
+// Design: SPLIT (2) CTAs per tile, in three phases.  The per-row gradient
+// is a sum over the tile's pixels, so a thread that owns a row forms it in
+// registers.  Both CTAs of a tile repeat the compaction and phase A, and
+// each sums half of the valid rows, so a tile at the K cap is two blocks of
+// work and the last wave of blocks is shorter; 16x16 tiles run at most 85
+// registers a thread, three CTAs an SM.
 //   compaction: the tile's valid rows, listed in K order (a ballot and a
 //           prefix count per warp, so the list is deterministic); the rows
 //           that are not valid are written 0 here, coalesced;
-//   phase A, one thread per pixel: the forward's walk over the valid rows
-//           (staged in shared memory in batches of RB and broadcast): the
-//           z-buffer winner (a strictly greater 1/w wins, so the first
-//           maximum in K order), its barycentrics and 1/w, and the soft
-//           silhouette's sum of log1p terms M.  Each pixel then leaves its
+//   phase A, one thread per pixel: the z-buffer winner (a strictly greater
+//           1/w wins, so the first maximum in K order), its barycentrics
+//           and 1/w, and the soft silhouette's sum of log1p terms M.  In
+//           training the forward kernel (shade.cu) has left the winner row
+//           and M of each pixel (shade_bwd_res_launch): the winner's
+//           barycentrics are recomputed from its row by the forward's own
+//           operations, and no row is walked.  Without them
+//           (shade_bwd_launch) the forward's walk over the valid rows runs
+//           here (rows staged in shared memory in batches of RB and
+//           broadcast), with the same results.  Each pixel then leaves its
 //           state in shared memory: its winner row (or -1), its soft factor
 //           gs = -g_soft e^M / sigma, and its 18 rgb-path contributions to
 //           the winner row (six screen coordinates, three 1/w, nine colours);
-//   phase B, one thread per valid row (rows t, t + blockDim, ...): the row's
-//           coordinates, edges, squared edge lengths and signed area in
-//           registers; the loop over the tile's pixels in row-major order
-//           adds the pair's soft-path terms and, at the pixels the row wins,
-//           the pixel's rgb contributions to 18 sums in registers.  The sums
-//           leave through shared memory as whole 16-byte stores.
+//   phase B, one thread per valid row of the CTA's half (slots lo + t,
+//           lo + t + blockDim, ...): the row's coordinates, edges, squared
+//           edge lengths and signed area in registers; the loop over the
+//           tile's pixels in row-major order adds the pair's soft-path terms
+//           and, at the pixels the row wins, the pixel's rgb contributions
+//           to 18 sums in registers.  The sums leave through shared memory
+//           as whole 16-byte stores.
 // No shuffles, no partial buffers, no atomics: every sum runs in one thread
-// in a fixed order, so two launches give the same bits; each tile writes
-// only its own rows.
+// in a fixed order, so two launches give the same bits; each CTA writes
+// only rows of its own.
 // Built with --fmad=false and IEEE division and square root, so d2, uu and
 // every tie and gate test round as the twin's separate PyTorch ops do:
-// equality tests agree with it exactly.
+// equality tests agree with it exactly.  The four partials of each edge
+// that feed no gate multiply by the row's 1/h where the twin divides by h
+// (a few ulps apart): at a training step's rows on an H100 those twelve
+// divisions a pair took 1.47 of 2.42 ms, far more than the fast path of a
+// division costs; their numerators carry e^M, which is tiny where a pixel
+// is covered many times over, and such divisions take the slow path.
 
 #include <cuda_runtime.h>
 
@@ -66,6 +81,7 @@ constexpr int USED = 19;    // lanes read from the staged rows (0-18)
 constexpr int NOUT = 18;    // sums per row: 6 coords, 3 1/w, 9 colours
 constexpr int OSTRIDE = NOUT + 1;  // staged sums per row, padded (banks)
 constexpr int RB = 32;      // rows per staged batch in phase A
+constexpr int SPLIT = 2;    // CTAs per tile, each summing a share of its rows
 constexpr float AREA_MIN = 1e-4f;
 constexpr float NEG = -3.0e38f;
 constexpr float S_MAX = 0.999999f;  // 1 - 1e-6 in float32
@@ -84,12 +100,13 @@ __host__ __device__ constexpr size_t smem_words(int K, int P) {
          + (size_t)P * OSTRIDE;   // phase B's sums on their way out
 }
 
-__global__ void shade_bwd_kernel(const float* __restrict__ attrs,
-                                 const float* __restrict__ g_rgb,
-                                 const float* __restrict__ g_soft,
-                                 float* __restrict__ d_attrs,
-                                 int K, int tiles_x, int tile_h, int tile_w,
-                                 float sigma) {
+// MAX_THREADS ≥ blockDim.x; with MIN_BLOCKS resident CTAs per SM
+template <int MAX_THREADS, int MIN_BLOCKS>
+__global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
+shade_bwd_kernel(const float* __restrict__ attrs, const float* __restrict__ g_rgb,
+                 const float* __restrict__ g_soft, const int* __restrict__ win_in,
+                 const float* __restrict__ m_in, float* __restrict__ d_attrs,
+                 int K, int tiles_x, int tile_h, int tile_w, float sigma) {
   extern __shared__ float smem[];
   const int P = tile_h * tile_w;
   int* vrow = reinterpret_cast<int*>(smem);           // [K] valid rows, K order
@@ -103,7 +120,7 @@ __global__ void shade_bwd_kernel(const float* __restrict__ attrs,
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nwarps = blockDim.x >> 5;
-  const int tile = blockIdx.x;
+  const int tile = blockIdx.x / SPLIT, part = blockIdx.x % SPLIT;
   const int ox = (tile % tiles_x) * tile_w, oy = (tile / tiles_x) * tile_h;
   const float* a = attrs + (size_t)tile * K * LANES;
   float4* d4 = reinterpret_cast<float4*>(d_attrs + (size_t)tile * K * LANES);
@@ -127,12 +144,17 @@ __global__ void shade_bwd_kernel(const float* __restrict__ attrs,
     nv = total;
     __syncthreads();
   }
-  // rows that are not valid: exactly 0
-  for (int i = threadIdx.x; i < K * (LANES / 4); i += blockDim.x)
+  // rows that are not valid: exactly 0 (the tile's CTAs take turns)
+  for (int i = threadIdx.x + part * blockDim.x; i < K * (LANES / 4);
+       i += SPLIT * blockDim.x)
     if (rowslot[i / (LANES / 4)] < 0) d4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (nv == 0) return;
+  // this CTA's share of the valid rows: slots [lo, hi)
+  const int share = (nv + SPLIT - 1) / SPLIT;
+  const int lo = part * share, hi = min(nv, lo + share);
+  if (lo >= hi) return;
 
-  // phase A, one thread per pixel: the forward's winner and soft sum
+  // phase A, one thread per pixel: the forward's winner and soft sum, read
+  // from the forward's residuals or found by its walk over the valid rows
   const int p = threadIdx.x;
   const float px = (float)(ox + p % tile_w) + 0.5f;
   const float py = (float)(oy + p / tile_w) + 0.5f;
@@ -143,7 +165,21 @@ __global__ void shade_bwd_kernel(const float* __restrict__ attrs,
   int win = -1;
   float bw0 = 0.f, bw1 = 0.f, bw2 = 0.f, ww0 = 0.f, ww1 = 0.f, ww2 = 0.f;
   float log_keep = 0.f;
-  for (int base = 0; base < nv; base += RB) {
+  if (win_in) {
+    win = win_in[o];
+    log_keep = m_in[o];
+    if (win >= 0) {   // inside, so live: the walk's operations on the row
+      const float* q = a + (size_t)win * LANES;
+      const float ax = q[0], ay = q[1], bx = q[2], by = q[3], cx = q[4], cy = q[5];
+      const float e0 = (cx - bx) * (py - by) - (cy - by) * (px - bx);
+      const float e1 = (ax - cx) * (py - cy) - (ay - cy) * (px - cx);
+      const float e2 = (bx - ax) * (py - ay) - (by - ay) * (px - ax);
+      const float area = (bx - ax) * (cy - ay) - (by - ay) * (cx - ax);
+      bw0 = e0 / area; bw1 = e1 / area; bw2 = e2 / area;
+      ww0 = q[6]; ww1 = q[7]; ww2 = q[8];
+    }
+  }
+  for (int base = 0; !win_in && base < nv; base += RB) {
     const int n = min(RB, nv - base);
     __syncthreads();
     for (int i = threadIdx.x; i < n * USED; i += blockDim.x) {
@@ -230,12 +266,12 @@ __global__ void shade_bwd_kernel(const float* __restrict__ attrs,
   __syncthreads();
 
   // phase B, one thread per valid row: its 18 sums over the tile's pixels
-  for (int r0 = 0; r0 < nv; r0 += blockDim.x) {
+  for (int r0 = lo; r0 < hi; r0 += blockDim.x) {
     const int slot = r0 + threadIdx.x;
-    if (slot < nv) {
+    if (slot < hi) {
       const int row = vrow[slot];
       const float* q = a + (size_t)row * LANES;
-      float vx[3], vy[3], ex[3], ey[3], h[3], hl[3];
+      float vx[3], vy[3], ex[3], ey[3], h[3], hl[3], rh[3];
 #pragma unroll
       for (int e = 0; e < 3; ++e) {
         vx[e] = q[2 * e];
@@ -248,6 +284,7 @@ __global__ void shade_bwd_kernel(const float* __restrict__ attrs,
         const float h_raw = ex[e] * ex[e] + ey[e] * ey[e];
         h[e] = fmaxf(h_raw, 1e-12f);
         hl[e] = (h_raw >= 1e-12f) ? 1.f : 0.f;
+        rh[e] = 1.f / h[e];
       }
       const float ax = vx[0], ay = vy[0], bx = vx[1], by = vy[1], cx = vx[2], cy = vy[2];
       const float area_raw = (bx - ax) * (cy - ay) - (by - ay) * (cx - ax);
@@ -298,10 +335,12 @@ __global__ void shade_bwd_kernel(const float* __restrict__ attrs,
               const float dx = qx[e] - tt[e] * ex[e], dy = qy[e] - tt[e] * ey[e];
               const float g2x = d_d2 * 2.f * dx, g2y = d_d2 * 2.f * dy;
               const float dt = -(g2x * ex[e] + g2y * ey[e]);
-              const float d_qx = g2x + dt * tg * ex[e] / h[e];
-              const float d_qy = g2y + dt * tg * ey[e] / h[e];
-              const float d_ex = -tt[e] * g2x + dt * tg * (qx[e] - 2.f * ex[e] * uu[e]) * hl[e] / h[e];
-              const float d_ey = -tt[e] * g2y + dt * tg * (qy[e] - 2.f * ey[e] * uu[e]) * hl[e] / h[e];
+              const float d_qx = g2x + dt * tg * ex[e] * rh[e];
+              const float d_qy = g2y + dt * tg * ey[e] * rh[e];
+              const float d_ex =
+                  -tt[e] * g2x + dt * tg * (qx[e] - 2.f * ex[e] * uu[e]) * hl[e] * rh[e];
+              const float d_ey =
+                  -tt[e] * g2y + dt * tg * (qy[e] - 2.f * ey[e] * uu[e]) * hl[e] * rh[e];
               const int v1 = (e + 1) % 3;
               acc[2 * e] += -d_qx - d_ex;
               acc[2 * e + 1] += -d_qy - d_ey;
@@ -321,7 +360,7 @@ __global__ void shade_bwd_kernel(const float* __restrict__ attrs,
     __syncthreads();
     // the round's rows leave as whole 16-byte stores: lanes 0-8 ← sums
     // 0-8, lanes 10-18 ← 9-17, lanes 9 and 19-23 ← 0
-    const int n = min((int)blockDim.x, nv - r0);
+    const int n = min((int)blockDim.x, hi - r0);
     for (int i = threadIdx.x; i < n * (LANES / 4); i += blockDim.x) {
       const int s = i / (LANES / 4), part = i - s * (LANES / 4);
       const float* st = stage + s * OSTRIDE;
@@ -340,6 +379,41 @@ __global__ void shade_bwd_kernel(const float* __restrict__ attrs,
 
 }  // namespace
 
+namespace {
+
+template <int MAX_THREADS, int MIN_BLOCKS>
+int run(const float* attrs, const float* g_rgb, const float* g_soft, const int* win,
+        const float* M, float* d_attrs, int T, int K, int tiles_x, int tile_h, int tile_w,
+        float sigma, void* stream) {
+  const auto kernel = shade_bwd_kernel<MAX_THREADS, MIN_BLOCKS>;
+  const size_t smem = smem_words(K, tile_h * tile_w) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<T * SPLIT, tile_h * tile_w, smem, (cudaStream_t)stream>>>(
+      attrs, g_rgb, g_soft, win, M, d_attrs, K, tiles_x, tile_h, tile_w, sigma);
+  return (int)cudaGetLastError();
+}
+
+// 16x16 tiles (P = 256, every shipped config) run with at most 85 registers
+// a thread, so three CTAs fit on an SM; larger tiles get one CTA of up to
+// 1024 threads
+int launch(const float* attrs, const float* g_rgb, const float* g_soft, const int* win,
+           const float* M, float* d_attrs, int T, int K, int tiles_x, int tile_h,
+           int tile_w, float sigma, void* stream) {
+  const int P = tile_h * tile_w;
+  if (T <= 0 || K <= 0) return 0;
+  if (P <= 0 || P > 1024 || P % 32 != 0) return (int)cudaErrorInvalidValue;
+  return P <= 256 ? run<256, 3>(attrs, g_rgb, g_soft, win, M, d_attrs, T, K, tiles_x, tile_h,
+                                tile_w, sigma, stream)
+                  : run<1024, 1>(attrs, g_rgb, g_soft, win, M, d_attrs, T, K, tiles_x, tile_h,
+                                 tile_w, sigma, stream);
+}
+
+}  // namespace
+
 // attrs (T,K,24), g_rgb (T,P,3), g_soft (T,P) → d_attrs (T,K,24); all
 // float32, contiguous, on the device; P = tile_h*tile_w a multiple of 32, at
 // most 1024.  Launches on `stream`; returns cudaGetLastError() of the launch.
@@ -347,16 +421,17 @@ extern "C" int shade_bwd_launch(const float* attrs, const float* g_rgb,
                                 const float* g_soft, float* d_attrs, int T, int K,
                                 int tiles_x, int tile_h, int tile_w, float sigma,
                                 void* stream) {
-  const int P = tile_h * tile_w;
-  if (T <= 0 || K <= 0) return 0;
-  if (P <= 0 || P > 1024 || P % 32 != 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_words(K, P) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        shade_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  shade_bwd_kernel<<<T, P, smem, (cudaStream_t)stream>>>(
-      attrs, g_rgb, g_soft, d_attrs, K, tiles_x, tile_h, tile_w, sigma);
-  return (int)cudaGetLastError();
+  return launch(attrs, g_rgb, g_soft, nullptr, nullptr, d_attrs, T, K, tiles_x, tile_h,
+                tile_w, sigma, stream);
+}
+
+// The same, given the forward kernel's residuals: win (T,P) int32, each
+// pixel's winner row within its tile or -1, and M (T,P) float32, its sum of
+// log1p terms (shade_tiles_launch's win and M for these attrs).
+extern "C" int shade_bwd_res_launch(const float* attrs, const float* g_rgb,
+                                    const float* g_soft, const int* win, const float* M,
+                                    float* d_attrs, int T, int K, int tiles_x,
+                                    int tile_h, int tile_w, float sigma, void* stream) {
+  return launch(attrs, g_rgb, g_soft, win, M, d_attrs, T, K, tiles_x, tile_h, tile_w,
+                sigma, stream);
 }

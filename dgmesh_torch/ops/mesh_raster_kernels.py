@@ -5,11 +5,15 @@ launches ``csrc/shade.cu`` (forward) and ``shade_bwd`` launches
 ``csrc/shade_bwd.cu`` (its analytic backward through rgb and soft) for a
 CUDA tensor; each runs its plain PyTorch twin (``shade_tiles_ref``,
 ``shade_bwd_ref``) only for a CPU tensor; there is no fallback.
-``ShadeTiles`` pairs the two as one ``torch.autograd.Function``.
+``ShadeTiles`` pairs the two as one ``torch.autograd.Function``: the
+forward also leaves each pixel's winner row and soft sum M (the residuals),
+so the backward does not walk the rows again.
 
 Layout (T,K,24) float32 per tile row: 0-5 screen triangle | 6-8 clip 1/w |
 9 valid | 10-18 corner colours | 19 face id | 20-23 padding.  Outputs rgb
-(T,P,3), hard (T,P), soft (T,P) and fid (T,P), with no background term.
+(T,P,3), hard (T,P), soft (T,P) and fid (T,P), with no background term;
+residuals win (T,P) int32 (the winner's row in its tile, -1 where none) and
+M (T,P) float32 (soft = 1 - exp(M)).
 """
 
 from __future__ import annotations
@@ -28,13 +32,14 @@ LANES = 24
 
 
 def shade_tiles_ref(attrs: torch.Tensor, tiles_x: int, tile_h: int, tile_w: int,
-                    sigma: float, chunk: int = 64):
+                    sigma: float, chunk: int = 64, residuals: bool = False):
     """Plain PyTorch twin of the kernel.
 
     Follows ``_shade_kernel`` (dgmesh_tpu/ops/mesh_raster_pallas.py:40-134)
     operation by operation, as ``_shade_ref`` (:384) does: the same edge
     functions, ``AREA_MIN`` gate, first-max winner, ``max(Σpw, 1e-12)``
-    normalisation and clipped edge distance.  Chunked over tiles."""
+    normalisation and clipped edge distance.  Chunked over tiles.  With
+    ``residuals``, win and M follow the four outputs."""
     T, K, _ = attrs.shape
     P = tile_h * tile_w
     dev = attrs.device
@@ -42,6 +47,8 @@ def shade_tiles_ref(attrs: torch.Tensor, tiles_x: int, tile_h: int, tile_w: int,
     hard = attrs.new_empty((T, P))
     soft = attrs.new_empty((T, P))
     fid = attrs.new_empty((T, P))
+    win_res = torch.empty((T, P), dtype=torch.int32, device=dev)
+    m_res = attrs.new_empty((T, P))
     px_all, py_all = tile_pixels(T, tiles_x, tile_h, tile_w, 0.5, dev)
     for s in range(0, T, chunk):
         a = attrs[s:s + chunk]                                  # (C,K,24)
@@ -74,6 +81,7 @@ def shade_tiles_ref(attrs: torch.Tensor, tiles_x: int, tile_h: int, tile_w: int,
         rgb[s:s + chunk] = torch.where(has_win[..., None], out, 0.0)
         fid[s:s + chunk] = torch.where(has_win, cols[..., 9], 0.0)
         hard[s:s + chunk] = inside.any(dim=1).float()
+        win_res[s:s + chunk] = torch.where(has_win, win[:, 0], -1)
 
         d2min = None
         for vx0, vy0, vx1, vy1 in ((ax, ay, bx, by), (bx, by, cx, cy), (cx, cy, ax, ay)):
@@ -88,19 +96,21 @@ def shade_tiles_ref(attrs: torch.Tensor, tiles_x: int, tile_h: int, tile_w: int,
         signed = torch.where(inside, -d, d)
         sg = torch.where(valid, torch.sigmoid(-signed / sigma), 0.0)
         log_keep = torch.log1p(-torch.clamp(sg, 0.0, 1.0 - 1e-6))
-        soft[s:s + chunk] = 1.0 - torch.exp(log_keep.sum(dim=1))
-    return rgb, hard, soft, fid
+        m_res[s:s + chunk] = log_keep.sum(dim=1)
+        soft[s:s + chunk] = 1.0 - torch.exp(m_res[s:s + chunk])
+    return (rgb, hard, soft, fid) + ((win_res, m_res) if residuals else ())
 
 
 def shade_tiles(attrs: torch.Tensor, tiles_x: int, tile_h: int, tile_w: int,
-                sigma: float):
-    """attrs (T,K,24) f32 → rgb (T,P,3), hard, soft, fid (T,P).
+                sigma: float, residuals: bool = False):
+    """attrs (T,K,24) f32 → rgb (T,P,3), hard, soft, fid (T,P), and with
+    ``residuals`` the backward's win (T,P) int32 and M (T,P) f32.
 
     A CUDA tensor goes to the kernel (``shade_tiles.launches`` counts each
     launch); a CPU tensor takes the plain twin."""
     cuda_build.check_rows(attrs, LANES, "shade_tiles")
     if attrs.device.type == "cpu":
-        return shade_tiles_ref(attrs, tiles_x, tile_h, tile_w, sigma)
+        return shade_tiles_ref(attrs, tiles_x, tile_h, tile_w, sigma, residuals=residuals)
     T, K, _ = attrs.shape
     P = tile_h * tile_w
     cuda_build.check_launch(K, P, "shade_tiles", attrs)
@@ -109,18 +119,21 @@ def shade_tiles(attrs: torch.Tensor, tiles_x: int, tile_h: int, tile_w: int,
     hard = torch.empty((T, P), **f32)
     soft = torch.empty((T, P), **f32)
     fid = torch.empty((T, P), **f32)
+    res = ((torch.empty((T, P), dtype=torch.int32, device=attrs.device),
+            torch.empty((T, P), **f32)) if residuals else ())
     lib = cuda_build.library("shade")
     fn = lib.shade_tiles_launch
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(attrs.device).cuda_stream
     with torch.cuda.device(attrs.device):
         err = fn(attrs.data_ptr(), rgb.data_ptr(), hard.data_ptr(), soft.data_ptr(),
-                 fid.data_ptr(), T, K, tiles_x, tile_h, tile_w, float(sigma), stream)
+                 fid.data_ptr(), *([x.data_ptr() for x in res] if res else [None, None]),
+                 T, K, tiles_x, tile_h, tile_w, float(sigma), stream)
     cuda_build.check(err, "shade_tiles")
     shade_tiles.launches += 1
-    return rgb, hard, soft, fid
+    return (rgb, hard, soft, fid) + res
 
 
 shade_tiles.launches = 0
@@ -134,7 +147,7 @@ def _half_split(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def shade_bwd_ref(attrs: torch.Tensor, g_rgb: torch.Tensor, g_soft: torch.Tensor,
                   tiles_x: int, tile_h: int, tile_w: int, sigma: float,
-                  chunk: int = 16):
+                  chunk: int = 16, win=None, M=None):
     """Plain PyTorch twin of the backward kernel, after ``_shade_bwd_kernel``
     (dgmesh_tpu/ops/mesh_raster_pallas.py:164-357), chunked over tiles.
 
@@ -144,7 +157,9 @@ def shade_bwd_ref(attrs: torch.Tensor, g_rgb: torch.Tensor, g_soft: torch.Tensor
     edge clip weights ``tg`` are 1 inside (0, 1), 0.5 at uu = 0 or 1 and 0
     outside; the nearest-edge ``picks`` split 0.5/0.5 at exact d² ties; the
     soft term is gated by s ≤ 1 − 1e-6.  Rows that are not valid get exactly
-    zero; lanes 9 and 19-23 are zero."""
+    zero; lanes 9 and 19-23 are zero.  Given the forward's residuals ``win``
+    and ``M`` (``shade_tiles_ref(..., residuals=True)``), the winner and the
+    soft sum are taken from them, with the same result bit for bit."""
     T, K, _ = attrs.shape
     d_attrs = attrs.new_zeros((T, K, LANES))
     px_all, py_all = tile_pixels(T, tiles_x, tile_h, tile_w, 0.5, attrs.device)
@@ -167,14 +182,18 @@ def shade_bwd_ref(attrs: torch.Tensor, g_rgb: torch.Tensor, g_soft: torch.Tensor
         area = torch.where(area_live, area_raw, 1.0)
         b = [e0 / area, e1 / area, e2 / area]
         inside = (b[0] >= 0.0) & (b[1] >= 0.0) & (b[2] >= 0.0) & valid & area_live
-        zi = b[0] * iw[0] + b[1] * iw[1] + b[2] * iw[2]
-        zkey = torch.where(inside, zi, NEG)
-        winslot = torch.argmax(zkey, dim=1, keepdim=True)       # (C,1,P) first max
-        has_win = torch.gather(inside, 1, winslot)              # (C,1,P)
-        win = (torch.zeros_like(zkey).scatter_(1, winslot, 1.0)) * has_win
+        if win is None:
+            zi = b[0] * iw[0] + b[1] * iw[1] + b[2] * iw[2]
+            zkey = torch.where(inside, zi, NEG)
+            winslot = torch.argmax(zkey, dim=1, keepdim=True)   # (C,1,P) first max
+            has_win = torch.gather(inside, 1, winslot)          # (C,1,P)
+        else:
+            w_res = win[s:s + chunk, None, :].long()
+            winslot, has_win = w_res.clamp_min(0), w_res >= 0
+        win_1h = (torch.zeros_like(b[0]).scatter_(1, winslot, 1.0)) * has_win
 
         def pick(x):                                            # winner's value (C,1,P)
-            return torch.gather(x.expand(-1, -1, zkey.shape[-1]), 1, winslot) * has_win
+            return torch.gather(x.expand(-1, -1, b[0].shape[-1]), 1, winslot) * has_win
 
         bw = [pick(bj) for bj in b]
         ww = [pick(w) for w in iw]
@@ -189,15 +208,15 @@ def shade_bwd_ref(attrs: torch.Tensor, g_rgb: torch.Tensor, g_soft: torch.Tensor
         u = []
         for j in range(3):
             col = a[..., 10 + 3 * j:13 + 3 * j]                 # (C,K,3)
-            d[..., 10 + 3 * j:13 + 3 * j] = torch.einsum("ckp,cpd->ckd", win * pw[j], g)
-            u.append(torch.einsum("ckp,ckp->cp", win,
+            d[..., 10 + 3 * j:13 + 3 * j] = torch.einsum("ckp,cpd->ckd", win_1h * pw[j], g)
+            u.append(torch.einsum("ckp,ckp->cp", win_1h,
                                   torch.einsum("ckd,cpd->ckp", col, g))[:, None, :])
         ubar = pw[0] * u[0] + pw[1] * u[1] + pw[2] * u[2]
         dq = [(u[j] - ubar) / S * S_live for j in range(3)]
         for j in range(3):
-            d[..., 6 + j] = (win * (dq[j] * bw[j])).sum(-1)
+            d[..., 6 + j] = (win_1h * (dq[j] * bw[j])).sum(-1)
         alive = area_live.float()
-        de = [win * (dq[j] * ww[j]) / area * alive for j in range(3)]
+        de = [win_1h * (dq[j] * ww[j]) / area * alive for j in range(3)]
         d_area = -(de[0] * b[0] + de[1] * b[1] + de[2] * b[2])
         # e0: v0=b v1=c; e1: v0=c v1=a; e2: v0=a v1=b
         d_ax = de[1] * (py - cy) + de[2] * (by - py)
@@ -236,8 +255,9 @@ def shade_bwd_ref(attrs: torch.Tensor, g_rgb: torch.Tensor, g_soft: torch.Tensor
         sg = torch.where(valid, torch.sigmoid(-signed / sigma), 0.0)
         sc_live = ((sg <= 1.0 - 1e-6) & valid).float()
         log_keep = torch.log1p(-torch.clamp(sg, 0.0, 1.0 - 1e-6))
-        M = log_keep.sum(1, keepdim=True)                       # (C,1,P)
-        d_signed = (-gs * torch.exp(M) / sigma) * sg * sc_live
+        m = (log_keep.sum(1, keepdim=True) if M is None         # (C,1,P)
+             else M[s:s + chunk, None, :])
+        d_signed = (-gs * torch.exp(m) / sigma) * sg * sc_live
         d_dist = torch.where(inside, -d_signed, d_signed)
         d_d2min = d_dist / (2.0 * dist)
         dv = [[d_ax, d_ay], [d_bx, d_by], [d_cx, d_cy]]
@@ -261,8 +281,12 @@ def shade_bwd_ref(attrs: torch.Tensor, g_rgb: torch.Tensor, g_soft: torch.Tensor
 
 
 def shade_bwd(attrs: torch.Tensor, g_rgb: torch.Tensor, g_soft: torch.Tensor,
-              tiles_x: int, tile_h: int, tile_w: int, sigma: float) -> torch.Tensor:
-    """attrs (T,K,24), g_rgb (T,P,3), g_soft (T,P) f32 → d_attrs (T,K,24).
+              tiles_x: int, tile_h: int, tile_w: int, sigma: float,
+              win=None, M=None) -> torch.Tensor:
+    """attrs (T,K,24), g_rgb (T,P,3), g_soft (T,P) f32 → d_attrs (T,K,24);
+    optionally given the forward's residuals win (T,P) int32 and M (T,P)
+    f32 (``shade_tiles(..., residuals=True)``), so the kernel walks no rows
+    for the winner and the soft sum.
 
     A CUDA tensor goes to the kernel (``shade_bwd.launches`` counts each
     launch); a CPU tensor takes the plain twin."""
@@ -274,18 +298,26 @@ def shade_bwd(attrs: torch.Tensor, g_rgb: torch.Tensor, g_soft: torch.Tensor,
                          f"{tuple(g_rgb.shape)} and {tuple(g_soft.shape)}")
     if g_rgb.dtype != torch.float32 or g_soft.dtype != torch.float32:
         raise TypeError("cotangents must be float32")
+    if (win is None) != (M is None):
+        raise ValueError("shade_bwd takes both residuals win and M, or neither")
+    if win is not None and (tuple(win.shape) != (T, P) or tuple(M.shape) != (T, P)
+                            or win.dtype != torch.int32 or M.dtype != torch.float32):
+        raise ValueError("residuals must be win (T,P) int32 and M (T,P) float32")
     if attrs.device.type == "cpu":
-        return shade_bwd_ref(attrs, g_rgb, g_soft, tiles_x, tile_h, tile_w, sigma)
-    cuda_build.check_launch(K, P, "shade_bwd", attrs, g_rgb, g_soft, whole_warps=True)
+        return shade_bwd_ref(attrs, g_rgb, g_soft, tiles_x, tile_h, tile_w, sigma,
+                             win=win, M=M)
+    res = () if win is None else (win, M)
+    cuda_build.check_launch(K, P, "shade_bwd", attrs, g_rgb, g_soft, *res, whole_warps=True)
     d_attrs = torch.empty((T, K, LANES), dtype=torch.float32, device=attrs.device)
     lib = cuda_build.library("shade_bwd")
-    fn = lib.shade_bwd_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+    fn = lib.shade_bwd_res_launch if res else lib.shade_bwd_launch
+    fn.argtypes = ([ctypes.c_void_p] * (4 + len(res)) + [ctypes.c_int] * 5
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(attrs.device).cuda_stream
     with torch.cuda.device(attrs.device):
-        err = fn(attrs.data_ptr(), g_rgb.data_ptr(), g_soft.data_ptr(), d_attrs.data_ptr(),
+        err = fn(attrs.data_ptr(), g_rgb.data_ptr(), g_soft.data_ptr(),
+                 *(x.data_ptr() for x in res), d_attrs.data_ptr(),
                  T, K, tiles_x, tile_h, tile_w, float(sigma), stream)
     cuda_build.check(err, "shade_bwd")
     shade_bwd.launches += 1
@@ -299,18 +331,21 @@ class ShadeTiles(torch.autograd.Function):
     """Forward kernel 3, backward kernel 4; gradients reach ``attrs`` through
     rgb and soft only (hard coverage and the face id are step functions), as
     JAX's ``make_shade_tiles`` custom_vjp
-    (dgmesh_tpu/ops/mesh_raster_pallas.py:453-486)."""
+    (dgmesh_tpu/ops/mesh_raster_pallas.py:453-486).  The forward's residuals
+    (winner rows and soft sums, 8 bytes a pixel) are saved for the
+    backward."""
 
     @staticmethod
     def forward(ctx, attrs, tiles_x: int, tile_h: int, tile_w: int, sigma: float):
         ctx.geo = (tiles_x, tile_h, tile_w, sigma)
-        ctx.save_for_backward(attrs)
-        rgb, hard, soft, fid = shade_tiles(attrs, tiles_x, tile_h, tile_w, sigma)
+        rgb, hard, soft, fid, win, M = shade_tiles(attrs, tiles_x, tile_h, tile_w, sigma,
+                                                   residuals=True)
+        ctx.save_for_backward(attrs, win, M)
         ctx.mark_non_differentiable(hard, fid)
         return rgb, hard, soft, fid
 
     @staticmethod
     def backward(ctx, g_rgb, g_hard, g_soft, g_fid):
-        (attrs,) = ctx.saved_tensors
-        d = shade_bwd(attrs, g_rgb.contiguous(), g_soft.contiguous(), *ctx.geo)
+        attrs, win, M = ctx.saved_tensors
+        d = shade_bwd(attrs, g_rgb.contiguous(), g_soft.contiguous(), *ctx.geo, win, M)
         return d, None, None, None, None

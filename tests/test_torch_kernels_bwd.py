@@ -26,7 +26,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402  (seeded rows shared with the GPU check)
 from dgmesh_torch.ops import mesh_raster_kernels as MK  # noqa: E402
 from dgmesh_torch.ops import splat_kernels as SK  # noqa: E402
-from dgmesh_tpu.ops.mesh_raster_pallas import shade_bwd_pallas  # noqa: E402
+from dgmesh_tpu.ops.mesh_raster_pallas import shade_bwd_pallas, shade_tiles_pallas  # noqa: E402
 from dgmesh_tpu.ops.splat_pallas import composite_bwd_pallas  # noqa: E402
 
 torch.set_num_threads(1)
@@ -127,6 +127,58 @@ def test_shade_bwd_twin_matches_pallas_at_edge_shapes(case, K):
     elif case == "no winner":
         _, hard, _, _ = MK.shade_tiles_ref(torch.as_tensor(a), TILES_X, TILE, TILE, 1.0)
         assert (hard == 0).any(dim=1).all() and (hard == 1).any(dim=1).all()
+
+
+@pytest.mark.parametrize("seed,K", [(0, 32), (1, 40)])
+def test_shade_forward_residuals_agree_with_jax_forward(seed, K):
+    """The forward twin's residuals against the Pallas forward (interpret
+    mode): the winner row's face id is JAX's fid (0 where no winner, -1 in
+    win), and 1 - exp(M) is JAX's soft to rel 1e-6; the four outputs are the
+    same bits with and without residuals."""
+    rng = np.random.default_rng(seed)
+    a = chip_smoke.random_shade_attrs(rng, T, K, TILES_X, TILE)
+    rgb_j, hard_j, soft_j, fid_j = (np.asarray(x) for x in shade_tiles_pallas(
+        jnp.asarray(a), TILES_X, TILE, TILE, 1.0, interpret=True))
+    out = MK.shade_tiles_ref(torch.as_tensor(a), TILES_X, TILE, TILE, 1.0, residuals=True)
+    plain = MK.shade_tiles_ref(torch.as_tensor(a), TILES_X, TILE, TILE, 1.0)
+    assert all(torch.equal(x, y) for x, y in zip(out[:4], plain))
+    win, m = out[4].numpy(), out[5].numpy()
+    assert win.dtype == np.int32 and (win >= 0).any() and (win == -1).any()
+    fid = np.where(win >= 0, np.take_along_axis(a[..., 19], np.maximum(win, 0), 1), 0.0)
+    np.testing.assert_array_equal(fid, fid_j.reshape(T, P))
+    np.testing.assert_array_equal(win >= 0, hard_j.reshape(T, P) > 0.5)
+    np.testing.assert_allclose(1.0 - np.exp(m), soft_j.reshape(T, P), rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("case,K", [("ties", 32), ("all invalid", 40), ("no winner", 3)])
+def test_shade_bwd_twin_with_residuals_is_bit_for_bit(case, K):
+    """shade_bwd_ref given the forward twin's residuals (win, M) gives the
+    same bits as without them, and the wrapper with them on the CPU is the
+    twin; the autograd Function saves them for its backward."""
+    rng = np.random.default_rng(K)
+    a = (chip_smoke.shade_tie_attrs(rng, T, K, TILES_X, TILE) if case == "ties"
+         else chip_smoke.shade_edge_attrs(rng, case, K, T, TILES_X, TILE))
+    a = torch.as_tensor(a)
+    g, gs = (torch.as_tensor(x) for x in chip_smoke.cotangents(rng, T, P))
+    win, m = MK.shade_tiles_ref(a, TILES_X, TILE, TILE, 1.0, residuals=True)[4:]
+    want = MK.shade_bwd_ref(a, g, gs, TILES_X, TILE, TILE, 1.0)
+    assert torch.equal(MK.shade_bwd_ref(a, g, gs, TILES_X, TILE, TILE, 1.0, win=win, M=m), want)
+    assert torch.equal(MK.shade_bwd(a, g, gs, TILES_X, TILE, TILE, 1.0, win, m), want)
+    x = a.clone().requires_grad_(True)
+    rgb, _, soft, _ = MK.ShadeTiles.apply(x, TILES_X, TILE, TILE, 1.0)
+    (d,) = torch.autograd.grad((rgb * g).sum() + (soft * gs).sum(), x)
+    assert torch.equal(d, want)
+
+
+def test_shade_bwd_wrapper_checks_its_residuals():
+    rng = np.random.default_rng(2)
+    a = torch.as_tensor(chip_smoke.random_shade_attrs(rng, T, 8, TILES_X, TILE))
+    g, gs = torch.zeros((T, P, 3)), torch.zeros((T, P))
+    win, m = MK.shade_tiles_ref(a, TILES_X, TILE, TILE, 1.0, residuals=True)[4:]
+    for bad in ((win, None), (None, m), (win.long(), m), (win, m.double()),
+                (win[:, :-1], m), (win, m[:-1])):
+        with pytest.raises(ValueError):
+            MK.shade_bwd(a, g, gs, TILES_X, TILE, TILE, 1.0, *bad)
 
 
 def test_shade_tie_rows_hold_the_ties():

@@ -6,7 +6,9 @@ at the rows and cotangents of a training step, on one NVIDIA GPU.
 
 Each SOURCE.cu is a version of ``dgmesh_torch/csrc/shade_bwd.cu`` that
 exports ``shade_bwd_launch`` with its C signature (an older version, or one
-with a part taken out to see what that part costs).  Each is compiled with
+with a part taken out to see what that part costs); one that also exports
+``shade_bwd_res_launch`` is timed through that, given the forward's
+residuals, as the training step calls it.  Each is compiled with
 the port's nvcc flags (``cuda_build.NVCC_FLAGS``), one nvcc per source, all
 at once, into ``build/variants/``.
 
@@ -21,7 +23,10 @@ events over 20 launches after a warm-up), measured in two rounds, the
 second in reverse order; the error against the plain twin per lane group
 (chip_smoke.compare_bwd's limits); whether two launches give the same bits.
 A version that leaves work out disagrees with the twin: that is reported,
-not failed.  Exits non-zero when there is no GPU or a build fails.
+not failed.  A version that writes a tail probe (each block's SM id and the
+%globaltimer at its start and end in lanes 20-22 of a row of its tile)
+also gets a line on how its blocks spread over the SMs and in time
+(``tail_report``).  Exits non-zero when there is no GPU or a build fails.
 """
 
 from __future__ import annotations
@@ -61,15 +66,21 @@ def build(sources, out_dir):
     return out
 
 
-def launcher(torch, lib):
-    fn = lib.shade_bwd_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+def launcher(torch, lib, res):
+    """The version's launch on (attrs, g_rgb, g_soft, geometry), through
+    its residual entry point with ``res`` where it has one."""
+    with_res = hasattr(lib, "shade_bwd_res_launch")
+    fn = lib.shade_bwd_res_launch if with_res else lib.shade_bwd_launch
+    res = res if with_res else ()
+    fn.argtypes = ([ctypes.c_void_p] * (4 + len(res)) + [ctypes.c_int] * 5
+                   + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
 
     def run(attrs, g_rgb, g_soft, tiles_x, tile_h, tile_w, sigma):
         T, K, _ = attrs.shape
         d = torch.empty_like(attrs)
-        err = fn(attrs.data_ptr(), g_rgb.data_ptr(), g_soft.data_ptr(), d.data_ptr(), T, K,
+        err = fn(attrs.data_ptr(), g_rgb.data_ptr(), g_soft.data_ptr(),
+                 *(x.data_ptr() for x in res), d.data_ptr(), T, K,
                  tiles_x, tile_h, tile_w, float(sigma), torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"shade_bwd_launch failed with cudaError {err}")
@@ -78,7 +89,8 @@ def launcher(torch, lib):
 
 
 def training_rows(torch, chip_smoke, dev):
-    """The shade backward's arguments in one float32 training step."""
+    """The shade backward's arguments in one float32 training step: rows,
+    cotangents, geometry and the forward's residuals."""
     from dgmesh_torch.ops import mesh_raster_kernels as MK
     from dgmesh_torch.train import step
     from dgmesh_torch.train.step import StepContext
@@ -92,17 +104,45 @@ def training_rows(torch, chip_smoke, dev):
         lambda: step.train_step(ctx, state, batch, flags), 1, what="train_step")
     a, g, gs = (x.detach() for x in args["shade_bwd_kernel"][:3])
     g, gs = (x / x.abs().max().clamp_min(1e-30) for x in (g, gs))
-    return a, g, gs, args["shade_bwd_kernel"][3:]
+    return a, g, gs, args["shade_bwd_kernel"][3:7], args["shade_bwd_kernel"][7:9]
 
 
 def random_rows(torch, chip_smoke, dev):
+    from dgmesh_torch.ops import mesh_raster_kernels as MK
     from dgmesh_torch.train.step import StepContext
     mc = StepContext(chip_smoke.load_cfg(), chip_smoke.IMG, chip_smoke.IMG, device=dev).mr_cfg
     rng = np.random.default_rng(0)
     a = chip_smoke.shade_tie_attrs(rng, mc.num_tiles, mc.max_per_tile, mc.tiles_x, mc.tile_w)
     g, gs = chip_smoke.cotangents(rng, mc.num_tiles, mc.tile_h * mc.tile_w)
-    return (*(torch.as_tensor(x, device=dev) for x in (a, g, gs)),
-            (mc.tiles_x, mc.tile_h, mc.tile_w, mc.sigma))
+    a, g, gs = (torch.as_tensor(x, device=dev) for x in (a, g, gs))
+    geo = (mc.tiles_x, mc.tile_h, mc.tile_w, mc.sigma)
+    return a, g, gs, geo, MK.shade_tiles(a, *geo, residuals=True)[4:]
+
+
+def tail_report(torch, d, valid):
+    """Where a version's blocks ran and when, from a tail probe: a version
+    that writes, for each block, its SM id and the %globaltimer (ns) at its
+    start and end into lanes 20-22 of a row of its tile that no other block
+    writes (else None)."""
+    u = d[..., 20:23].contiguous().view(torch.int32).long() & 0xFFFFFFFF
+    stamped = u[..., 2] != 0
+    if not bool(stamped.any()):
+        return None
+    sm, t0, t1 = u[stamped].unbind(1)
+    valid = valid[:, None].expand(-1, d.shape[1])[stamped]
+    base = int(t0.min())
+    t0, t1 = (t0 - base) % 2**32, (t1 - base) % 2**32
+    span = float(t1.max())
+    last = torch.zeros(int(sm.max()) + 1, dtype=torch.long, device=d.device)
+    last = last.scatter_reduce(0, sm, t1, "amax").float()[torch.unique(sm)] / 1e3
+    q = torch.quantile(last, torch.tensor([0.0, 0.5, 1.0], device=d.device)).tolist()
+    dur = (t1 - t0).float() / 1e3
+    full = valid == int(valid.max())
+    return (f"# tail: {int(stamped.sum())} blocks on {last.numel()} SMs over {span / 1e3:.1f} us; "
+            f"each SM's last block ends at {q[0]:.1f} / {q[1]:.1f} / {q[2]:.1f} us (min / "
+            f"median / max); block time over SMs x span {float(dur.sum()) / last.numel() / (span / 1e3):.3f}; "
+            f"blocks of the {int(full.sum())} fullest tiles {float(dur[full].median()):.1f} us "
+            f"median, {float(dur[full].max()):.1f} max; empty tiles {float(dur[valid == 0].median()):.2f} us")
 
 
 def main() -> int:
@@ -121,13 +161,13 @@ def main() -> int:
             print(f"# {src}: {ln}")
     dev = torch.device("cuda")
     rows = random_rows if "--random" in sys.argv[1:] else training_rows
-    a, g, gs, geo = rows(torch, chip_smoke, dev)
+    a, g, gs, geo, res = rows(torch, chip_smoke, dev)
     valid = (a[..., 9] > 0.5).sum(1)
     print(f"# rows {tuple(a.shape)}: {int(valid.sum())} valid in {int((valid > 0).sum())} "
           f"tiles, largest tile {int(valid.max())}, tiles at K {int((valid == a.shape[1]).sum())}",
           flush=True)
     want = MK.shade_bwd_ref(a, g, gs, *geo)
-    runs = {src: launcher(torch, lib) for src, (lib, _) in libs.items()}
+    runs = {src: launcher(torch, lib, res) for src, (lib, _) in libs.items()}
     times = {src: [] for src in sources}
     for order in (sources, sources[::-1]):
         for src in order:
@@ -142,6 +182,9 @@ def main() -> int:
               + ", ".join(f"{k} {v[0]:.3g} (tol {v[1]:.3g})" for k, v in rep.items())
               + f" {'agrees' if ok else 'DISAGREES'} with the twin; two launches "
               f"{'identical' if torch.equal(got, again) else 'DIFFERENT'}", flush=True)
+        tail = tail_report(torch, got, valid)
+        if tail:
+            print(tail, flush=True)
     return 0
 
 
