@@ -510,9 +510,10 @@ def compare_shade(torch, MK, attrs, geo, sigma):
     exact = bool(torch.equal(got[1], want[1])) and bool(torch.equal(got[3], want[3]))
     n_fid = int((got[3] != want[3]).sum())
     ok = all(bool(torch.isfinite(x).all()) for x in got) and err <= TOL_SHADE and exact
+    m_tol = TOL_SHADE * want[5].abs().clamp_min(1.0)
     res_ok = (all(bool(torch.equal(x, y)) for x, y in zip(got, res[:4]))
               and bool(torch.equal(res[4], want[4]))
-              and bool(((res[5] - want[5]).abs() <= TOL_SHADE * want[5].abs().clamp_min(1.0)).all()))
+              and bool(((res[5] - want[5]).abs() <= m_tol).all()))
     return err, ok, n_fid, res_ok
 
 
@@ -749,8 +750,8 @@ def main() -> int:
     a3 = torch.as_tensor(shade_tie_attrs(rng, mc.num_tiles, mc.max_per_tile,
                                          mc.tiles_x, mc.tile_w), device=dev)
     g3, g4 = (torch.as_tensor(x, device=dev) for x in cotangents(rng, mc.num_tiles, P))
-    check_shade_bwd(torch, MK, a3, g3, g4, geo_m + (mc.sigma,), "random: shade_bwd with built ties",
-                    errs, failures)
+    check_shade_bwd(torch, MK, a3, g3, g4, geo_m + (mc.sigma,),
+                    "random: shade_bwd with built ties", errs, failures)
     # ... and at the shapes that are special to its compaction and row sums
     for case, K in SHADE_EDGE_SHAPES:
         nt = SHADE_EDGE_TILES
@@ -1042,7 +1043,7 @@ def main() -> int:
     kernel_rows["shade_bwd"] = (
         lambda: MK.shade_bwd(sa, sg, sgs, *geo_m, mc.sigma, *s_res),
         lambda: MK.shade_bwd_ref(sa, sg, sgs, *geo_m, mc.sigma),
-        2 * sa.numel() * 4 + sg.numel() * 4 + sgs.numel() * 4 + sum(x.numel() * 4 for x in s_res),
+        (2 * sa.numel() + sg.numel() + sgs.numel() + sum(x.numel() for x in s_res)) * 4,
         s_valid * SHADE_OPS + s_soft * SHADE_BWD_SOFT_OPS + s_rgb * SHADE_BWD_RGB_OPS)
     train_launches = launches
     summary["f32"] += (stages,)

@@ -66,7 +66,7 @@ def point_rasterize(points: torch.Tensor, values: torch.Tensor, res) -> torch.Te
     hat = torch.where(bits[None].bool(), frac[:, None, :], 1.0 - frac[:, None, :])  # (N,8,3)
     w = hat[..., 0] * hat[..., 1] * hat[..., 2]                # (N,8)
     C = values.shape[-1]
-    grid = torch.zeros((int(np.prod(res)), C), dtype=values.dtype, device=values.device)
+    grid = torch.zeros((res[0] * res[1] * res[2], C), dtype=values.dtype, device=values.device)
     grid.index_add_(0, flat.reshape(-1), (w[..., None] * values[:, None, :]).reshape(-1, C))
     return grid.reshape(*res, C)
 
@@ -101,7 +101,7 @@ def grid_interp(grid: torch.Tensor, points: torch.Tensor, res) -> torch.Tensor:
 
     grid (r0,r1,r2) or (r0,r1,r2,C); points (N,3) in [0,1)."""
     squeeze = grid.dim() == 3
-    g = grid.reshape(int(np.prod(res)), -1)
+    g = grid.reshape(res[0] * res[1] * res[2], -1)
     i0, frac = _base_and_frac(points, res)
     flat, bits = _corners(i0, res)
     hat = torch.where(bits[None].bool(), frac[:, None, :], 1.0 - frac[:, None, :])

@@ -5,9 +5,9 @@ launches ``csrc/shade.cu`` (forward) and ``shade_bwd`` launches
 ``csrc/shade_bwd.cu`` (its analytic backward through rgb and soft) for a
 CUDA tensor; each runs its plain PyTorch twin (``shade_tiles_ref``,
 ``shade_bwd_ref``) only for a CPU tensor; there is no fallback.
-``ShadeTiles`` pairs the two as one ``torch.autograd.Function``: the
-forward also leaves each pixel's winner row and soft sum M (the residuals),
-so the backward does not walk the rows again.
+``ShadeTiles`` pairs the two as one ``torch.autograd.Function``: in
+training the forward also leaves each pixel's winner row and soft sum M
+(the residuals), so the backward does not walk the rows again.
 
 Layout (T,K,24) float32 per tile row: 0-5 screen triangle | 6-8 clip 1/w |
 9 valid | 10-18 corner colours | 19 face id | 20-23 padding.  Outputs rgb
@@ -331,16 +331,16 @@ class ShadeTiles(torch.autograd.Function):
     """Forward kernel 3, backward kernel 4; gradients reach ``attrs`` through
     rgb and soft only (hard coverage and the face id are step functions), as
     JAX's ``make_shade_tiles`` custom_vjp
-    (dgmesh_tpu/ops/mesh_raster_pallas.py:453-486).  The forward's residuals
-    (winner rows and soft sums, 8 bytes a pixel) are saved for the
-    backward."""
+    (dgmesh_tpu/ops/mesh_raster_pallas.py:453-486).  Where attrs needs a
+    gradient, the forward's residuals (winner rows and soft sums, 8 bytes a
+    pixel) are saved for the backward; a render writes none."""
 
     @staticmethod
     def forward(ctx, attrs, tiles_x: int, tile_h: int, tile_w: int, sigma: float):
         ctx.geo = (tiles_x, tile_h, tile_w, sigma)
-        rgb, hard, soft, fid, win, M = shade_tiles(attrs, tiles_x, tile_h, tile_w, sigma,
-                                                   residuals=True)
-        ctx.save_for_backward(attrs, win, M)
+        rgb, hard, soft, fid, *res = shade_tiles(attrs, tiles_x, tile_h, tile_w, sigma,
+                                                 residuals=ctx.needs_input_grad[0])
+        ctx.save_for_backward(attrs, *res)
         ctx.mark_non_differentiable(hard, fid)
         return rgb, hard, soft, fid
 

@@ -138,11 +138,13 @@ def tail_report(torch, d, valid):
     q = torch.quantile(last, torch.tensor([0.0, 0.5, 1.0], device=d.device)).tolist()
     dur = (t1 - t0).float() / 1e3
     full = valid == int(valid.max())
+    busy = float(dur.sum()) / last.numel() / (span / 1e3)
     return (f"# tail: {int(stamped.sum())} blocks on {last.numel()} SMs over {span / 1e3:.1f} us; "
             f"each SM's last block ends at {q[0]:.1f} / {q[1]:.1f} / {q[2]:.1f} us (min / "
-            f"median / max); block time over SMs x span {float(dur.sum()) / last.numel() / (span / 1e3):.3f}; "
-            f"blocks of the {int(full.sum())} fullest tiles {float(dur[full].median()):.1f} us "
-            f"median, {float(dur[full].max()):.1f} max; empty tiles {float(dur[valid == 0].median()):.2f} us")
+            f"median / max); block time over SMs x span {busy:.3f}; blocks of the "
+            f"{int(full.sum())} fullest tiles {float(dur[full].median()):.1f} us median, "
+            f"{float(dur[full].max()):.1f} max; empty tiles "
+            f"{float(dur[valid == 0].median()):.2f} us")
 
 
 def main() -> int:
