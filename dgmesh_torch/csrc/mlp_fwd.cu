@@ -9,71 +9,76 @@
 //     y   = h_i · W[i]  (+ x · W[8] at layer 5, the skip's x-part)
 //     h_{i+1} = bf16(relu(y + b[i]))
 //   out = h_8 as float32, (n, 256).
-// wpack (9,256,256) bf16, (in,out) per layer; bpack (8,256) float32.  The
-// products of bf16 operands are exact and summed in float32 (tensor-core
-// mma with float32 accumulators); the bias add and ReLU are float32, then
-// one rounding to bf16, as in the TPU kernel.  Only the order of the float32
-// sums differs from the plain twin, so an activation may round to the
-// neighbouring bf16 value now and then.
+// W[i] (in,out) per layer, read from the transposed pack wt (9,256,256)
+// bf16, wt[i] = W[i]ᵀ; bpack (8,256) float32.  The products of bf16
+// operands are exact and summed in float32 (tensor-core wgmma with float32
+// accumulators); the bias add and ReLU are float32, then one rounding to
+// bf16, as in the TPU kernel.  Only the order of the float32 sums differs
+// from the plain twin, so an activation may round to the neighbouring bf16
+// value now and then.
 //
 // What bounds it on the H100: operations.  A row costs 2·(7·256² + 2·din·256)
-// flops (the padded lanes need none); at the main path's 479,966 rows and
+// flops (the padded lanes need none); at the main path's 479,974 rows and
 // din 93 that is 0.49 TFLOP, 0.49 ms at the 989 TFLOP/s bf16 tensor-core
 // peak, against 0.20 ms for the 670 MB of rows in and out at 3.35 TB/s.
 //
-// Design: one CTA of 8 warps per 128 rows keeps the rows' bf16 input and
-// activation in shared memory (mlp_common.cuh) through all 8 layers, so the
-// only device-memory traffic is x in, the output, and the weights streamed
-// from L2 through a two-stage cp.async pipeline.  The ragged last block is
-// zero-padded in shared memory and not written back.  A simple, correct
-// first kernel: mma.sync, not wgmma/TMA; one CTA per SM.
+// Design: one CTA of two warpgroups per 128 rows keeps the rows' bf16 input
+// and activation in shared memory through all 8 layers, each warpgroup
+// 64 rows x 256 columns of every product on wgmma m64n256k16, both operands
+// read by descriptor from 128-byte-swizzled K-major tiles (mlp_wgmma.cuh).
+// The weights stream from L2 through a three-stage cp.async ring of
+// [256][64] stages, two chunks ahead.  The only device-memory traffic is x
+// in, the output, and the weight stream (1.18 MB a CTA, from L2).  The last
+// layer's epilogue writes float32 rows < n straight from the accumulators:
+// each 4 threads fill one 32-byte sector.
 
 #include "mlp_common.cuh"
+#include "mlp_wgmma.cuh"
 
 namespace {
 
 using namespace mlp;
 
-constexpr size_t SMEM_BYTES = (size_t)(2 * BM * LDA + 2 * STAGE) * sizeof(bf16);
+constexpr size_t SMEM_BYTES = wg::TILES_BYTES + 1024;   // + room to align the tiles to 1 KB
 
 __global__ void __launch_bounds__(THREADS, 1)
-mlp_fwd_kernel(const float* __restrict__ x, const bf16* __restrict__ w,
+mlp_fwd_kernel(const float* __restrict__ x, const bf16* __restrict__ wt,
                const float* __restrict__ b, float* __restrict__ out, int n, int din) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* X = reinterpret_cast<bf16*>(smem);
-  bf16* H = X + BM * LDA;
-  bf16* stages = H + BM * LDA;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  bf16* X = reinterpret_cast<bf16*>(smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
+  bf16* H = X + wg::TILE;
+  bf16* stages = H + wg::TILE;
   const int row0 = blockIdx.x * BM;
 
-  stage_x(X, x, n, din, row0);
-  float acc[4][8][4];
-  forward_pass(acc, X, H, stages, w, CHUNKS, [&](int layer, float (&a)[4][8][4]) {
+  wg::stage_x(X, x, n, din, row0);
+  float acc[32][4];
+  wg::forward_pass(acc, X, H, stages, nullptr, wt, CHUNKS, [&](int layer, float (&a)[32][4]) {
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
+    for (int j = 0; j < 32; ++j) {
+      const int col = wg::acc_col(j);
+      const float b0 = b[layer * W + col], b1 = b[layer * W + col + 1];
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int row = frag_row(mt, half), col = frag_col(nt);
-          const bf162 h = __floats2bfloat162_rn(
-              fmaxf(a[mt][nt][2 * half] + b[layer * W + col], 0.f),
-              fmaxf(a[mt][nt][2 * half + 1] + b[layer * W + col + 1], 0.f));
-          if (layer < DEPTH - 1) {
-            *reinterpret_cast<bf162*>(H + row * LDA + col) = h;
-          } else if (row0 + row < n) {
-            *reinterpret_cast<float2*>(out + (size_t)(row0 + row) * W + col) =
-                make_float2(__low2float(h), __high2float(h));
-          }
+      for (int half = 0; half < 2; ++half) {
+        const int row = wg::acc_row(half);
+        const bf162 h = __floats2bfloat162_rn(fmaxf(a[j][2 * half] + b0, 0.f),
+                                              fmaxf(a[j][2 * half + 1] + b1, 0.f));
+        if (layer < DEPTH - 1) {
+          *reinterpret_cast<bf162*>(H + wg::tile_at(row, col)) = h;
+        } else if (row0 + row < n) {
+          *reinterpret_cast<float2*>(out + (size_t)(row0 + row) * W + col) =
+              make_float2(__low2float(h), __high2float(h));
         }
-  }, [](int) {});
+      }
+    }
+  }, [](int, int) {});
 }
 
 }  // namespace
 
-// x (n,din) f32, wpack (9,256,256) bf16, bpack (8,256) f32 → out (n,256) f32;
-// contiguous, on the device.  Launches on `stream`; returns the launch's
-// cudaError_t.
-extern "C" int mlp_fwd_launch(const float* x, const void* wpack, const float* bpack,
+// x (n,din) f32, wpackt (9,256,256) bf16 (each matrix of the pack
+// transposed), bpack (8,256) f32 → out (n,256) f32; contiguous, on the
+// device.  Launches on `stream`; returns the launch's cudaError_t.
+extern "C" int mlp_fwd_launch(const float* x, const void* wpackt, const float* bpack,
                               float* out, int n, int din, void* stream) {
   if (n <= 0) return 0;
   if (din <= 0 || din > W) return (int)cudaErrorInvalidValue;
@@ -81,6 +86,6 @@ extern "C" int mlp_fwd_launch(const float* x, const void* wpack, const float* bp
                                        (int)SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
   mlp_fwd_kernel<<<(n + BM - 1) / BM, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      x, static_cast<const bf16*>(wpack), bpack, out, n, din);
+      x, static_cast<const bf16*>(wpackt), bpack, out, n, din);
   return (int)cudaGetLastError();
 }

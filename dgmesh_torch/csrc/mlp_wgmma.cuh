@@ -1,9 +1,10 @@
 // Hopper warpgroup (wgmma) pieces of the fused MLP trunk kernels, used by
-// mlp_bwd.cu's row pass: the 128-byte-swizzled K-major shared-memory tiles
-// and their copies to and from device memory, the shared-memory matrix
-// descriptors, wgmma m64n256k16 (bf16 operands, float32 accumulators), the
-// fences between the generic and the async proxy, a three-stage cp.async
-// weight pipeline, and the forward pass over one block of rows.
+// the forward (mlp_fwd.cu) and by the backward's row pass (mlp_bwd.cu):
+// the 128-byte-swizzled K-major shared-memory tiles and their copies to and
+// from device memory, the shared-memory matrix descriptors, wgmma
+// m64n256k16 (bf16 operands, float32 accumulators), the fences between the
+// generic and the async proxy, a three-stage cp.async weight pipeline, and
+// the forward pass over one block of rows.
 //
 // Tiles.  A CTA of 256 threads (two warpgroups) owns BM = 128 rows; each
 // warpgroup owns 64 of them and all 256 output columns, its accumulator

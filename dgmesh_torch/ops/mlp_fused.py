@@ -69,6 +69,15 @@ def _check(x: torch.Tensor, wpack: torch.Tensor, bpack: torch.Tensor, what: str)
         raise ValueError(f"{what}: x, wpack and bpack must share one cpu or cuda device")
 
 
+def _check_transposed(wpackt, wpack, what: str) -> None:
+    """Raise unless wpackt can be wpack's transposed pack (``transpose_pack``)."""
+    if (wpackt.shape != wpack.shape or wpackt.dtype != wpack.dtype
+            or wpackt.device != wpack.device or not wpackt.is_contiguous()):
+        raise ValueError(f"{what}: wpackt must be a contiguous {tuple(wpack.shape)} "
+                         f"{wpack.dtype} on {wpack.device}, got {tuple(wpackt.shape)} "
+                         f"{wpackt.dtype} on {wpackt.device}")
+
+
 def _layer(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """bf16 h (N,k) times bf16 w (k,256): exact products, float32 sums."""
     return h.float() @ w.float()
@@ -132,15 +141,21 @@ def _launch(name: str, fn_name: str, argtypes, *args) -> None:
     cuda_build.check(fn(*args), fn_name)
 
 
-def trunk_fwd(x: torch.Tensor, wpack: torch.Tensor, bpack: torch.Tensor) -> torch.Tensor:
+def trunk_fwd(x: torch.Tensor, wpack: torch.Tensor, bpack: torch.Tensor,
+              wpackt: torch.Tensor | None = None) -> torch.Tensor:
     """x (N,din) f32, wpack (9,256,256) bf16, bpack (8,256) f32 → (N,256) f32.
 
     A CUDA tensor goes to kernel 5 (``trunk_fwd.launches`` counts each
-    launch); a CPU tensor takes the plain twin."""
+    launch), which reads the weights from the transposed pack ``wpackt``
+    (``transpose_pack(wpack)``, made here when not given); a CPU tensor
+    takes the plain twin."""
     _check(x, wpack, bpack, "trunk_fwd")
+    if wpackt is not None:
+        _check_transposed(wpackt, wpack, "trunk_fwd")
     if x.device.type == "cpu":
         return trunk_fwd_ref(x, wpack, bpack)
-    x, wpack, bpack = x.contiguous(), wpack.contiguous(), bpack.contiguous()
+    x, bpack = x.contiguous(), bpack.contiguous()
+    wpackt = transpose_pack(wpack) if wpackt is None else wpackt
     n, din = x.shape
     out = torch.empty((n, WIDTH), dtype=torch.float32, device=x.device)
     if n == 0:
@@ -149,7 +164,7 @@ def trunk_fwd(x: torch.Tensor, wpack: torch.Tensor, bpack: torch.Tensor) -> torc
     with torch.cuda.device(x.device):
         _launch("mlp_fwd", "mlp_fwd_launch",
                 [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
-                x.data_ptr(), wpack.data_ptr(), bpack.data_ptr(), out.data_ptr(),
+                x.data_ptr(), wpackt.data_ptr(), bpack.data_ptr(), out.data_ptr(),
                 n, din, stream)
     trunk_fwd.launches += 1
     return out
@@ -165,9 +180,10 @@ BWD_BUFFERS = 2 * DEPTH         # bf16 x, activations 0..6, the 8 masked gradien
 
 
 def transpose_pack(wpack: torch.Tensor) -> torch.Tensor:
-    """Each (256,256) matrix of the pack transposed, contiguous: kernel 6's
-    row pass reads the forward's W[k][n] from it as rows n, so that the
-    forward's and the backward's weight stages are both K-major slices."""
+    """Each (256,256) matrix of the pack transposed, contiguous: kernel 5 and
+    kernel 6's row pass read the forward's W[k][n] from it as rows n, so
+    that the forward's and the backward's weight stages are all K-major
+    slices."""
     return wpack.transpose(1, 2).contiguous()
 
 
@@ -202,14 +218,17 @@ def _bwd_wgrad(ws, db_part, dw_part, dw, db) -> None:
 
 
 def trunk_bwd(x: torch.Tensor, wpack: torch.Tensor, bpack: torch.Tensor,
-              g: torch.Tensor):
+              g: torch.Tensor, wpackt: torch.Tensor | None = None):
     """x (N,din) f32, wpack bf16, bpack f32, g (N,256) f32 → dx (N,din),
     dW (9,256,256), db (8,256), all f32 (dW and db summed over the rows).
 
     A CUDA tensor goes to kernel 6, its row pass and then its weight-gradient
-    pass (``trunk_bwd.launches`` counts each call that launches it); a CPU
-    tensor takes the plain twin."""
+    pass (``trunk_bwd.launches`` counts each call that launches it), with
+    the transposed pack ``wpackt`` as in ``trunk_fwd``; a CPU tensor takes
+    the plain twin."""
     _check(x, wpack, bpack, "trunk_bwd")
+    if wpackt is not None:
+        _check_transposed(wpackt, wpack, "trunk_bwd")
     if tuple(g.shape) != (x.shape[0], WIDTH) or g.dtype != torch.float32:
         raise ValueError(f"trunk_bwd: g must be ({x.shape[0]},256) float32, got "
                          f"{tuple(g.shape)} {g.dtype}")
@@ -225,7 +244,8 @@ def trunk_bwd(x: torch.Tensor, wpack: torch.Tensor, bpack: torch.Tensor,
         return dx, dw.zero_(), db.zero_()
     ws, db_part, dw_part = _bwd_buffers(n, dev)
     with torch.cuda.device(dev):
-        _bwd_rows(x, wpack, transpose_pack(wpack), bpack, g, dx, ws, db_part)
+        _bwd_rows(x, wpack, transpose_pack(wpack) if wpackt is None else wpackt, bpack, g, dx,
+                  ws, db_part)
         _bwd_wgrad(ws, db_part, dw_part, dw, db)
     trunk_bwd.launches += 1
     return dx, dw, db
@@ -235,8 +255,9 @@ trunk_bwd.launches = 0
 
 
 class FusedTrunk(torch.autograd.Function):
-    """Forward kernel 5, backward kernel 6.  Saves only x, the bf16 weights
-    and the biases, and recomputes the activations in the backward, as JAX's
+    """Forward kernel 5, backward kernel 6.  Saves only x, the bf16 weights,
+    their transposed pack (made once, read by both kernels) and the biases,
+    and recomputes the activations in the backward, as JAX's
     ``fused_trunk`` custom_vjp does (dgmesh_tpu/ops/mlp_pallas.py:132-215).
     wpack's gradient comes back in float32, like the parameters it is
     packed from."""
@@ -244,12 +265,13 @@ class FusedTrunk(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, wpack, bpack):
         wb = wpack.detach().to(torch.bfloat16)
+        wt = transpose_pack(wb)
         x, bpack = x.detach(), bpack.detach()
-        ctx.save_for_backward(x, wb, bpack)
-        return trunk_fwd(x, wb, bpack)
+        ctx.save_for_backward(x, wb, wt, bpack)
+        return trunk_fwd(x, wb, bpack, wt)
 
     @staticmethod
     def backward(ctx, g):
-        x, wb, bpack = ctx.saved_tensors
-        dx, dw, db = trunk_bwd(x, wb, bpack, g.contiguous())
+        x, wb, wt, bpack = ctx.saved_tensors
+        dx, dw, db = trunk_bwd(x, wb, bpack, g.contiguous(), wt)
         return dx, dw, db
