@@ -18,9 +18,9 @@ Phases; any failure exits non-zero and prints no result:
                 backward splits gradients in half; the shade backward also
                 at SHADE_EDGE_SHAPES); the fused trunk
                 (kernels 5 and 6) at 131,072 and 479,966 (ragged) rows,
-                kernel 6 launched twice there for identical bits and its
-                two passes timed apart, then at the shapes its tiling
-                makes special (MLP_EDGE_SHAPES);
+                each launched twice there for identical bits and kernel
+                6's two passes timed apart, then at the shapes their
+                tiling makes special (MLP_EDGE_SHAPES);
   4. render   — configs/synthetic-quality-288.yaml with bench.py's shell
                 state (100k Gaussians, radius 0.45, seed 0) and seeded random
                 nets: render_frame for 4 orbit views at 800², grid 288, with
@@ -47,7 +47,8 @@ Phases; any failure exits non-zero and prints no result:
                 tpu.mlp_fused set here): every kernel counted, kernels 5 and
                 6 six times a step; the stages; kernels 5 and 6 held against
                 their twins on every trunk call of a step (cotangents scaled
-                to 1), timed on the largest beside their bound and the bf16
+                to 1), kernel 5 launched twice on the largest for identical
+                bits, both timed on it beside their bound and the bf16
                 mode's chain of cuBLAS GEMMs;
      5g: the bf16 (cuBLAS) configuration, bench.py's own precision:
                 the same steps and checks and the stages, reported; then the
@@ -157,11 +158,14 @@ TOL_MLP_BWD_NORM = 3e-2   # dx, dW, db: ‖Δ‖ / ‖twin‖
 TOL_MLP_BWD_MAX = 1e-1    # dW, db: max |Δ| / max |twin|
 MLP_ROWS = (131_072, 479_966)   # the step's Gaussian slots and mesh vertices
 MLP_DIN = 93                    # blender nets: 63 position + 30 timenet lanes
-# kernel 6's special shapes: (rows, din).  1, 37 and 64 rows leave the
-# second warpgroup of the only CTA with no row; 65 and 129 rows a ragged
-# last CTA; din 1 and 256 the narrowest and the widest input
+# kernels 5 and 6's special shapes: (rows, din).  1, 37 and 64 rows leave
+# the second warpgroup of the only CTA with no row; 65 and 129 rows a ragged
+# last CTA; din 1 and 256 the narrowest and the widest input; din 64, 65,
+# 128, 129 and 192 either side of the 64-lane blocks of x that kernel 5
+# multiplies (ceil(din/64) of them)
 MLP_EDGE_SHAPES = ((1, 93), (37, 93), (64, 93), (65, 93), (129, 93), (131_072 + 37, 93),
-                   (129, 1), (129, 256))
+                   (129, 1), (129, 64), (129, 65), (129, 128), (129, 129), (129, 192),
+                   (129, 256))
 TRUNKS = 6    # fused trunks per step: deform, deform_normal, the two cycle nets,
               # deform_back and appearance on the mesh vertices
 # The small card-vs-CPU step in the fused configuration.  Card and CPU sum
@@ -774,23 +778,29 @@ def main() -> int:
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"trunk kernels vs twins (random, {n} rows)")
-        # kernel 6 twice on the same inputs: fixed-order sums, the same bits
+        # kernels 5 and 6 twice on the same inputs: fixed-order sums, the same bits
+        same_fwd = torch.equal(MF.trunk_fwd(x, wb, bp), MF.trunk_fwd(x, wb, bp))
         first, again = MF.trunk_bwd(x, wb, bp, g), MF.trunk_bwd(x, wb, bp, g)
         same = all(torch.equal(a, b) for a, b in zip(first, again))
-        log(f"# kernels/random: trunk_bwd ({n},{MLP_DIN}) twice: "
+        log(f"# kernels/random: ({n},{MLP_DIN}) twice: trunk_fwd "
+            f"{'identical' if same_fwd else 'DIFFERENT'} out; trunk_bwd "
             f"{'identical' if same else 'DIFFERENT'} dx, dW, db")
+        if not same_fwd:
+            failures.append(f"trunk_fwd not deterministic ({n} rows)")
         if not same:
             failures.append(f"trunk_bwd not deterministic ({n} rows)")
         del first, again
         log(trunk_pass_times(torch, MF, x, wb, bp, g))
         if KERNELS_ONLY:
-            for name, fk in (("trunk_fwd", lambda: MF.trunk_fwd(x, wb, bp)),
+            wt = MF.transpose_pack(wb)
+            for name, fk in (("trunk_fwd", lambda: MF.trunk_fwd(x, wb, bp, wt)),
                              ("trunk_bwd", lambda: MF.trunk_bwd(x, wb, bp, g))):
                 log(f"# timing/random {name} ({n} rows): "
                     f"{time_cuda(torch, fk, 5):.4f} ms/launch")
         del x, g
-    # ... at the shapes kernel 6's tiling makes special: one row, a second
-    # warpgroup wholly past n, a ragged last CTA, din 1 and 256
+    # ... at the shapes the kernels' tiling makes special: one row, a second
+    # warpgroup wholly past n, a ragged last CTA, din 1 and 256 and either
+    # side of a 64-lane block
     for n, din in MLP_EDGE_SHAPES:
         _, wbe, bpe = (random_trunk(torch, din, dev, seed=din) if din != MLP_DIN
                        else (None, wb, bp))
@@ -1104,6 +1114,12 @@ def main() -> int:
         rows.append((x, wb, bp, g / max(gmax, 1e-30)))
     x, wb, bp, g = max(rows, key=lambda r: r[0].shape[0])
     n, din = x.shape
+    wt = MF.transpose_pack(wb)    # made once a trunk call, as FusedTrunk does
+    same = torch.equal(MF.trunk_fwd(x, wb, bp, wt), MF.trunk_fwd(x, wb, bp, wt))
+    log(f"# kernels/train: trunk_fwd {tuple(x.shape)} twice: "
+        f"{'identical' if same else 'DIFFERENT'} out")
+    if not same:
+        failures.append(f"trunk_fwd not deterministic (training rows, {n})")
     chain = trunk_from_pack(torch, wb, bp, din)
     xg = x.clone().requires_grad_(True)
     out = chain(xg, "bf16")
@@ -1111,9 +1127,10 @@ def main() -> int:
     fwd_flops = 2 * n * (7 * 256 * 256 + 2 * din * 256)
     w_bytes = wb.numel() * 2 + bp.numel() * 4
     trunk_rows = {  # name: (kernel, twin, cuBLAS chain, bytes, operations)
-        "trunk_fwd": (lambda: MF.trunk_fwd(x, wb, bp), lambda: MF.trunk_fwd_ref(x, wb, bp),
+        "trunk_fwd": (lambda: MF.trunk_fwd(x, wb, bp, wt), lambda: MF.trunk_fwd_ref(x, wb, bp),
                       lambda: chain(x, "bf16"), n * din * 4 + n * 256 * 4 + w_bytes, fwd_flops),
-        "trunk_bwd": (lambda: MF.trunk_bwd(x, wb, bp, g), lambda: MF.trunk_bwd_ref(x, wb, bp, g),
+        "trunk_bwd": (lambda: MF.trunk_bwd(x, wb, bp, g, wt),
+                      lambda: MF.trunk_bwd_ref(x, wb, bp, g),
                       lambda: torch.autograd.grad(out, params, g, retain_graph=True),
                       2 * n * din * 4 + n * 256 * 4 + w_bytes + 9 * 256 * 256 * 4 + 8 * 256 * 4,
                       3 * fwd_flops),
@@ -1134,7 +1151,7 @@ def main() -> int:
             f"{nops / ms / 1e9:.1f} TFLOP/s); library: the bf16 mode's chain of nine cuBLAS "
             f"GEMMs + bias + ReLU{' (autograd backward)' if name == 'trunk_bwd' else ''} "
             f"{library_ms:.4f} ms")
-    del rows, calls, x, g, xg, out, params, chain, trunk_rows
+    del rows, calls, x, g, wt, xg, out, params, chain, trunk_rows
 
     # 5g. the bf16 configuration (tpu.mlp_bf16, not fused; bench.py's own
     #     precision): the same state, view and checks, reported -----------

@@ -28,9 +28,13 @@
 // read by descriptor from 128-byte-swizzled K-major tiles (mlp_wgmma.cuh).
 // The weights stream from L2 through a three-stage cp.async ring of
 // [256][64] stages, two chunks ahead.  The only device-memory traffic is x
-// in, the output, and the weight stream (1.18 MB a CTA, from L2).  The last
-// layer's epilogue writes float32 rows < n straight from the accumulators:
-// each 4 threads fill one 32-byte sector.
+// in, the output, and the weight stream from L2.  x's 64-lane blocks past
+// din are zero, so layer 0 and the skip's x-part multiply only the
+// kx = ceil(din/64) blocks that hold input lanes, and only their weight
+// stages are streamed: 28 + 2·kx chunks a CTA (32 of 36 at din 93, 1.05 MB
+// of weights), and X holds kx blocks.  Skipping them is exact: the skipped
+// products are zeros.  The last layer's epilogue writes float32 rows < n
+// straight from the accumulators: each 4 threads fill one 32-byte sector.
 
 #include "mlp_common.cuh"
 #include "mlp_wgmma.cuh"
@@ -39,20 +43,25 @@ namespace {
 
 using namespace mlp;
 
-constexpr size_t SMEM_BYTES = wg::TILES_BYTES + 1024;   // + room to align the tiles to 1 KB
+// H, the ring, then kx blocks of X; + room to align them to 1 KB
+constexpr size_t smem_bytes(int kx) {
+  return (size_t)(wg::TILE + wg::NSTAGE * wg::STAGE + kx * wg::SUB) * sizeof(bf16) + 1024;
+}
 
 __global__ void __launch_bounds__(THREADS, 1)
 mlp_fwd_kernel(const float* __restrict__ x, const bf16* __restrict__ wt,
                const float* __restrict__ b, float* __restrict__ out, int n, int din) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  bf16* X = reinterpret_cast<bf16*>(smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
-  bf16* H = X + wg::TILE;
+  bf16* H = reinterpret_cast<bf16*>(smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
   bf16* stages = H + wg::TILE;
+  bf16* X = stages + wg::NSTAGE * wg::STAGE;
   const int row0 = blockIdx.x * BM;
+  const int kx = (din + KC - 1) / KC;
 
-  wg::stage_x(X, x, n, din, row0);
+  wg::stage_x(X, x, n, din, row0, kx);
   float acc[32][4];
-  wg::forward_pass(acc, X, H, stages, nullptr, wt, CHUNKS, [&](int layer, float (&a)[32][4]) {
+  wg::forward_pass(acc, X, H, stages, nullptr, wt, wg::fwd_chunks(kx), kx,
+                   [&](int layer, float (&a)[32][4]) {
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
       const int col = wg::acc_col(j);
@@ -83,9 +92,10 @@ extern "C" int mlp_fwd_launch(const float* x, const void* wpackt, const float* b
   if (n <= 0) return 0;
   if (din <= 0 || din > W) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(mlp_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)SMEM_BYTES);
+                                       (int)smem_bytes(W / KC));
   if (e != cudaSuccess) return (int)e;
-  mlp_fwd_kernel<<<(n + BM - 1) / BM, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
+  const size_t smem = smem_bytes((din + KC - 1) / KC);
+  mlp_fwd_kernel<<<(n + BM - 1) / BM, THREADS, smem, (cudaStream_t)stream>>>(
       x, static_cast<const bf16*>(wpackt), bpack, out, n, din);
   return (int)cudaGetLastError();
 }

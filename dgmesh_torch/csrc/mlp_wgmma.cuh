@@ -41,8 +41,9 @@
 namespace mlp {
 namespace wg {
 
+constexpr int KB = W / KC;              // 64-column blocks of a row
 constexpr int SUB = BM * KC;            // bf16 elements of one [128][64] block
-constexpr int TILE = (W / KC) * SUB;    // a [128][256] activation tile: 4 blocks
+constexpr int TILE = KB * SUB;          // a [128][256] activation tile: 4 blocks
 constexpr int STAGE = W * KC;           // a weight stage [256][64]
 constexpr int NSTAGE = 3;               // stages in the ring
 constexpr size_t TILES_BYTES = (size_t)(2 * TILE + NSTAGE * STAGE) * sizeof(bf16);
@@ -132,12 +133,39 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[32][4], const bf16* A, co
 // walk: 7..0 (layer 5's h-part), then the skip's x-part (for dx).
 __device__ __forceinline__ int bwd_mat(int q) { return q < DEPTH ? DEPTH - 1 - q : DEPTH; }
 
-// Start the cp.async copies of chunk c into stage st: c < CHUNKS is forward
-// chunk c (columns k0.. of the transposed matrix), c >= CHUNKS backward
-// chunk c - CHUNKS (columns n0.. of the matrix itself).
-__device__ __forceinline__ void load_stage(bf16* st, const bf16* w, const bf16* wt, int c) {
-  const bf16* src = (c < CHUNKS ? wt + (size_t)fwd_mat(c >> 2) * W * W
-                                : w + (size_t)bwd_mat((c - CHUNKS) >> 2) * W * W) + (c & 3) * KC;
+// A forward pass that multiplies only the first kx 64-column blocks of x
+// (the others are zero: din <= 64·kx) has fwd_chunks(kx) chunks: the groups
+// that read x, 0 (layer 0) and SKIP + 2 (the skip's x-part), kx each, the
+// others KB.  fwd_chunk gives chunk c's group q (its matrix fwd_mat(q)) and
+// its block k within the group.  With kx = KB: q = c / 4, k = c % 4.
+__device__ __forceinline__ int fwd_chunks(int kx) { return CHUNKS - 2 * (KB - kx); }
+__device__ __forceinline__ void fwd_chunk(int c, int kx, int& q, int& k) {
+  const int a = c - kx, b = a - (SKIP + 1) * KB, d = b - kx;
+  if (a < 0) {
+    q = 0, k = c;
+  } else if (b < 0) {
+    q = 1 + a / KB, k = a % KB;
+  } else if (d < 0) {
+    q = SKIP + 2, k = b;
+  } else {
+    q = SKIP + 3 + d / KB, k = d % KB;
+  }
+}
+
+// Start the cp.async copies of chunk c into stage st: c < fwd_chunks(kx) is
+// forward chunk c (columns k0.. of the transposed matrix), the chunks after
+// it those of the backward (columns n0.. of the matrix itself).
+__device__ __forceinline__ void load_stage(bf16* st, const bf16* w, const bf16* wt, int c,
+                                           int kx) {
+  const int nf = fwd_chunks(kx);
+  const bf16* src;
+  if (c < nf) {
+    int q, k;
+    fwd_chunk(c, kx, q, k);
+    src = wt + (size_t)fwd_mat(q) * W * W + k * KC;
+  } else {
+    src = w + (size_t)bwd_mat((c - nf) / KB) * W * W + ((c - nf) % KB) * KC;
+  }
   for (int i = threadIdx.x; i < W * (KC / 8); i += THREADS) {
     const int r = i >> 3, p = i & 7;
     cp_async16(st + r * KC + (((p ^ r) & 7) << 3), src + (size_t)r * W + p * 8);
@@ -145,11 +173,12 @@ __device__ __forceinline__ void load_stage(bf16* st, const bf16* w, const bf16* 
 }
 
 // The ring: chunk c lives in stage c % NSTAGE and is its own cp.async group,
-// issued two chunks ahead.  pipe_start issues chunks 0 and 1.
-__device__ __forceinline__ void pipe_start(bf16* stages, const bf16* w, const bf16* wt) {
-  load_stage(stages, w, wt, 0);
+// issued two chunks ahead, in the order of a pass with kx blocks of x
+// (load_stage).  pipe_start issues chunks 0 and 1.
+__device__ __forceinline__ void pipe_start(bf16* stages, const bf16* w, const bf16* wt, int kx) {
+  load_stage(stages, w, wt, 0, kx);
   cp_async_commit();
-  load_stage(stages + STAGE, w, wt, 1);
+  load_stage(stages + STAGE, w, wt, 1, kx);
   cp_async_commit();
 }
 
@@ -157,22 +186,24 @@ __device__ __forceinline__ void pipe_start(bf16* stages, const bf16* w, const bf
 // call) visible to wgmma in every thread; then, every warpgroup being past
 // chunk c - 1, refill its stage with chunk c + 2.  Returns chunk c's stage.
 __device__ __forceinline__ const bf16* pipe_next(bf16* stages, const bf16* w, const bf16* wt,
-                                                 int c, int total) {
+                                                 int c, int total, int kx = KB) {
   cp_async_wait1();
   fence_proxy_async();
   __syncthreads();
-  if (c + 2 < total) load_stage(stages + ((c + 2) % NSTAGE) * STAGE, w, wt, c + 2);
+  if (c + 2 < total) load_stage(stages + ((c + 2) % NSTAGE) * STAGE, w, wt, c + 2, kx);
   cp_async_commit();
   return stages + (c % NSTAGE) * STAGE;
 }
 
-// Stage x rows row0..row0+BM-1 (float32 (n,din)) into the tile X as bf16
-// (round to nearest even), zero past din and past n: one 8-column granule a
-// step, its eight loads independent, one 16-byte store.
+// Stage x rows row0..row0+BM-1 (float32 (n,din)) into the first kx blocks
+// of the tile X as bf16 (round to nearest even), zero past din and past n:
+// one 8-column granule a step, its eight loads independent, one 16-byte
+// store.
 __device__ __forceinline__ void stage_x(bf16* X, const float* __restrict__ x, int n, int din,
-                                        int row0) {
-  for (int i = threadIdx.x; i < BM * (W / 8); i += THREADS) {
-    const int r = i >> 5, p = i & 31, row = row0 + r;
+                                        int row0, int kx) {
+  const int granules = kx * (KC / 8);   // a row's
+  for (int i = threadIdx.x; i < BM * granules; i += THREADS) {
+    const int r = i / granules, p = i % granules, row = row0 + r;
     uint32_t u[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
@@ -211,32 +242,37 @@ __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src) {
   }
 }
 
-// The forward pass over the CTA's rows (x already written to X, not yet
-// fenced): for each layer, acc = h·W (+ x·W_x at layer SKIP + 1) in
-// float32, then epi(layer, acc) rounds relu(acc + b) to bf16 and stores
-// this thread's elements (into H: each warpgroup reads and writes only its
-// own rows of it, so the epilogue needs no barrier before it).
-// post(layer, part) runs while chunk part (< STORE_PARTS) of the next
-// chunk group multiplies, when every thread's epilogue is in H and before
-// the next epilogue rewrites it; post(-1, part) likewise in the first
-// group, for x in X.  The last layer gets no post.  On return chunks
-// CHUNKS and CHUNKS + 1 are in flight when total > CHUNKS + 1.
+// The forward pass over the CTA's rows (x already written to the first kx
+// blocks of X, not yet fenced; din <= 64·kx): for each layer, acc = h·W
+// (+ x·W_x at layer SKIP + 1) in float32, x's products over its kx blocks
+// only, then epi(layer, acc) rounds relu(acc + b) to bf16 and stores this
+// thread's elements (into H: each warpgroup reads and writes only its own
+// rows of it, so the epilogue needs no barrier before it).  post(layer,
+// part) runs while chunk part (< STORE_PARTS) of the next chunk group
+// multiplies, when every thread's epilogue is in H and before the next
+// epilogue rewrites it; post(-1, part) likewise in the first group, for x
+// in X (every part only when kx >= STORE_PARTS).  The last layer gets no
+// post.  On return the first two chunks past the forward's are in flight
+// when total exceeds it.
 template <typename Epilogue, typename Post>
 __device__ __forceinline__ void forward_pass(float (&acc)[32][4], const bf16* X, const bf16* H,
                                              bf16* stages, const bf16* w, const bf16* wt,
-                                             int total, Epilogue epi, Post post) {
-  static_assert(STORE_PARTS < W / KC, "the last chunk of a group is followed by its epilogue");
-  pipe_start(stages, w, wt);
+                                             int total, int kx, Epilogue epi, Post post) {
+  static_assert(STORE_PARTS < KB, "the last chunk of a group is followed by its epilogue");
+  pipe_start(stages, w, wt, kx);
+  const int nf = fwd_chunks(kx);
   int done = -1;              // the layer whose post is due, or -2
-  for (int c = 0; c < CHUNKS; ++c) {
-    const bf16* st = pipe_next(stages, w, wt, c, total);
-    const int q = c >> 2, mat = fwd_mat(q);
-    mma_chunk(acc, ((q == 0 || mat == DEPTH) ? X : H) + (c & 3) * SUB, st,
-              (c & 3) == 0 && mat != DEPTH, [&] {
-                if (done > -2 && (c & 3) < STORE_PARTS) post(done, c & 3);
-              });
-    if ((c & 3) == STORE_PARTS - 1) done = -2;
-    if ((c & 3) == 3 && mat != SKIP + 1) {
+  for (int c = 0; c < nf; ++c) {
+    const bf16* st = pipe_next(stages, w, wt, c, total, kx);
+    int q, k;
+    fwd_chunk(c, kx, q, k);
+    const int mat = fwd_mat(q);
+    const bool reads_x = q == 0 || mat == DEPTH;
+    mma_chunk(acc, (reads_x ? X : H) + k * SUB, st, k == 0 && mat != DEPTH, [&] {
+      if (done > -2 && k < STORE_PARTS) post(done, k);
+    });
+    if (k == STORE_PARTS - 1) done = -2;
+    if (k == (reads_x ? kx : KB) - 1 && mat != SKIP + 1) {
       done = mat == DEPTH ? SKIP + 1 : mat;
       epi(done, acc);
     }

@@ -121,9 +121,11 @@ def _clean_rows(got, want):
 
 # (1, 93), (65, 93), (129, 1) and (129, 256) are shapes that kernel 6's
 # tiling makes special (chip_smoke.py's MLP_EDGE_SHAPES): one row, a ragged
-# second row block, the narrowest and the widest input
+# second row block, the narrowest and the widest input; din 64, 65 and 192
+# lie either side of the 64-lane blocks of x that kernel 5 multiplies
 @pytest.mark.parametrize("n,din", [(64, 93), (37, 93), (64, 84), (37, 84),
-                                   (1, 93), (65, 93), (129, 1), (129, 256)])
+                                   (1, 93), (65, 93), (129, 1), (129, 256),
+                                   (129, 64), (129, 65), (129, 192)])
 def test_twins_match_jax_fused_trunk(n, din):
     """Forward and vjp (dx, dwpack, dbpack) of fused_trunk (interpret mode)
     against trunk_fwd_ref/trunk_bwd_ref, on the clean rows: the output
@@ -247,6 +249,36 @@ def test_wrappers_take_the_twins_on_the_cpu_and_check_their_inputs():
         MF.trunk_bwd(x, wb.float(), bp, g)
     with pytest.raises(ValueError):
         MF.trunk_bwd(torch.zeros((9, 257)), wb, bp, g)
+    wt = MF.transpose_pack(wb)
+    assert torch.equal(MF.trunk_fwd(x, wb, bp, wt), MF.trunk_fwd_ref(x, wb, bp))
+    for bad in (wt[:8], wt.float(), wt.transpose(1, 2)):
+        with pytest.raises(ValueError):
+            MF.trunk_fwd(x, wb, bp, bad)
+        with pytest.raises(ValueError):
+            MF.trunk_bwd(x, wb, bp, g, bad)
+
+
+def test_fused_trunk_transposes_the_pack_once(monkeypatch):
+    """FusedTrunk makes the transposed pack once in its forward and hands
+    that same tensor to kernel 5 and, from the saved tensors, to kernel 6;
+    the results are the twins'."""
+    rng = np.random.default_rng(6)
+    ws, bs = _weights(rng, 30)
+    wpack, bpack = (torch.tensor(a) for a in _pack(ws, bs))
+    x = torch.tensor(rng.uniform(-1, 1, (9, 30)).astype(np.float32), requires_grad=True)
+    g = torch.tensor(rng.normal(size=(9, 256)).astype(np.float32))
+    made, seen = [], []
+    real_t, real_f, real_b = MF.transpose_pack, MF.trunk_fwd, MF.trunk_bwd
+    monkeypatch.setattr(MF, "transpose_pack", lambda w: made.append(real_t(w)) or made[-1])
+    monkeypatch.setattr(MF, "trunk_fwd", lambda *a: seen.append(a[3]) or real_f(*a))
+    monkeypatch.setattr(MF, "trunk_bwd", lambda *a: seen.append(a[4]) or real_b(*a))
+    out = MF.FusedTrunk.apply(x, wpack, bpack)
+    dx, = torch.autograd.grad(out, [x], g)
+    assert len(made) == 1 and len(seen) == 2 and all(t is made[0] for t in seen)
+    wb = wpack.to(torch.bfloat16)
+    assert torch.equal(made[0], real_t(wb))
+    assert torch.equal(out, MF.trunk_fwd_ref(x.detach(), wb, bpack))
+    assert torch.equal(dx, MF.trunk_bwd_ref(x.detach(), wb, bpack, g)[0])
 
 
 # --- MLPTrunk in its three modes against flax's ----------------------------------------

@@ -1,8 +1,18 @@
 #!/usr/bin/env python3
-"""Time versions of the port's mesh shade backward (kernel 4) side by side,
-at the rows and cotangents of a training step, on one NVIDIA GPU.
+"""Time versions of the port's mesh shade backward (kernel 4), or of its
+fused trunk forward (kernel 5), side by side on one NVIDIA GPU.
 
     python3 tools/torch_shade_bwd_variants.py [--random] SOURCE.cu ...
+    python3 tools/torch_shade_bwd_variants.py TRUNK_FWD.cu ...
+
+Versions of the fused trunk forward: each TRUNK_FWD.cu is a version of
+``dgmesh_torch/csrc/mlp_fwd.cu`` that exports ``mlp_fwd_launch`` with its C
+signature (the transposed pack).  They are timed on seeded random rows at
+the fused step's trunk shapes, TRUNK_SHAPES, with chip_smoke.py's random
+trunk; printed per source and shape: ms per launch in two rounds, the
+error against the plain twin (chip_smoke.py's TOL_MLP_FWD_* measures),
+whether two launches give the same bits, and whether its output equals
+the first source's bit for bit.  What follows is about kernel 4's versions.
 
 Each SOURCE.cu is a version of ``dgmesh_torch/csrc/shade_bwd.cu`` that
 exports ``shade_bwd_launch`` with its C signature (an older version, or one
@@ -18,7 +28,8 @@ flags and view), with the wrapper's arguments kept and each cotangent
 scaled to a largest |value| of 1, as chip_smoke.py does; with ``--random``,
 chip_smoke.py's random full-width rows with built ties instead.
 
-Printed per source: ptxas's register and spill lines; ms per launch (CUDA
+Printed per source: ptxas's register, spill and C75xx (serialised wgmma)
+lines; then, for kernel 4's versions, ms per launch (CUDA
 events over 20 launches after a warm-up), measured in two rounds, the
 second in reverse order; the error against the plain twin per lane group
 (chip_smoke.compare_bwd's limits); whether two launches give the same bits.
@@ -41,19 +52,23 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LAUNCHES = 20
+TRUNK_SHAPES = ((479_974, 93), (131_072, 93))   # (rows, din): mesh vertices, Gaussian slots
 
 
 def build(sources, out_dir):
-    """nvcc each source into a shared library, all at once; returns
+    """nvcc each source into a shared library, all at once, with the port's
+    headers (``dgmesh_torch/csrc/*.cuh``) on the include path; returns
     {source: (library, ptxas lines)}."""
     from dgmesh_torch.ops import cuda_build
     os.makedirs(out_dir, exist_ok=True)
+    headers = b"".join(p.read_bytes() for p in sorted(cuda_build.CSRC.glob("*.cuh")))
     procs = {}
     for src in sources:
-        text = open(src, "rb").read() + " ".join(cuda_build.NVCC_FLAGS).encode()
+        text = open(src, "rb").read() + headers + " ".join(cuda_build.NVCC_FLAGS).encode()
         lib = os.path.join(out_dir, f"lib{os.path.basename(src)[:-3]}-"
                                     f"{hashlib.sha256(text).hexdigest()[:12]}.so")
-        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", lib, src]
+        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I", str(cuda_build.CSRC),
+               "-o", lib, src]
         procs[src] = (None if os.path.exists(lib) else subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
     out = {}
@@ -62,7 +77,7 @@ def build(sources, out_dir):
         if p and p.returncode != 0:
             raise RuntimeError(f"nvcc failed for {src}:\n{log}")
         out[src] = (ctypes.CDLL(lib), [ln.strip() for ln in log.splitlines()
-                                       if "registers" in ln or "spill" in ln])
+                                       if any(k in ln for k in ("registers", "spill", "C75"))])
     return out
 
 
@@ -86,6 +101,61 @@ def launcher(torch, lib, res):
             raise RuntimeError(f"shade_bwd_launch failed with cudaError {err}")
         return d
     return run
+
+
+def timed_rounds(torch, chip_smoke, runs, call):
+    """ms per launch of each version, {source: [round 1, round 2]}: call(run)
+    launches one version's run; the second round in reverse order."""
+    times = {src: [] for src in runs}
+    for order in (list(runs), list(runs)[::-1]):
+        for src in order:
+            times[src].append(chip_smoke.time_cuda(torch, lambda: call(runs[src]), LAUNCHES))
+    return times
+
+
+def trunk_fwd_launcher(torch, lib):
+    """The version's kernel 5 on (x, wpackt, bpack) → out (n, 256)."""
+    fn = lib.mlp_fwd_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(x, wt, bp):
+        out = torch.empty((x.shape[0], 256), dtype=torch.float32, device=x.device)
+        err = fn(x.data_ptr(), wt.data_ptr(), bp.data_ptr(), out.data_ptr(), *x.shape,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"mlp_fwd_launch failed with cudaError {err}")
+        return out
+    return run
+
+
+def trunk_fwd_main(torch, chip_smoke, libs, dev) -> int:
+    """Kernel 5's versions at TRUNK_SHAPES (module docstring)."""
+    from dgmesh_torch.ops import mlp_fused as MF
+    runs = {src: trunk_fwd_launcher(torch, lib) for src, (lib, _) in libs.items()}
+    rng = np.random.default_rng(0)
+    for n, din in TRUNK_SHAPES:
+        _, wb, bp = chip_smoke.random_trunk(torch, din, dev, seed=0)
+        wt = MF.transpose_pack(wb)
+        x = torch.as_tensor(rng.uniform(-1.0, 1.0, (n, din)).astype(np.float32), device=dev)
+        want = MF.trunk_fwd_ref(x, wb, bp)
+        times = timed_rounds(torch, chip_smoke, runs, lambda run: run(x, wt, bp))
+        first = None
+        for src, run in runs.items():
+            got, again = run(x, wt, bp), run(x, wt, bp)
+            first = got if first is None else first
+            d = got.double() - want.double()
+            e_max = float(d.abs().max()) / float(want.abs().max())
+            e_norm = float(d.norm()) / float(want.double().norm())
+            ok = e_max <= chip_smoke.TOL_MLP_FWD_MAX and e_norm <= chip_smoke.TOL_MLP_FWD_NORM
+            print(f"# {src} ({n},{din}): {' / '.join(f'{t:.4f}' for t in times[src])} "
+                  f"ms/launch; out max {e_max:.3g} norm {e_norm:.3g} "
+                  f"{'agrees' if ok else 'DISAGREES'} with the twin; two launches "
+                  f"{'identical' if torch.equal(got, again) else 'DIFFERENT'}; "
+                  f"{'the same bits as' if torch.equal(got, first) else 'OTHER bits than'} "
+                  f"the first source", flush=True)
+        del x, want, got, again, first
+    return 0
 
 
 def training_rows(torch, chip_smoke, dev):
@@ -162,6 +232,8 @@ def main() -> int:
         for ln in lines:
             print(f"# {src}: {ln}")
     dev = torch.device("cuda")
+    if all(hasattr(lib, "mlp_fwd_launch") for lib, _ in libs.values()):
+        return trunk_fwd_main(torch, chip_smoke, libs, dev)
     rows = random_rows if "--random" in sys.argv[1:] else training_rows
     a, g, gs, geo, res = rows(torch, chip_smoke, dev)
     valid = (a[..., 9] > 0.5).sum(1)
@@ -170,12 +242,7 @@ def main() -> int:
           flush=True)
     want = MK.shade_bwd_ref(a, g, gs, *geo)
     runs = {src: launcher(torch, lib, res) for src, (lib, _) in libs.items()}
-    times = {src: [] for src in sources}
-    for order in (sources, sources[::-1]):
-        for src in order:
-            fn = runs[src]
-            times[src].append(chip_smoke.time_cuda(
-                torch, lambda: fn(a, g, gs, *geo), LAUNCHES))
+    times = timed_rounds(torch, chip_smoke, runs, lambda run: run(a, g, gs, *geo))
     for src in sources:
         got, again = runs[src](a, g, gs, *geo), runs[src](a, g, gs, *geo)
         e, ok, rep = chip_smoke.compare_bwd(torch, got, want, chip_smoke.SHADE_GROUPS,
