@@ -792,8 +792,8 @@ def main() -> int:
         del first, again
         log(trunk_pass_times(torch, MF, x, wb, bp, g))
         if KERNELS_ONLY:
-            wt = MF.transpose_pack(wb)
-            for name, fk in (("trunk_fwd", lambda: MF.trunk_fwd(x, wb, bp, wt)),
+            ws = MF.stage_pack(MF.transpose_pack(wb))
+            for name, fk in (("trunk_fwd", lambda: MF.trunk_fwd(x, wb, bp, ws)),
                              ("trunk_bwd", lambda: MF.trunk_bwd(x, wb, bp, g))):
                 log(f"# timing/random {name} ({n} rows): "
                     f"{time_cuda(torch, fk, 5):.4f} ms/launch")
@@ -1115,7 +1115,8 @@ def main() -> int:
     x, wb, bp, g = max(rows, key=lambda r: r[0].shape[0])
     n, din = x.shape
     wt = MF.transpose_pack(wb)    # made once a trunk call, as FusedTrunk does
-    same = torch.equal(MF.trunk_fwd(x, wb, bp, wt), MF.trunk_fwd(x, wb, bp, wt))
+    ws = MF.stage_pack(wt)
+    same = torch.equal(MF.trunk_fwd(x, wb, bp, ws), MF.trunk_fwd(x, wb, bp, ws))
     log(f"# kernels/train: trunk_fwd {tuple(x.shape)} twice: "
         f"{'identical' if same else 'DIFFERENT'} out")
     if not same:
@@ -1127,7 +1128,7 @@ def main() -> int:
     fwd_flops = 2 * n * (7 * 256 * 256 + 2 * din * 256)
     w_bytes = wb.numel() * 2 + bp.numel() * 4
     trunk_rows = {  # name: (kernel, twin, cuBLAS chain, bytes, operations)
-        "trunk_fwd": (lambda: MF.trunk_fwd(x, wb, bp, wt), lambda: MF.trunk_fwd_ref(x, wb, bp),
+        "trunk_fwd": (lambda: MF.trunk_fwd(x, wb, bp, ws), lambda: MF.trunk_fwd_ref(x, wb, bp),
                       lambda: chain(x, "bf16"), n * din * 4 + n * 256 * 4 + w_bytes, fwd_flops),
         "trunk_bwd": (lambda: MF.trunk_bwd(x, wb, bp, g, wt),
                       lambda: MF.trunk_bwd_ref(x, wb, bp, g),
@@ -1151,7 +1152,7 @@ def main() -> int:
             f"{nops / ms / 1e9:.1f} TFLOP/s); library: the bf16 mode's chain of nine cuBLAS "
             f"GEMMs + bias + ReLU{' (autograd backward)' if name == 'trunk_bwd' else ''} "
             f"{library_ms:.4f} ms")
-    del rows, calls, x, g, wt, xg, out, params, chain, trunk_rows
+    del rows, calls, x, g, wt, ws, xg, out, params, chain, trunk_rows
 
     # 5g. the bf16 configuration (tpu.mlp_bf16, not fused; bench.py's own
     #     precision): the same state, view and checks, reported -----------

@@ -9,8 +9,8 @@
 //     y   = h_i · W[i]  (+ x · W[8] at layer 5, the skip's x-part)
 //     h_{i+1} = bf16(relu(y + b[i]))
 //   out = h_8 as float32, (n, 256).
-// W[i] (in,out) per layer, read from the transposed pack wt (9,256,256)
-// bf16, wt[i] = W[i]ᵀ; bpack (8,256) float32.  The products of bf16
+// W[i] (in,out) per layer, read from the stage pack (the wrapper's
+// stage_pack: W[i]ᵀ in 64-column stages, bf16); bpack (8,256) float32.  The products of bf16
 // operands are exact and summed in float32 (tensor-core wgmma with float32
 // accumulators); the bias add and ReLU are float32, then one rounding to
 // bf16, as in the TPU kernel.  Only the order of the float32 sums differs
@@ -26,15 +26,30 @@
 // and activation in shared memory through all 8 layers, each warpgroup
 // 64 rows x 256 columns of every product on wgmma m64n256k16, both operands
 // read by descriptor from 128-byte-swizzled K-major tiles (mlp_wgmma.cuh).
-// The weights stream from L2 through a three-stage cp.async ring of
-// [256][64] stages, two chunks ahead.  The only device-memory traffic is x
-// in, the output, and the weight stream from L2.  x's 64-lane blocks past
-// din are zero, so layer 0 and the skip's x-part multiply only the
-// kx = ceil(din/64) blocks that hold input lanes, and only their weight
-// stages are streamed: 28 + 2·kx chunks a CTA (32 of 36 at din 93, 1.05 MB
-// of weights), and X holds kx blocks.  Skipping them is exact: the skipped
-// products are zeros.  The last layer's epilogue writes float32 rows < n
-// straight from the accumulators: each 4 threads fill one 32-byte sector.
+// The only device-memory traffic is x in and the output; the weights
+// stream from L2.  x's 64-lane blocks past din are zero, so layer 0 and the
+// skip's x-part multiply only the kx = ceil(din/64) blocks that hold input
+// lanes, and only their weight stages are streamed: 28 + 2·kx chunks a CTA
+// (32 of 36 at din 93), and X holds kx blocks.  Skipping them is exact: the
+// skipped products are zeros.  The last layer's epilogue writes float32
+// rows < n straight from the accumulators: each 4 threads fill one 32-byte
+// sector.
+//
+// Weights.  Every CTA multiplies the same sequence of [256][64] weight
+// stages, so CTAs run in clusters of two that share it: each loads half of
+// every stage and multicasts it into both CTAs' ring, which halves the L2
+// stream a row (a CTA's share: 0.52 MB of the 1.05 MB at din 93).  The
+// wrapper lays the stages out in device memory as they lie in shared memory
+// (stage_pack: each one 32 KB, contiguous, already swizzled), so one thread
+// copies a half with one bulk copy (cp.async.bulk, the TMA's plain form)
+// and no thread spends instructions on addresses.  A three-stage ring, two
+// chunks ahead: full[s] completes when both halves of a stage have landed
+// (the bulk copies' byte counts); empty[s] when both CTAs are past the
+// chunk that last used it (each CTA's thread 0 arrives on its own and on
+// the other CTA's, after the CTA-wide barrier that also publishes the
+// epilogue's stores to wgmma).  Thread 0 waits for the other CTA and
+// refills the stage while the next chunk's wgmmas run.  Every wait is
+// bounded: a pipeline that stops traps instead of hanging the card.
 
 #include "mlp_common.cuh"
 #include "mlp_wgmma.cuh"
@@ -43,25 +58,146 @@ namespace {
 
 using namespace mlp;
 
-// H, the ring, then kx blocks of X; + room to align them to 1 KB
+constexpr int CLUSTER = 2;              // CTAs sharing each weight stage
+constexpr uint32_t STAGE_BYTES = wg::STAGE * sizeof(bf16);
+constexpr uint32_t HALF_BYTES = STAGE_BYTES / CLUSTER;
+constexpr int RING = wg::NSTAGE;        // stages in the ring
+constexpr int LEAD = RING - 1;          // chunks in flight ahead of the one multiplied
+
+// H, the ring, kx blocks of X, then the ring's 2·RING mbarriers; + room
+// to align the tiles to 1 KB
 constexpr size_t smem_bytes(int kx) {
-  return (size_t)(wg::TILE + wg::NSTAGE * wg::STAGE + kx * wg::SUB) * sizeof(bf16) + 1024;
+  return (size_t)(wg::TILE + RING * wg::STAGE + kx * wg::SUB) * sizeof(bf16) +
+         2 * RING * sizeof(uint64_t) + 1024;
 }
 
-__global__ void __launch_bounds__(THREADS, 1)
-mlp_fwd_kernel(const float* __restrict__ x, const bf16* __restrict__ wt,
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// Wait for the completion of bar's phase of this parity (cluster scope:
+// the other CTA's arrivals are ordered before what follows).  Traps after
+// 2^26 polls (seconds), so that a pipeline fault ends the launch.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    if (polls == (1u << 26)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  }
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of both CTAs: all shared-memory writes and barrier inits
+// before it are visible to the cluster after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The weight pipe of forward_pass: the ring shared by the cluster's two
+// CTAs, filled by bulk copies from the stage pack ws (stage_pack's layout:
+// stage m·4 + k is rows n, columns 64k.. of W[m]ᵀ, swizzled).
+struct ClusterRing {
+  bf16* stages;
+  uint64_t* full;               // [RING]: both halves of the stage landed
+  uint64_t* empty;              // [RING]: both CTAs past the stage's chunk
+  const bf16* ws;
+  int total, kx;
+  uint32_t rank;
+
+  // Thread 0: this CTA's half of chunk c, into stage c % RING of both
+  // CTAs, counted by each one's full barrier; this CTA's full barrier is
+  // armed for the stage's two halves.
+  __device__ __forceinline__ void issue(int c) const {
+    int q, k;
+    wg::fwd_chunk(c, kx, q, k);
+    const int s = c % RING;
+    const char* src = reinterpret_cast<const char*>(ws + (size_t)(fwd_mat(q) * wg::KB + k) *
+                                                             wg::STAGE) + rank * HALF_BYTES;
+    const uint32_t dst = smem_addr(stages + s * wg::STAGE) + rank * HALF_BYTES;
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(smem_addr(full + s)), "r"(STAGE_BYTES) : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
+        "[%0], [%1], %2, [%3], %4;\n"
+        :: "r"(dst), "l"(src), "r"(HALF_BYTES), "r"(smem_addr(full + s)),
+           "h"((uint16_t)((1u << CLUSTER) - 1))
+        : "memory");
+  }
+
+  // Thread 0: chunks 0 .. LEAD - 1.
+  __device__ __forceinline__ void start() const {
+    if (threadIdx.x == 0)
+      for (int c = 0; c < LEAD; ++c) issue(c);
+  }
+
+  // Wait for chunk c and publish this thread's shared-memory writes to
+  // wgmma; then, every thread of this CTA being past chunk c - 1, thread 0
+  // frees that chunk's stage in both CTAs (its next chunk is c + LEAD).
+  // Returns chunk c's stage.
+  __device__ __forceinline__ const bf16* next(int c) const {
+    const int s = c % RING;
+    mbar_wait(full + s, (c / RING) & 1);
+    wg::fence_proxy_async();
+    __syncthreads();
+    if (threadIdx.x == 0 && c >= 1 && c + LEAD < total) {   // its stage held c - 1
+      const uint32_t bar = smem_addr(empty + (c + LEAD) % RING);
+      uint32_t peer;
+      asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(peer) : "r"(bar), "r"(rank ^ 1));
+      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+      asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
+                   :: "r"(peer) : "memory");
+    }
+    return stages + s * wg::STAGE;
+  }
+
+  // While chunk c multiplies, thread 0 waits for the other CTA to free the
+  // stage of chunk c - 1 too and refills it with chunk c + LEAD, so that
+  // the wait between the two CTAs stays off the tensor cores' path.
+  __device__ __forceinline__ void beside(int c) const {
+    if (threadIdx.x == 0 && c + LEAD < total) {
+      if (c >= 1) mbar_wait(empty + (c + LEAD) % RING, ((c - 1) / RING) & 1);
+      issue(c + LEAD);
+    }
+    __syncwarp();               // warp 0 whole again for wgmma.wait_group
+  }
+};
+
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS, 1)
+mlp_fwd_kernel(const float* __restrict__ x, const bf16* __restrict__ ws,
                const float* __restrict__ b, float* __restrict__ out, int n, int din) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   bf16* H = reinterpret_cast<bf16*>(smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
   bf16* stages = H + wg::TILE;
-  bf16* X = stages + wg::NSTAGE * wg::STAGE;
-  const int row0 = blockIdx.x * BM;
   const int kx = (din + KC - 1) / KC;
+  bf16* X = stages + RING * wg::STAGE;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(X + kx * wg::SUB);
+  const int row0 = blockIdx.x * BM;
+  const ClusterRing ring{stages, bars, bars + RING, ws, wg::fwd_chunks(kx), kx,
+                         cluster_rank()};
 
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < RING; ++s) {
+      mbar_init(ring.full + s, 1);
+      mbar_init(ring.empty + s, CLUSTER);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();               // the barriers exist in both CTAs before any copy
+  ring.start();
   wg::stage_x(X, x, n, din, row0, kx);
   float acc[32][4];
-  wg::forward_pass(acc, X, H, stages, nullptr, wt, wg::fwd_chunks(kx), kx,
-                   [&](int layer, float (&a)[32][4]) {
+  wg::forward_pass(acc, X, H, ring, kx, [&](int layer, float (&a)[32][4]) {
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
       const int col = wg::acc_col(j);
@@ -80,22 +216,26 @@ mlp_fwd_kernel(const float* __restrict__ x, const bf16* __restrict__ wt,
       }
     }
   }, [](int, int) {});
+  cluster_sync();               // no copy or arrival into a CTA that has left
 }
 
 }  // namespace
 
-// x (n,din) f32, wpackt (9,256,256) bf16 (each matrix of the pack
-// transposed), bpack (8,256) f32 → out (n,256) f32; contiguous, on the
-// device.  Launches on `stream`; returns the launch's cudaError_t.
-extern "C" int mlp_fwd_launch(const float* x, const void* wpackt, const float* bpack,
+// x (n,din) f32, wpacks (36,256,64) bf16 (stage_pack: the forward's
+// weight stages as they lie in shared memory), bpack (8,256) f32 → out
+// (n,256) f32; contiguous, on the device, wpacks 16-byte aligned.  Launches
+// on `stream`, in clusters of two CTAs (a last CTA past n when the row
+// blocks are odd); returns the launch's cudaError_t.
+extern "C" int mlp_fwd_launch(const float* x, const void* wpacks, const float* bpack,
                               float* out, int n, int din, void* stream) {
   if (n <= 0) return 0;
   if (din <= 0 || din > W) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(mlp_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem_bytes(W / KC));
   if (e != cudaSuccess) return (int)e;
-  const size_t smem = smem_bytes((din + KC - 1) / KC);
-  mlp_fwd_kernel<<<(n + BM - 1) / BM, THREADS, smem, (cudaStream_t)stream>>>(
-      x, static_cast<const bf16*>(wpackt), bpack, out, n, din);
+  const int blocks = (n + BM - 1) / BM;
+  mlp_fwd_kernel<<<(blocks + CLUSTER - 1) / CLUSTER * CLUSTER, THREADS,
+                   smem_bytes((din + KC - 1) / KC), (cudaStream_t)stream>>>(
+      x, static_cast<const bf16*>(wpacks), bpack, out, n, din);
   return (int)cudaGetLastError();
 }

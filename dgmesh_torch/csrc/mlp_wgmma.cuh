@@ -242,33 +242,50 @@ __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src) {
   }
 }
 
+// The cp.async ring as forward_pass's weight pipe: start() issues chunks 0
+// and 1, next(c) is pipe_next, and nothing runs beside the products.  After
+// a forward pass the first two chunks past the forward's are in flight when
+// total exceeds it.
+struct CpAsyncRing {
+  bf16* stages;
+  const bf16* w;
+  const bf16* wt;
+  int total, kx;
+  __device__ __forceinline__ void start() const { pipe_start(stages, w, wt, kx); }
+  __device__ __forceinline__ const bf16* next(int c) const {
+    return pipe_next(stages, w, wt, c, total, kx);
+  }
+  __device__ __forceinline__ void beside(int) const {}
+};
+
 // The forward pass over the CTA's rows (x already written to the first kx
 // blocks of X, not yet fenced; din <= 64·kx): for each layer, acc = h·W
 // (+ x·W_x at layer SKIP + 1) in float32, x's products over its kx blocks
 // only, then epi(layer, acc) rounds relu(acc + b) to bf16 and stores this
 // thread's elements (into H: each warpgroup reads and writes only its own
-// rows of it, so the epilogue needs no barrier before it).  post(layer,
-// part) runs while chunk part (< STORE_PARTS) of the next chunk group
-// multiplies, when every thread's epilogue is in H and before the next
-// epilogue rewrites it; post(-1, part) likewise in the first group, for x
-// in X (every part only when kx >= STORE_PARTS).  The last layer gets no
-// post.  On return the first two chunks past the forward's are in flight
-// when total exceeds it.
-template <typename Epilogue, typename Post>
+// rows of it, so the epilogue needs no barrier before it).  The weights
+// come from pipe, started by the caller (pipe.start()): pipe.next(c)
+// returns forward chunk c's stage, with every shared-memory write before
+// the call visible to wgmma in every thread, and pipe.beside(c) runs while
+// chunk c multiplies.  post(layer, part) runs while chunk part
+// (< STORE_PARTS) of the next chunk group multiplies, when every thread's
+// epilogue is in H and before the next epilogue rewrites it; post(-1,
+// part) likewise in the first group, for x in X (every part only when
+// kx >= STORE_PARTS).  The last layer gets no post.
+template <typename Pipe, typename Epilogue, typename Post>
 __device__ __forceinline__ void forward_pass(float (&acc)[32][4], const bf16* X, const bf16* H,
-                                             bf16* stages, const bf16* w, const bf16* wt,
-                                             int total, int kx, Epilogue epi, Post post) {
+                                             const Pipe& pipe, int kx, Epilogue epi, Post post) {
   static_assert(STORE_PARTS < KB, "the last chunk of a group is followed by its epilogue");
-  pipe_start(stages, w, wt, kx);
   const int nf = fwd_chunks(kx);
   int done = -1;              // the layer whose post is due, or -2
   for (int c = 0; c < nf; ++c) {
-    const bf16* st = pipe_next(stages, w, wt, c, total, kx);
+    const bf16* st = pipe.next(c);
     int q, k;
     fwd_chunk(c, kx, q, k);
     const int mat = fwd_mat(q);
     const bool reads_x = q == 0 || mat == DEPTH;
     mma_chunk(acc, (reads_x ? X : H) + k * SUB, st, k == 0 && mat != DEPTH, [&] {
+      pipe.beside(c);
       if (done > -2 && k < STORE_PARTS) post(done, k);
     });
     if (k == STORE_PARTS - 1) done = -2;

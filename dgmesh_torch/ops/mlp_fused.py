@@ -69,13 +69,14 @@ def _check(x: torch.Tensor, wpack: torch.Tensor, bpack: torch.Tensor, what: str)
         raise ValueError(f"{what}: x, wpack and bpack must share one cpu or cuda device")
 
 
-def _check_transposed(wpackt, wpack, what: str) -> None:
-    """Raise unless wpackt can be wpack's transposed pack (``transpose_pack``)."""
-    if (wpackt.shape != wpack.shape or wpackt.dtype != wpack.dtype
-            or wpackt.device != wpack.device or not wpackt.is_contiguous()):
-        raise ValueError(f"{what}: wpackt must be a contiguous {tuple(wpack.shape)} "
-                         f"{wpack.dtype} on {wpack.device}, got {tuple(wpackt.shape)} "
-                         f"{wpackt.dtype} on {wpackt.device}")
+def _check_derived(packed, shape, wpack, what: str) -> None:
+    """Raise unless ``packed`` can be a layout of wpack (``transpose_pack``,
+    ``stage_pack``) of this shape."""
+    if (tuple(packed.shape) != shape or packed.dtype != wpack.dtype
+            or packed.device != wpack.device or not packed.is_contiguous()):
+        raise ValueError(f"{what}: expected a contiguous {shape} {wpack.dtype} on "
+                         f"{wpack.device}, got {tuple(packed.shape)} {packed.dtype} on "
+                         f"{packed.device}")
 
 
 def _layer(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -142,20 +143,20 @@ def _launch(name: str, fn_name: str, argtypes, *args) -> None:
 
 
 def trunk_fwd(x: torch.Tensor, wpack: torch.Tensor, bpack: torch.Tensor,
-              wpackt: torch.Tensor | None = None) -> torch.Tensor:
+              wpacks: torch.Tensor | None = None) -> torch.Tensor:
     """x (N,din) f32, wpack (9,256,256) bf16, bpack (8,256) f32 → (N,256) f32.
 
     A CUDA tensor goes to kernel 5 (``trunk_fwd.launches`` counts each
-    launch), which reads the weights from the transposed pack ``wpackt``
-    (``transpose_pack(wpack)``, made here when not given); a CPU tensor
-    takes the plain twin."""
+    launch), which reads the weights from the stage pack ``wpacks``
+    (``stage_pack(transpose_pack(wpack))``, made here when not given); a CPU
+    tensor takes the plain twin."""
     _check(x, wpack, bpack, "trunk_fwd")
-    if wpackt is not None:
-        _check_transposed(wpackt, wpack, "trunk_fwd")
+    if wpacks is not None:
+        _check_derived(wpacks, STAGE_PACK_SHAPE, wpack, "trunk_fwd: wpacks")
     if x.device.type == "cpu":
         return trunk_fwd_ref(x, wpack, bpack)
     x, bpack = x.contiguous(), bpack.contiguous()
-    wpackt = transpose_pack(wpack) if wpackt is None else wpackt
+    wpacks = stage_pack(transpose_pack(wpack)) if wpacks is None else wpacks
     n, din = x.shape
     out = torch.empty((n, WIDTH), dtype=torch.float32, device=x.device)
     if n == 0:
@@ -164,7 +165,7 @@ def trunk_fwd(x: torch.Tensor, wpack: torch.Tensor, bpack: torch.Tensor,
     with torch.cuda.device(x.device):
         _launch("mlp_fwd", "mlp_fwd_launch",
                 [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
-                x.data_ptr(), wpackt.data_ptr(), bpack.data_ptr(), out.data_ptr(),
+                x.data_ptr(), wpacks.data_ptr(), bpack.data_ptr(), out.data_ptr(),
                 n, din, stream)
     trunk_fwd.launches += 1
     return out
@@ -180,11 +181,28 @@ BWD_BUFFERS = 2 * DEPTH         # bf16 x, activations 0..6, the 8 masked gradien
 
 
 def transpose_pack(wpack: torch.Tensor) -> torch.Tensor:
-    """Each (256,256) matrix of the pack transposed, contiguous: kernel 5 and
-    kernel 6's row pass read the forward's W[k][n] from it as rows n, so
-    that the forward's and the backward's weight stages are all K-major
-    slices."""
+    """Each (256,256) matrix of the pack transposed, contiguous: kernel 6's
+    row pass reads the forward's W[k][n] from it as rows n, so that the
+    forward's and the backward's weight stages are both K-major slices."""
     return wpack.transpose(1, 2).contiguous()
+
+
+STAGE_K = 64                                            # reduction steps of a weight stage
+STAGE_PACK_SHAPE = ((DEPTH + 1) * WIDTH // STAGE_K, WIDTH, STAGE_K)
+
+
+def stage_pack(wpackt: torch.Tensor) -> torch.Tensor:
+    """The forward's weight stages as kernel 5 holds them in shared memory,
+    from the transposed pack: (36,256,64) bf16, stage 4·m + k being rows n,
+    columns 64k..64k+63 of W[m]ᵀ, with the 16-byte granule g of row n
+    stored at granule g ^ (n % 8) (the 128-byte swizzle of the kernel's
+    K-major tiles), so that one contiguous copy fills a stage."""
+    m = wpackt.shape[0]
+    st = wpackt.reshape(m, WIDTH, WIDTH // STAGE_K, STAGE_K).transpose(1, 2)   # (m,4,n,64)
+    st = st.reshape(m * WIDTH // STAGE_K, WIDTH, STAGE_K // 8, 8)               # granules
+    n = torch.arange(WIDTH, device=wpackt.device)[:, None]
+    src = torch.arange(STAGE_K // 8, device=wpackt.device)[None, :] ^ (n % 8)  # granule at g
+    return st[:, n, src].reshape(STAGE_PACK_SHAPE).contiguous()
 
 
 def _bwd_buffers(n: int, dev):
@@ -228,7 +246,7 @@ def trunk_bwd(x: torch.Tensor, wpack: torch.Tensor, bpack: torch.Tensor,
     the plain twin."""
     _check(x, wpack, bpack, "trunk_bwd")
     if wpackt is not None:
-        _check_transposed(wpackt, wpack, "trunk_bwd")
+        _check_derived(wpackt, tuple(wpack.shape), wpack, "trunk_bwd: wpackt")
     if tuple(g.shape) != (x.shape[0], WIDTH) or g.dtype != torch.float32:
         raise ValueError(f"trunk_bwd: g must be ({x.shape[0]},256) float32, got "
                          f"{tuple(g.shape)} {g.dtype}")
@@ -255,9 +273,11 @@ trunk_bwd.launches = 0
 
 
 class FusedTrunk(torch.autograd.Function):
-    """Forward kernel 5, backward kernel 6.  Saves only x, the bf16 weights,
-    their transposed pack (made once, read by both kernels) and the biases,
-    and recomputes the activations in the backward, as JAX's
+    """Forward kernel 5, backward kernel 6.  Transposes the bf16 weights
+    once: kernel 5 reads them as the stage pack made from that, kernel 6 as
+    the transposed pack itself.  Saves only x, the bf16 weights, their
+    transposed pack and the biases, and recomputes the activations in the
+    backward, as JAX's
     ``fused_trunk`` custom_vjp does (dgmesh_tpu/ops/mlp_pallas.py:132-215).
     wpack's gradient comes back in float32, like the parameters it is
     packed from."""
@@ -268,7 +288,7 @@ class FusedTrunk(torch.autograd.Function):
         wt = transpose_pack(wb)
         x, bpack = x.detach(), bpack.detach()
         ctx.save_for_backward(x, wb, wt, bpack)
-        return trunk_fwd(x, wb, bpack, wt)
+        return trunk_fwd(x, wb, bpack, stage_pack(wt))
 
     @staticmethod
     def backward(ctx, g):

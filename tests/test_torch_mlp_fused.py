@@ -250,18 +250,39 @@ def test_wrappers_take_the_twins_on_the_cpu_and_check_their_inputs():
     with pytest.raises(ValueError):
         MF.trunk_bwd(torch.zeros((9, 257)), wb, bp, g)
     wt = MF.transpose_pack(wb)
-    assert torch.equal(MF.trunk_fwd(x, wb, bp, wt), MF.trunk_fwd_ref(x, wb, bp))
-    for bad in (wt[:8], wt.float(), wt.transpose(1, 2)):
+    ws = MF.stage_pack(wt)
+    assert torch.equal(MF.trunk_fwd(x, wb, bp, ws), MF.trunk_fwd_ref(x, wb, bp))
+    for u, v in zip(MF.trunk_bwd(x, wb, bp, g, wt), MF.trunk_bwd_ref(x, wb, bp, g)):
+        assert torch.equal(u, v)
+    for bad in (wt, ws[:35], ws.float(), ws.transpose(1, 2)):
         with pytest.raises(ValueError):
             MF.trunk_fwd(x, wb, bp, bad)
+    for bad in (ws, wt[:8], wt.float(), wt.transpose(1, 2)):
         with pytest.raises(ValueError):
             MF.trunk_bwd(x, wb, bp, g, bad)
 
 
+def test_stage_pack_is_the_swizzled_stages():
+    """Kernel 5 copies each weight stage into shared memory as one block:
+    stage 4·m + k of the stage pack holds rows n, columns 64k.. of W[m]ᵀ,
+    with the 8-element granule g of row n at granule g ^ (n % 8), the
+    128-byte swizzle of the kernel's tiles."""
+    rng = np.random.default_rng(7)
+    w = torch.tensor(rng.normal(size=(9, 256, 256)).astype(np.float32)).to(torch.bfloat16)
+    ws = MF.stage_pack(MF.transpose_pack(w))
+    assert ws.shape == (36, 256, 64) and ws.dtype == torch.bfloat16 and ws.is_contiguous()
+    flat = ws.reshape(36, 256 * 64)
+    for m, k, n, c in ((0, 0, 0, 0), (8, 3, 255, 63), (5, 1, 9, 17), (2, 2, 100, 40)):
+        assert flat[4 * m + k, n * 64 + ((c // 8) ^ (n % 8)) * 8 + c % 8] == w[m, 64 * k + c, n]
+    n = torch.arange(256)[:, None]
+    plain = ws.reshape(9, 4, 256, 8, 8)[:, :, n, torch.arange(8)[None, :] ^ (n % 8)]
+    assert torch.equal(plain.reshape(9, 4, 256, 64).permute(0, 1, 3, 2).reshape(9, 256, 256), w)
+
+
 def test_fused_trunk_transposes_the_pack_once(monkeypatch):
-    """FusedTrunk makes the transposed pack once in its forward and hands
-    that same tensor to kernel 5 and, from the saved tensors, to kernel 6;
-    the results are the twins'."""
+    """FusedTrunk makes the transposed pack once in its forward, hands its
+    stage pack to kernel 5 and, from the saved tensors, that same transposed
+    pack to kernel 6; the results are the twins'."""
     rng = np.random.default_rng(6)
     ws, bs = _weights(rng, 30)
     wpack, bpack = (torch.tensor(a) for a in _pack(ws, bs))
@@ -274,9 +295,9 @@ def test_fused_trunk_transposes_the_pack_once(monkeypatch):
     monkeypatch.setattr(MF, "trunk_bwd", lambda *a: seen.append(a[4]) or real_b(*a))
     out = MF.FusedTrunk.apply(x, wpack, bpack)
     dx, = torch.autograd.grad(out, [x], g)
-    assert len(made) == 1 and len(seen) == 2 and all(t is made[0] for t in seen)
+    assert len(made) == 1 and len(seen) == 2 and seen[1] is made[0]
     wb = wpack.to(torch.bfloat16)
-    assert torch.equal(made[0], real_t(wb))
+    assert torch.equal(made[0], real_t(wb)) and torch.equal(seen[0], MF.stage_pack(made[0]))
     assert torch.equal(out, MF.trunk_fwd_ref(x.detach(), wb, bpack))
     assert torch.equal(dx, MF.trunk_bwd_ref(x.detach(), wb, bpack, g)[0])
 

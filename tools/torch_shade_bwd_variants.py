@@ -3,11 +3,13 @@
 fused trunk forward (kernel 5), side by side on one NVIDIA GPU.
 
     python3 tools/torch_shade_bwd_variants.py [--random] SOURCE.cu ...
-    python3 tools/torch_shade_bwd_variants.py TRUNK_FWD.cu ...
+    python3 tools/torch_shade_bwd_variants.py TRUNK_FWD.cu[:transposed] ...
 
 Versions of the fused trunk forward: each TRUNK_FWD.cu is a version of
 ``dgmesh_torch/csrc/mlp_fwd.cu`` that exports ``mlp_fwd_launch`` with its C
-signature (the transposed pack).  They are timed on seeded random rows at
+signature, given the stage pack (``mlp_fused.stage_pack``), or with the
+``:transposed`` suffix the transposed pack (the layout kernel 5 read before
+it had a stage pack).  They are timed on seeded random rows at
 the fused step's trunk shapes, TRUNK_SHAPES, with chip_smoke.py's random
 trunk; printed per source and shape: ms per launch in two rounds, the
 error against the plain twin (chip_smoke.py's TOL_MLP_FWD_* measures),
@@ -104,12 +106,12 @@ def launcher(torch, lib, res):
 
 
 def timed_rounds(torch, chip_smoke, runs, call):
-    """ms per launch of each version, {source: [round 1, round 2]}: call(run)
-    launches one version's run; the second round in reverse order."""
+    """ms per launch of each version, {source: [round 1, round 2]}: call(src)
+    launches one version; the second round in reverse order."""
     times = {src: [] for src in runs}
     for order in (list(runs), list(runs)[::-1]):
         for src in order:
-            times[src].append(chip_smoke.time_cuda(torch, lambda: call(runs[src]), LAUNCHES))
+            times[src].append(chip_smoke.time_cuda(torch, lambda: call(src), LAUNCHES))
     return times
 
 
@@ -129,20 +131,22 @@ def trunk_fwd_launcher(torch, lib):
     return run
 
 
-def trunk_fwd_main(torch, chip_smoke, libs, dev) -> int:
-    """Kernel 5's versions at TRUNK_SHAPES (module docstring)."""
+def trunk_fwd_main(torch, chip_smoke, libs, transposed, dev) -> int:
+    """Kernel 5's versions at TRUNK_SHAPES (module docstring); those in
+    ``transposed`` take the transposed pack."""
     from dgmesh_torch.ops import mlp_fused as MF
     runs = {src: trunk_fwd_launcher(torch, lib) for src, (lib, _) in libs.items()}
     rng = np.random.default_rng(0)
     for n, din in TRUNK_SHAPES:
         _, wb, bp = chip_smoke.random_trunk(torch, din, dev, seed=0)
         wt = MF.transpose_pack(wb)
+        packs = {src: wt if src in transposed else MF.stage_pack(wt) for src in runs}
         x = torch.as_tensor(rng.uniform(-1.0, 1.0, (n, din)).astype(np.float32), device=dev)
         want = MF.trunk_fwd_ref(x, wb, bp)
-        times = timed_rounds(torch, chip_smoke, runs, lambda run: run(x, wt, bp))
+        times = timed_rounds(torch, chip_smoke, runs, lambda src: runs[src](x, packs[src], bp))
         first = None
         for src, run in runs.items():
-            got, again = run(x, wt, bp), run(x, wt, bp)
+            got, again = run(x, packs[src], bp), run(x, packs[src], bp)
             first = got if first is None else first
             d = got.double() - want.double()
             e_max = float(d.abs().max()) / float(want.abs().max())
@@ -225,7 +229,9 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import chip_smoke
     from dgmesh_torch.ops import mesh_raster_kernels as MK
-    sources = [s for s in sys.argv[1:] if not s.startswith("--")]
+    named = [s for s in sys.argv[1:] if not s.startswith("--")]
+    sources = [s.removesuffix(":transposed") for s in named]
+    transposed = {s.removesuffix(":transposed") for s in named if s.endswith(":transposed")}
     print(chip_smoke.card_line(), flush=True)
     libs = build(sources, os.path.join(ROOT, "build", "variants"))
     for src, (_, lines) in libs.items():
@@ -233,7 +239,7 @@ def main() -> int:
             print(f"# {src}: {ln}")
     dev = torch.device("cuda")
     if all(hasattr(lib, "mlp_fwd_launch") for lib, _ in libs.values()):
-        return trunk_fwd_main(torch, chip_smoke, libs, dev)
+        return trunk_fwd_main(torch, chip_smoke, libs, transposed, dev)
     rows = random_rows if "--random" in sys.argv[1:] else training_rows
     a, g, gs, geo, res = rows(torch, chip_smoke, dev)
     valid = (a[..., 9] > 0.5).sum(1)
@@ -242,7 +248,7 @@ def main() -> int:
           flush=True)
     want = MK.shade_bwd_ref(a, g, gs, *geo)
     runs = {src: launcher(torch, lib, res) for src, (lib, _) in libs.items()}
-    times = timed_rounds(torch, chip_smoke, runs, lambda run: run(a, g, gs, *geo))
+    times = timed_rounds(torch, chip_smoke, runs, lambda src: runs[src](a, g, gs, *geo))
     for src in sources:
         got, again = runs[src](a, g, gs, *geo), runs[src](a, g, gs, *geo)
         e, ok, rep = chip_smoke.compare_bwd(torch, got, want, chip_smoke.SHADE_GROUPS,
