@@ -42,14 +42,20 @@
 // wrapper lays the stages out in device memory as they lie in shared memory
 // (stage_pack: each one 32 KB, contiguous, already swizzled), so one thread
 // copies a half with one bulk copy (cp.async.bulk, the TMA's plain form)
-// and no thread spends instructions on addresses.  A three-stage ring, two
-// chunks ahead: full[s] completes when both halves of a stage have landed
-// (the bulk copies' byte counts); empty[s] when both CTAs are past the
+// and no thread spends instructions on addresses.  The ring, two chunks
+// ahead: full[s] completes when both halves of a stage have landed (the
+// bulk copies' byte counts); empty[s] when both CTAs are done with the
 // chunk that last used it (each CTA's thread 0 arrives on its own and on
 // the other CTA's, after the CTA-wide barrier that also publishes the
 // epilogue's stores to wgmma).  Thread 0 waits for the other CTA and
-// refills the stage while the next chunk's wgmmas run.  Every wait is
-// bounded: a pipeline that stops traps instead of hanging the card.
+// refills the stage while the next chunk's wgmmas run.  At din <= 128 the
+// ring has four stages and each chunk's wgmmas are left running while the
+// next chunk's are issued (waited for only before an epilogue), so the
+// tensor cores do not drain at every chunk; at din > 128 X takes that
+// room: three stages, each chunk waited for.  Every wait is bounded: a
+// wait that gives up marks the CTA, which traps at its end, so that a
+// pipeline that stops ends the launch with an error instead of hanging the
+// card.
 
 #include "mlp_common.cuh"
 #include "mlp_wgmma.cuh"
@@ -61,15 +67,18 @@ using namespace mlp;
 constexpr int CLUSTER = 2;              // CTAs sharing each weight stage
 constexpr uint32_t STAGE_BYTES = wg::STAGE * sizeof(bf16);
 constexpr uint32_t HALF_BYTES = STAGE_BYTES / CLUSTER;
-constexpr int RING = wg::NSTAGE;        // stages in the ring
-constexpr int LEAD = RING - 1;          // chunks in flight ahead of the one multiplied
 
-// H, the ring, kx blocks of X, then the ring's 2·RING mbarriers; + room
-// to align the tiles to 1 KB
-constexpr size_t smem_bytes(int kx) {
-  return (size_t)(wg::TILE + RING * wg::STAGE + kx * wg::SUB) * sizeof(bf16) +
-         2 * RING * sizeof(uint64_t) + 1024;
+constexpr uint32_t MAX_POLLS = 1u << 22;   // a wait that gives up (seconds)
+
+// H, a ring of `ring` stages, kx blocks of X, then the ring's mbarriers
+// and the fault word; + room to align the tiles to 1 KB.  Four stages fit
+// beside X when kx <= 2 (din <= 128, every trunk of the model), else three.
+constexpr size_t smem_bytes(int ring, int kx) {
+  return (size_t)(wg::TILE + ring * wg::STAGE + kx * wg::SUB) * sizeof(bf16) +
+         (2 * ring + 1) * sizeof(uint64_t) + 1024;
 }
+constexpr int ring_for(int kx) { return kx <= 2 ? 4 : 3; }
+static_assert(smem_bytes(4, 2) <= 232448 && smem_bytes(3, 4) <= 232448, "shared memory");
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_addr(bar)), "r"(count)
@@ -77,18 +86,19 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
 }
 
 // Wait for the completion of bar's phase of this parity (cluster scope:
-// the other CTA's arrivals are ordered before what follows).  Traps after
-// 2^26 polls (seconds), so that a pipeline fault ends the launch.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+// the other CTA's arrivals are ordered before what follows); after
+// MAX_POLLS polls give up and set *fault.  No trap here: wgmmas run on
+// across these waits, and a trap on their path makes ptxas serialise them.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity, uint64_t* fault) {
   uint32_t done = 0;
-  for (uint32_t polls = 0; !done; ++polls) {
-    if (polls == (1u << 26)) __trap();
+  for (uint32_t polls = 0; !done && polls < MAX_POLLS; ++polls) {
     asm volatile(
         "{\n.reg .pred p;\n"
         "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
   }
+  if (!done) *reinterpret_cast<volatile uint64_t*>(fault) = 1;
 }
 
 __device__ __forceinline__ uint32_t cluster_rank() {
@@ -104,13 +114,23 @@ __device__ __forceinline__ void cluster_sync() {
                "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// The weight pipe of forward_pass: the ring shared by the cluster's two
-// CTAs, filled by bulk copies from the stage pack ws (stage_pack's layout:
-// stage m·4 + k is rows n, columns 64k.. of W[m]ᵀ, swizzled).
+// The weight pipe of forward_pass: the ring of RING stages shared by the
+// cluster's two CTAs, filled by bulk copies from the stage pack ws
+// (stage_pack's layout: stage m·4 + k is rows n, columns 64k.. of W[m]ᵀ,
+// swizzled).  With four stages one chunk's products run on into the next
+// chunk (PENDING), so a stage is freed one chunk later (LAG); either way
+// LEAD = 2 chunks are loading ahead of the one multiplied.
+template <int RING>
 struct ClusterRing {
+  static constexpr int PENDING = RING - 3;
+  static constexpr int LAG = PENDING + 1;     // chunk c frees the stage of chunk c - LAG
+  static constexpr int LEAD = RING - LAG;
+  static_assert(RING == 3 || RING == 4, "three or four stages");
+
   bf16* stages;
   uint64_t* full;               // [RING]: both halves of the stage landed
   uint64_t* empty;              // [RING]: both CTAs past the stage's chunk
+  uint64_t* fault;              // set by a wait that gave up
   const bf16* ws;
   int total, kx;
   uint32_t rank;
@@ -142,15 +162,15 @@ struct ClusterRing {
   }
 
   // Wait for chunk c and publish this thread's shared-memory writes to
-  // wgmma; then, every thread of this CTA being past chunk c - 1, thread 0
-  // frees that chunk's stage in both CTAs (its next chunk is c + LEAD).
-  // Returns chunk c's stage.
+  // wgmma; then, every thread of this CTA being done with chunk c - LAG,
+  // thread 0 frees that chunk's stage in both CTAs (its next chunk is
+  // c + LEAD).  Returns chunk c's stage.
   __device__ __forceinline__ const bf16* next(int c) const {
     const int s = c % RING;
-    mbar_wait(full + s, (c / RING) & 1);
+    mbar_wait(full + s, (c / RING) & 1, fault);
     wg::fence_proxy_async();
     __syncthreads();
-    if (threadIdx.x == 0 && c >= 1 && c + LEAD < total) {   // its stage held c - 1
+    if (threadIdx.x == 0 && c >= LAG && c + LEAD < total) {   // its stage held c - LAG
       const uint32_t bar = smem_addr(empty + (c + LEAD) % RING);
       uint32_t peer;
       asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(peer) : "r"(bar), "r"(rank ^ 1));
@@ -162,17 +182,18 @@ struct ClusterRing {
   }
 
   // While chunk c multiplies, thread 0 waits for the other CTA to free the
-  // stage of chunk c - 1 too and refills it with chunk c + LEAD, so that
+  // stage of chunk c - LAG too and refills it with chunk c + LEAD, so that
   // the wait between the two CTAs stays off the tensor cores' path.
   __device__ __forceinline__ void beside(int c) const {
     if (threadIdx.x == 0 && c + LEAD < total) {
-      if (c >= 1) mbar_wait(empty + (c + LEAD) % RING, ((c - 1) / RING) & 1);
+      if (c >= LAG) mbar_wait(empty + (c + LEAD) % RING, ((c - LAG) / RING) & 1, fault);
       issue(c + LEAD);
     }
     __syncwarp();               // warp 0 whole again for wgmma.wait_group
   }
 };
 
+template <int RING>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS, 1)
 mlp_fwd_kernel(const float* __restrict__ x, const bf16* __restrict__ ws,
                const float* __restrict__ b, float* __restrict__ out, int n, int din) {
@@ -183,14 +204,15 @@ mlp_fwd_kernel(const float* __restrict__ x, const bf16* __restrict__ ws,
   bf16* X = stages + RING * wg::STAGE;
   uint64_t* bars = reinterpret_cast<uint64_t*>(X + kx * wg::SUB);
   const int row0 = blockIdx.x * BM;
-  const ClusterRing ring{stages, bars, bars + RING, ws, wg::fwd_chunks(kx), kx,
-                         cluster_rank()};
+  const ClusterRing<RING> ring{stages, bars, bars + RING, bars + 2 * RING, ws,
+                               wg::fwd_chunks(kx), kx, cluster_rank()};
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < RING; ++s) {
       mbar_init(ring.full + s, 1);
       mbar_init(ring.empty + s, CLUSTER);
     }
+    *ring.fault = 0;
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   cluster_sync();               // the barriers exist in both CTAs before any copy
@@ -217,6 +239,7 @@ mlp_fwd_kernel(const float* __restrict__ x, const bf16* __restrict__ ws,
     }
   }, [](int, int) {});
   cluster_sync();               // no copy or arrival into a CTA that has left
+  if (*reinterpret_cast<volatile uint64_t*>(ring.fault)) __trap();
 }
 
 }  // namespace
@@ -226,16 +249,25 @@ mlp_fwd_kernel(const float* __restrict__ x, const bf16* __restrict__ ws,
 // (n,256) f32; contiguous, on the device, wpacks 16-byte aligned.  Launches
 // on `stream`, in clusters of two CTAs (a last CTA past n when the row
 // blocks are odd); returns the launch's cudaError_t.
+template <int RING>
+static int launch(const float* x, const bf16* ws, const float* b, float* out, int n, int din,
+                  int kx, cudaStream_t stream) {
+  const size_t smem = smem_bytes(RING, kx);
+  cudaError_t e = cudaFuncSetAttribute(mlp_fwd_kernel<RING>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = (n + BM - 1) / BM;
+  mlp_fwd_kernel<RING><<<(blocks + CLUSTER - 1) / CLUSTER * CLUSTER, THREADS, smem, stream>>>(
+      x, ws, b, out, n, din);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int mlp_fwd_launch(const float* x, const void* wpacks, const float* bpack,
                               float* out, int n, int din, void* stream) {
   if (n <= 0) return 0;
   if (din <= 0 || din > W) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(mlp_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem_bytes(W / KC));
-  if (e != cudaSuccess) return (int)e;
-  const int blocks = (n + BM - 1) / BM;
-  mlp_fwd_kernel<<<(blocks + CLUSTER - 1) / CLUSTER * CLUSTER, THREADS,
-                   smem_bytes((din + KC - 1) / KC), (cudaStream_t)stream>>>(
-      x, static_cast<const bf16*>(wpacks), bpack, out, n, din);
-  return (int)cudaGetLastError();
+  const int kx = (din + KC - 1) / KC;
+  const bf16* ws = static_cast<const bf16*>(wpacks);
+  return ring_for(kx) == 4 ? launch<4>(x, ws, bpack, out, n, din, kx, (cudaStream_t)stream)
+                           : launch<3>(x, ws, bpack, out, n, din, kx, (cudaStream_t)stream);
 }

@@ -112,9 +112,11 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[32][4], uint64_t da,
 // acc (this warpgroup's 64 rows x 256) = A[:, k0:k0+64]·B, or += where not
 // first: A the [128][64] block of the activation tile for this k range, B a
 // weight stage.  Issued as one batch of four k16 steps; side() runs while
-// the tensor cores work, then the batch is waited for.  side() must not
-// touch acc or write what the batch reads.
-template <typename Side>
+// the tensor cores work, then the batch is waited for, or with PENDING = 1
+// the batch before it (this one may still run: acc is not to be read until
+// a later wait for none).  side() must not touch acc or write what the
+// batch reads.
+template <int PENDING = 0, typename Side>
 __device__ __forceinline__ void mma_chunk(float (&acc)[32][4], const bf16* A, const bf16* B,
                                           bool first, Side side) {
   const uint64_t da = desc(A + (threadIdx.x >> 7) * 64 * KC), db = desc(B);
@@ -125,6 +127,12 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[32][4], const bf16* A, co
     wgmma_m64n256k16(acc, da + 2 * k, db + 2 * k, (first && k == 0) ? 0 : 1);
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
   side();
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(PENDING) : "memory");
+  fence_acc(acc);
+}
+
+// Wait for every wgmma batch of this warpgroup still running.
+__device__ __forceinline__ void mma_wait_all(float (&acc)[32][4]) {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
   fence_acc(acc);
 }
@@ -243,10 +251,12 @@ __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src) {
 }
 
 // The cp.async ring as forward_pass's weight pipe: start() issues chunks 0
-// and 1, next(c) is pipe_next, and nothing runs beside the products.  After
-// a forward pass the first two chunks past the forward's are in flight when
-// total exceeds it.
+// and 1, next(c) is pipe_next, nothing runs beside the products, and each
+// chunk's products are waited for before the next chunk (PENDING 0).
+// After a forward pass the first two chunks past the forward's are in
+// flight when total exceeds it.
 struct CpAsyncRing {
+  static constexpr int PENDING = 0;
   bf16* stages;
   const bf16* w;
   const bf16* wt;
@@ -267,29 +277,37 @@ struct CpAsyncRing {
 // come from pipe, started by the caller (pipe.start()): pipe.next(c)
 // returns forward chunk c's stage, with every shared-memory write before
 // the call visible to wgmma in every thread, and pipe.beside(c) runs while
-// chunk c multiplies.  post(layer, part) runs while chunk part
-// (< STORE_PARTS) of the next chunk group multiplies, when every thread's
-// epilogue is in H and before the next epilogue rewrites it; post(-1,
-// part) likewise in the first group, for x in X (every part only when
-// kx >= STORE_PARTS).  The last layer gets no post.
+// chunk c multiplies.  With Pipe::PENDING = 1 each chunk's products are
+// left running while the next chunk's are issued (so pipe.next(c) must not
+// reuse the stage of chunk c - 1), and are waited for at the end of each
+// chunk group.  While wgmmas run on, the pipe must not branch to a trap:
+// ptxas then serialises every wgmma (C7518).  post(layer, part) runs while
+// chunk part (< STORE_PARTS) of the next chunk group multiplies, when every
+// thread's epilogue is in H and before the next epilogue rewrites it;
+// post(-1, part) likewise in the first group, for x in X (every part only
+// when kx >= STORE_PARTS).  The last layer gets no post.
 template <typename Pipe, typename Epilogue, typename Post>
 __device__ __forceinline__ void forward_pass(float (&acc)[32][4], const bf16* X, const bf16* H,
                                              const Pipe& pipe, int kx, Epilogue epi, Post post) {
   static_assert(STORE_PARTS < KB, "the last chunk of a group is followed by its epilogue");
-  const int nf = fwd_chunks(kx);
   int done = -1;              // the layer whose post is due, or -2
-  for (int c = 0; c < nf; ++c) {
-    const bf16* st = pipe.next(c);
-    int q, k;
-    fwd_chunk(c, kx, q, k);
+  int c = 0;
+  for (int q = 0; q <= DEPTH; ++q) {          // chunk groups, in fwd_mat's order
     const int mat = fwd_mat(q);
     const bool reads_x = q == 0 || mat == DEPTH;
-    mma_chunk(acc, (reads_x ? X : H) + k * SUB, st, k == 0 && mat != DEPTH, [&] {
-      pipe.beside(c);
-      if (done > -2 && k < STORE_PARTS) post(done, k);
-    });
-    if (k == STORE_PARTS - 1) done = -2;
-    if (k == (reads_x ? kx : KB) - 1 && mat != SKIP + 1) {
+    const int nk = reads_x ? kx : KB;
+    for (int k = 0; k < nk; ++k, ++c) {
+      const bf16* st = pipe.next(c);
+      const auto side = [&] {
+        pipe.beside(c);
+        if (done > -2 && k < STORE_PARTS) post(done, k);
+      };
+      mma_chunk<Pipe::PENDING>(acc, (reads_x ? X : H) + k * SUB, st, k == 0 && mat != DEPTH,
+                               side);
+      if (k == STORE_PARTS - 1) done = -2;
+    }
+    if (Pipe::PENDING) mma_wait_all(acc);
+    if (mat != SKIP + 1) {
       done = mat == DEPTH ? SKIP + 1 : mat;
       epi(done, acc);
     }
