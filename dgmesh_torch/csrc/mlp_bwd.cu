@@ -111,7 +111,7 @@ mlp_bwd_rows(const float* __restrict__ x, const bf16* __restrict__ w, const bf16
   //    (a_7 stays in H for the first mask of the walk)
   wg::stage_x(X, x, n, din, row0, wg::KB);
   float acc[32][4];
-  const wg::CpAsyncRing ring{stages, w, wt, TOTAL, wg::KB};
+  const wg::CpAsyncRing ring{stages, w, wt, TOTAL};
   ring.start();
   wg::forward_pass(acc, X, H, ring, wg::KB, [&](int layer, float (&a)[32][4]) {
 #pragma unroll

@@ -80,6 +80,25 @@ constexpr size_t smem_bytes(int ring, int kx) {
 constexpr int ring_for(int kx) { return kx <= 2 ? 4 : 3; }
 static_assert(smem_bytes(4, 2) <= 232448 && smem_bytes(3, 4) <= 232448, "shared memory");
 
+// The forward's chunk order when only the first kx 64-column blocks of x
+// are multiplied: fwd_chunks(kx) chunks, the groups that read x, 0 (layer
+// 0) and SKIP + 2 (the skip's x-part), kx each, the others 4.  fwd_chunk
+// gives chunk c's group q (its matrix fwd_mat(q)) and its block k within
+// the group, in the order of forward_pass's loops.
+__host__ __device__ constexpr int fwd_chunks(int kx) { return CHUNKS - 2 * (wg::KB - kx); }
+__device__ __forceinline__ void fwd_chunk(int c, int kx, int& q, int& k) {
+  const int a = c - kx, b = a - (SKIP + 1) * wg::KB, d = b - kx;
+  if (a < 0) {
+    q = 0, k = c;
+  } else if (b < 0) {
+    q = 1 + a / wg::KB, k = a % wg::KB;
+  } else if (d < 0) {
+    q = SKIP + 2, k = b;
+  } else {
+    q = SKIP + 3 + d / wg::KB, k = d % wg::KB;
+  }
+}
+
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_addr(bar)), "r"(count)
                : "memory");
@@ -140,7 +159,7 @@ struct ClusterRing {
   // armed for the stage's two halves.
   __device__ __forceinline__ void issue(int c) const {
     int q, k;
-    wg::fwd_chunk(c, kx, q, k);
+    fwd_chunk(c, kx, q, k);
     const int s = c % RING;
     const char* src = reinterpret_cast<const char*>(ws + (size_t)(fwd_mat(q) * wg::KB + k) *
                                                              wg::STAGE) + rank * HALF_BYTES;
@@ -173,7 +192,8 @@ struct ClusterRing {
     if (threadIdx.x == 0 && c >= LAG && c + LEAD < total) {   // its stage held c - LAG
       const uint32_t bar = smem_addr(empty + (c + LEAD) % RING);
       uint32_t peer;
-      asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(peer) : "r"(bar), "r"(rank ^ 1));
+      asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+                   : "=r"(peer) : "r"(bar), "r"(rank ^ 1));
       asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
       asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
                    :: "r"(peer) : "memory");
@@ -205,7 +225,7 @@ mlp_fwd_kernel(const float* __restrict__ x, const bf16* __restrict__ ws,
   uint64_t* bars = reinterpret_cast<uint64_t*>(X + kx * wg::SUB);
   const int row0 = blockIdx.x * BM;
   const ClusterRing<RING> ring{stages, bars, bars + RING, bars + 2 * RING, ws,
-                               wg::fwd_chunks(kx), kx, cluster_rank()};
+                               fwd_chunks(kx), kx, cluster_rank()};
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < RING; ++s) {
@@ -244,11 +264,6 @@ mlp_fwd_kernel(const float* __restrict__ x, const bf16* __restrict__ ws,
 
 }  // namespace
 
-// x (n,din) f32, wpacks (36,256,64) bf16 (stage_pack: the forward's
-// weight stages as they lie in shared memory), bpack (8,256) f32 → out
-// (n,256) f32; contiguous, on the device, wpacks 16-byte aligned.  Launches
-// on `stream`, in clusters of two CTAs (a last CTA past n when the row
-// blocks are odd); returns the launch's cudaError_t.
 template <int RING>
 static int launch(const float* x, const bf16* ws, const float* b, float* out, int n, int din,
                   int kx, cudaStream_t stream) {
@@ -262,6 +277,11 @@ static int launch(const float* x, const bf16* ws, const float* b, float* out, in
   return (int)cudaGetLastError();
 }
 
+// x (n,din) f32, wpacks (36,256,64) bf16 (stage_pack: the forward's
+// weight stages as they lie in shared memory), bpack (8,256) f32 → out
+// (n,256) f32; contiguous, on the device, wpacks 16-byte aligned.  Launches
+// on `stream`, in clusters of two CTAs (a last CTA past n when the row
+// blocks are odd); returns the launch's cudaError_t.
 extern "C" int mlp_fwd_launch(const float* x, const void* wpacks, const float* bpack,
                               float* out, int n, int din, void* stream) {
   if (n <= 0) return 0;

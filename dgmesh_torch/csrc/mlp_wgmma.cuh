@@ -141,39 +141,12 @@ __device__ __forceinline__ void mma_wait_all(float (&acc)[32][4]) {
 // walk: 7..0 (layer 5's h-part), then the skip's x-part (for dx).
 __device__ __forceinline__ int bwd_mat(int q) { return q < DEPTH ? DEPTH - 1 - q : DEPTH; }
 
-// A forward pass that multiplies only the first kx 64-column blocks of x
-// (the others are zero: din <= 64·kx) has fwd_chunks(kx) chunks: the groups
-// that read x, 0 (layer 0) and SKIP + 2 (the skip's x-part), kx each, the
-// others KB.  fwd_chunk gives chunk c's group q (its matrix fwd_mat(q)) and
-// its block k within the group.  With kx = KB: q = c / 4, k = c % 4.
-__device__ __forceinline__ int fwd_chunks(int kx) { return CHUNKS - 2 * (KB - kx); }
-__device__ __forceinline__ void fwd_chunk(int c, int kx, int& q, int& k) {
-  const int a = c - kx, b = a - (SKIP + 1) * KB, d = b - kx;
-  if (a < 0) {
-    q = 0, k = c;
-  } else if (b < 0) {
-    q = 1 + a / KB, k = a % KB;
-  } else if (d < 0) {
-    q = SKIP + 2, k = b;
-  } else {
-    q = SKIP + 3 + d / KB, k = d % KB;
-  }
-}
-
-// Start the cp.async copies of chunk c into stage st: c < fwd_chunks(kx) is
-// forward chunk c (columns k0.. of the transposed matrix), the chunks after
-// it those of the backward (columns n0.. of the matrix itself).
-__device__ __forceinline__ void load_stage(bf16* st, const bf16* w, const bf16* wt, int c,
-                                           int kx) {
-  const int nf = fwd_chunks(kx);
-  const bf16* src;
-  if (c < nf) {
-    int q, k;
-    fwd_chunk(c, kx, q, k);
-    src = wt + (size_t)fwd_mat(q) * W * W + k * KC;
-  } else {
-    src = w + (size_t)bwd_mat((c - nf) / KB) * W * W + ((c - nf) % KB) * KC;
-  }
+// Start the cp.async copies of chunk c into stage st: c < CHUNKS is forward
+// chunk c (columns k0.. of the transposed matrix), c >= CHUNKS backward
+// chunk c - CHUNKS (columns n0.. of the matrix itself).
+__device__ __forceinline__ void load_stage(bf16* st, const bf16* w, const bf16* wt, int c) {
+  const bf16* src = (c < CHUNKS ? wt + (size_t)fwd_mat(c >> 2) * W * W
+                                : w + (size_t)bwd_mat((c - CHUNKS) >> 2) * W * W) + (c & 3) * KC;
   for (int i = threadIdx.x; i < W * (KC / 8); i += THREADS) {
     const int r = i >> 3, p = i & 7;
     cp_async16(st + r * KC + (((p ^ r) & 7) << 3), src + (size_t)r * W + p * 8);
@@ -181,12 +154,11 @@ __device__ __forceinline__ void load_stage(bf16* st, const bf16* w, const bf16* 
 }
 
 // The ring: chunk c lives in stage c % NSTAGE and is its own cp.async group,
-// issued two chunks ahead, in the order of a pass with kx blocks of x
-// (load_stage).  pipe_start issues chunks 0 and 1.
-__device__ __forceinline__ void pipe_start(bf16* stages, const bf16* w, const bf16* wt, int kx) {
-  load_stage(stages, w, wt, 0, kx);
+// issued two chunks ahead.  pipe_start issues chunks 0 and 1.
+__device__ __forceinline__ void pipe_start(bf16* stages, const bf16* w, const bf16* wt) {
+  load_stage(stages, w, wt, 0);
   cp_async_commit();
-  load_stage(stages + STAGE, w, wt, 1, kx);
+  load_stage(stages + STAGE, w, wt, 1);
   cp_async_commit();
 }
 
@@ -194,11 +166,11 @@ __device__ __forceinline__ void pipe_start(bf16* stages, const bf16* w, const bf
 // call) visible to wgmma in every thread; then, every warpgroup being past
 // chunk c - 1, refill its stage with chunk c + 2.  Returns chunk c's stage.
 __device__ __forceinline__ const bf16* pipe_next(bf16* stages, const bf16* w, const bf16* wt,
-                                                 int c, int total, int kx = KB) {
+                                                 int c, int total) {
   cp_async_wait1();
   fence_proxy_async();
   __syncthreads();
-  if (c + 2 < total) load_stage(stages + ((c + 2) % NSTAGE) * STAGE, w, wt, c + 2, kx);
+  if (c + 2 < total) load_stage(stages + ((c + 2) % NSTAGE) * STAGE, w, wt, c + 2);
   cp_async_commit();
   return stages + (c % NSTAGE) * STAGE;
 }
@@ -260,10 +232,10 @@ struct CpAsyncRing {
   bf16* stages;
   const bf16* w;
   const bf16* wt;
-  int total, kx;
-  __device__ __forceinline__ void start() const { pipe_start(stages, w, wt, kx); }
+  int total;
+  __device__ __forceinline__ void start() const { pipe_start(stages, w, wt); }
   __device__ __forceinline__ const bf16* next(int c) const {
-    return pipe_next(stages, w, wt, c, total, kx);
+    return pipe_next(stages, w, wt, c, total);
   }
   __device__ __forceinline__ void beside(int) const {}
 };
