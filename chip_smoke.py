@@ -1100,7 +1100,7 @@ def main() -> int:
     log_stages(stages, total, " fused", ("trunk_fwd", "trunk_bwd"))
     summary["fused"] = (med, peak, stages)
     rows = []
-    for x, wb, bp, g in calls["trunk_bwd_kernel"]:
+    for x, wb, bp, g, *_ in calls["trunk_bwd_kernel"]:     # and the transposed pack
         x, g = x.detach(), g.detach()
         gmax = float(g.abs().max())
         # like kernels 2 and 4, each cotangent is scaled to a largest |value| of 1
