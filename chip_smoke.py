@@ -162,10 +162,11 @@ MLP_DIN = 93                    # blender nets: 63 position + 30 timenet lanes
 # the second warpgroup of the only CTA with no row; 65 and 129 rows a ragged
 # last CTA; din 1 and 256 the narrowest and the widest input; din 64, 65,
 # 128, 129 and 192 either side of the 64-lane blocks of x that kernel 5
-# multiplies (ceil(din/64) of them)
+# multiplies (ceil(din/64) of them), last so that the shapes before them
+# keep their random rows
 MLP_EDGE_SHAPES = ((1, 93), (37, 93), (64, 93), (65, 93), (129, 93), (131_072 + 37, 93),
-                   (129, 1), (129, 64), (129, 65), (129, 128), (129, 129), (129, 192),
-                   (129, 256))
+                   (129, 1), (129, 256), (129, 64), (129, 65), (129, 128), (129, 129),
+                   (129, 192))
 TRUNKS = 6    # fused trunks per step: deform, deform_normal, the two cycle nets,
               # deform_back and appearance on the mesh vertices
 # The small card-vs-CPU step in the fused configuration.  Card and CPU sum
