@@ -109,11 +109,9 @@ mlp_bwd_rows(const float* __restrict__ x, const bf16* __restrict__ w, const bf16
 
   // 1. the forward, keeping x and the activations a_0..a_6 in the workspace
   //    (a_7 stays in H for the first mask of the walk)
-  wg::stage_x(X, x, n, din, row0, wg::KB);
+  wg::stage_x(X, x, n, din, row0);
   float acc[32][4];
-  const wg::CpAsyncRing ring{stages, w, wt, TOTAL};
-  ring.start();
-  wg::forward_pass(acc, X, H, ring, wg::KB, [&](int layer, float (&a)[32][4]) {
+  wg::forward_pass(acc, X, H, stages, w, wt, TOTAL, [&](int layer, float (&a)[32][4]) {
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
       const int col = wg::acc_col(j);

@@ -84,7 +84,7 @@ static_assert(smem_bytes(4, 2) <= 232448 && smem_bytes(3, 4) <= 232448, "shared 
 // are multiplied: fwd_chunks(kx) chunks, the groups that read x, 0 (layer
 // 0) and SKIP + 2 (the skip's x-part), kx each, the others 4.  fwd_chunk
 // gives chunk c's group q (its matrix fwd_mat(q)) and its block k within
-// the group, in the order of forward_pass's loops.
+// the group, in the order of the kernel's loops.
 __host__ __device__ constexpr int fwd_chunks(int kx) { return CHUNKS - 2 * (wg::KB - kx); }
 __device__ __forceinline__ void fwd_chunk(int c, int kx, int& q, int& k) {
   const int a = c - kx, b = a - (SKIP + 1) * wg::KB, d = b - kx;
@@ -133,7 +133,7 @@ __device__ __forceinline__ void cluster_sync() {
                "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// The weight pipe of forward_pass: the ring of RING stages shared by the
+// The kernel's weight pipe: the ring of RING stages shared by the
 // cluster's two CTAs, filled by bulk copies from the stage pack ws
 // (stage_pack's layout: stage m·4 + k is rows n, columns 64k.. of W[m]ᵀ,
 // swizzled).  With four stages one chunk's products run on into the next
@@ -238,8 +238,12 @@ mlp_fwd_kernel(const float* __restrict__ x, const bf16* __restrict__ ws,
   cluster_sync();               // the barriers exist in both CTAs before any copy
   ring.start();
   wg::stage_x(X, x, n, din, row0, kx);
+
+  // relu(acc + b) of this thread's elements, rounded to bf16: into H (each
+  // warpgroup reads and writes only its own rows of it), or after the last
+  // layer as float32 rows < n of out
   float acc[32][4];
-  wg::forward_pass(acc, X, H, ring, kx, [&](int layer, float (&a)[32][4]) {
+  const auto epilogue = [&](int layer) {
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
       const int col = wg::acc_col(j);
@@ -247,8 +251,8 @@ mlp_fwd_kernel(const float* __restrict__ x, const bf16* __restrict__ ws,
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int row = wg::acc_row(half);
-        const bf162 h = __floats2bfloat162_rn(fmaxf(a[j][2 * half] + b0, 0.f),
-                                              fmaxf(a[j][2 * half + 1] + b1, 0.f));
+        const bf162 h = __floats2bfloat162_rn(fmaxf(acc[j][2 * half] + b0, 0.f),
+                                              fmaxf(acc[j][2 * half + 1] + b1, 0.f));
         if (layer < DEPTH - 1) {
           *reinterpret_cast<bf162*>(H + wg::tile_at(row, col)) = h;
         } else if (row0 + row < n) {
@@ -257,7 +261,25 @@ mlp_fwd_kernel(const float* __restrict__ x, const bf16* __restrict__ ws,
         }
       }
     }
-  }, [](int, int) {});
+  };
+  // each layer: acc = h·W (+ x·W_x at layer SKIP + 1), x's products over its
+  // kx blocks only; with PENDING a chunk's wgmmas run on while the next
+  // chunk's are issued, and drain at the end of each chunk group, outside
+  // any branch
+  constexpr int PENDING = ClusterRing<RING>::PENDING;
+  int c = 0;
+  for (int q = 0; q <= DEPTH; ++q) {            // chunk groups, in fwd_mat's order
+    const int mat = fwd_mat(q);
+    const bool reads_x = q == 0 || mat == DEPTH;
+    const int nk = reads_x ? kx : wg::KB;
+    for (int k = 0; k < nk; ++k, ++c) {
+      const bf16* st = ring.next(c);
+      wg::mma_chunk<PENDING>(acc, (reads_x ? X : H) + k * wg::SUB, st, k == 0 && mat != DEPTH,
+                             [&] { ring.beside(c); });
+    }
+    if (PENDING) wg::mma_wait_all(acc);
+    if (mat != SKIP + 1) epilogue(mat == DEPTH ? SKIP + 1 : mat);
+  }
   cluster_sync();               // no copy or arrival into a CTA that has left
   if (*reinterpret_cast<volatile uint64_t*>(ring.fault)) __trap();
 }

@@ -4,7 +4,8 @@
 // from device memory, the shared-memory matrix descriptors, wgmma
 // m64n256k16 (bf16 operands, float32 accumulators), the fences between the
 // generic and the async proxy, a three-stage cp.async weight pipeline, and
-// the forward pass over one block of rows.
+// the backward's forward pass over one block of rows (kernel 5 runs its own
+// loop, on a ring shared by a cluster: mlp_fwd.cu).
 //
 // Tiles.  A CTA of 256 threads (two warpgroups) owns BM = 128 rows; each
 // warpgroup owns 64 of them and all 256 output columns, its accumulator
@@ -180,9 +181,9 @@ __device__ __forceinline__ const bf16* pipe_next(bf16* stages, const bf16* w, co
 // one 8-column granule a step, its eight loads independent, one 16-byte
 // store.
 __device__ __forceinline__ void stage_x(bf16* X, const float* __restrict__ x, int n, int din,
-                                        int row0, int kx) {
-  const int granules = kx * (KC / 8);   // a row's
-  for (int i = threadIdx.x; i < BM * granules; i += THREADS) {
+                                        int row0, int kx = KB) {
+  const unsigned granules = kx * (KC / 8);   // a row's
+  for (unsigned i = threadIdx.x; i < BM * granules; i += THREADS) {
     const int r = i / granules, p = i % granules, row = row0 + r;
     uint32_t u[4];
 #pragma unroll
@@ -222,64 +223,32 @@ __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src) {
   }
 }
 
-// The cp.async ring as forward_pass's weight pipe: start() issues chunks 0
-// and 1, next(c) is pipe_next, nothing runs beside the products, and each
-// chunk's products are waited for before the next chunk (PENDING 0).
-// After a forward pass the first two chunks past the forward's are in
-// flight when total exceeds it.
-struct CpAsyncRing {
-  static constexpr int PENDING = 0;
-  bf16* stages;
-  const bf16* w;
-  const bf16* wt;
-  int total;
-  __device__ __forceinline__ void start() const { pipe_start(stages, w, wt); }
-  __device__ __forceinline__ const bf16* next(int c) const {
-    return pipe_next(stages, w, wt, c, total);
-  }
-  __device__ __forceinline__ void beside(int) const {}
-};
-
-// The forward pass over the CTA's rows (x already written to the first kx
-// blocks of X, not yet fenced; din <= 64·kx): for each layer, acc = h·W
-// (+ x·W_x at layer SKIP + 1) in float32, x's products over its kx blocks
-// only, then epi(layer, acc) rounds relu(acc + b) to bf16 and stores this
-// thread's elements (into H: each warpgroup reads and writes only its own
-// rows of it, so the epilogue needs no barrier before it).  The weights
-// come from pipe, started by the caller (pipe.start()): pipe.next(c)
-// returns forward chunk c's stage, with every shared-memory write before
-// the call visible to wgmma in every thread, and pipe.beside(c) runs while
-// chunk c multiplies.  With Pipe::PENDING = 1 each chunk's products are
-// left running while the next chunk's are issued (so pipe.next(c) must not
-// reuse the stage of chunk c - 1), and are waited for at the end of each
-// chunk group.  While wgmmas run on, the pipe must not branch to a trap:
-// ptxas then serialises every wgmma (C7518).  post(layer, part) runs while
-// chunk part (< STORE_PARTS) of the next chunk group multiplies, when every
-// thread's epilogue is in H and before the next epilogue rewrites it;
-// post(-1, part) likewise in the first group, for x in X (every part only
-// when kx >= STORE_PARTS).  The last layer gets no post.
-template <typename Pipe, typename Epilogue, typename Post>
+// The forward pass over the CTA's rows (x already written to X, not yet
+// fenced): for each layer, acc = h·W (+ x·W_x at layer SKIP + 1) in
+// float32, then epi(layer, acc) rounds relu(acc + b) to bf16 and stores
+// this thread's elements (into H: each warpgroup reads and writes only its
+// own rows of it, so the epilogue needs no barrier before it).
+// post(layer, part) runs while chunk part (< STORE_PARTS) of the next
+// chunk group multiplies, when every thread's epilogue is in H and before
+// the next epilogue rewrites it; post(-1, part) likewise in the first
+// group, for x in X.  The last layer gets no post.  On return chunks
+// CHUNKS and CHUNKS + 1 are in flight when total > CHUNKS + 1.
+template <typename Epilogue, typename Post>
 __device__ __forceinline__ void forward_pass(float (&acc)[32][4], const bf16* X, const bf16* H,
-                                             const Pipe& pipe, int kx, Epilogue epi, Post post) {
-  static_assert(STORE_PARTS < KB, "the last chunk of a group is followed by its epilogue");
+                                             bf16* stages, const bf16* w, const bf16* wt,
+                                             int total, Epilogue epi, Post post) {
+  static_assert(STORE_PARTS < W / KC, "the last chunk of a group is followed by its epilogue");
+  pipe_start(stages, w, wt);
   int done = -1;              // the layer whose post is due, or -2
-  int c = 0;
-  for (int q = 0; q <= DEPTH; ++q) {          // chunk groups, in fwd_mat's order
-    const int mat = fwd_mat(q);
-    const bool reads_x = q == 0 || mat == DEPTH;
-    const int nk = reads_x ? kx : KB;
-    for (int k = 0; k < nk; ++k, ++c) {
-      const bf16* st = pipe.next(c);
-      const auto side = [&] {
-        pipe.beside(c);
-        if (done > -2 && k < STORE_PARTS) post(done, k);
-      };
-      mma_chunk<Pipe::PENDING>(acc, (reads_x ? X : H) + k * SUB, st, k == 0 && mat != DEPTH,
-                               side);
-      if (k == STORE_PARTS - 1) done = -2;
-    }
-    if (Pipe::PENDING) mma_wait_all(acc);
-    if (mat != SKIP + 1) {
+  for (int c = 0; c < CHUNKS; ++c) {
+    const bf16* st = pipe_next(stages, w, wt, c, total);
+    const int q = c >> 2, mat = fwd_mat(q);
+    mma_chunk(acc, ((q == 0 || mat == DEPTH) ? X : H) + (c & 3) * SUB, st,
+              (c & 3) == 0 && mat != DEPTH, [&] {
+                if (done > -2 && (c & 3) < STORE_PARTS) post(done, c & 3);
+              });
+    if ((c & 3) == STORE_PARTS - 1) done = -2;
+    if ((c & 3) == 3 && mat != SKIP + 1) {
       done = mat == DEPTH ? SKIP + 1 : mat;
       epi(done, acc);
     }
