@@ -15,8 +15,10 @@ Phases; any failure exits non-zero and prints no result:
                 the edge cases (invalid rows, alpha-clamped rows, slivers
                 below AREA_MIN, back faces, exact z ties; for the backward
                 kernels random cotangents, and built ties where the shade
-                backward splits gradients in half; the shade backward also
-                at SHADE_EDGE_SHAPES); the fused trunk
+                backward splits gradients in half; the splat backward with
+                and without kernel 1's residuals, launched twice for
+                identical bits, and at COMPOSITE_EDGE_SHAPES; the shade
+                backward also at SHADE_EDGE_SHAPES); the fused trunk
                 (kernels 5 and 6) at 131,072 and 479,966 (ragged) rows,
                 each launched twice there for identical bits and kernel
                 6's two passes timed apart, then at the shapes their
@@ -39,8 +41,10 @@ Phases; any failure exits non-zero and prints no result:
                 two steps with forward / backward / optimizer timed, and the
                 backward kernels held against their twins on the rows and
                 cotangents they got inside the step (each cotangent scaled
-                to a largest |value| of 1), the shade backward launched
-                twice there for identical bits; all four kernels timed, each
+                to a largest |value| of 1), the splat backward through kernel
+                1's residuals as the step calls it, both backward kernels
+                launched twice there for identical bits; all four kernels
+                timed, each
                 beside the bound of the work its function needs on these
                 rows;
      5f: the same in the fused configuration (tpu.mlp_bf16 and
@@ -96,12 +100,14 @@ COMPOSITE_TEST_OPS = 16     # every valid row: power, exp, clamp, the tests
 COMPOSITE_ACCUM_OPS = 11    # rows that pass the tests: log1p, exp, rgb sums
 SHADE_OPS = 118             # every valid row: edges, barycentrics, z, soft
 # The backward functions: the forward's recompute once (the counts above),
-# then partials and their tile sums only where they are not zero; not the
-# second walk over the rows that the kernels' design adds:
-COMPOSITE_BWD_PASS_OPS = 20   # pairs that pass the alpha tests: log1p, the
-                              # transmittance, w, u, the suffix sum, d rgb + 3 sums
-COMPOSITE_BWD_LIVE_OPS = 34   # of these, pairs below the 0.99 clamp: d alpha,
-                              # d power, the six partials + 6 sums
+# then partials and their tile sums only where they are not zero:
+COMPOSITE_BWD_PASS_OPS = 18   # pairs that pass the alpha tests: log1p, the
+                              # transmittance, w, u, u w and its running sum,
+                              # d rgb + 3 sums
+COMPOSITE_BWD_LIVE_OPS = 31   # of these, pairs below the 0.99 clamp: the
+                              # suffix, d alpha, d power, the six partials + 6 sums
+COMPOSITE_BWD_PIXEL_OPS = 6   # every pixel, given the forward's residuals:
+                              # T_fin = exp(S) and the total g_rgb . rgb
 SHADE_BWD_SOFT_OPS = 159      # pairs with a non-zero soft gradient: picks, the
                               # gates, three edges' clip weights and partials + 6 sums
 SHADE_BWD_RGB_OPS = 117       # pixels with a winner and a non-zero g_rgb: the
@@ -299,6 +305,54 @@ def shade_edge_attrs(rng, case, K, T, tiles_x, tile):
     return a
 
 
+# kernel 2's special shapes, (case, K) over COMPOSITE_EDGE_TILES tiles of
+# 16x16 (CPU tests hold the twin to JAX at the same shapes): one row; a
+# ragged K; a tile with no valid row beside a tile with some; every row
+# valid; valid rows interleaved with invalid ones (the first invalid, so the
+# valid rows are no prefix); rows whose o e^power is exactly 0.99 at a pixel
+# (alpha at its clamp: d alpha gated off there); opaque rows stacked on the
+# tile's centre until T falls to 0 there
+COMPOSITE_EDGE_SHAPES = (("one row", 1), ("37 rows", 37), ("all invalid", 40),
+                         ("all valid", 48), ("interleaved", 48), ("at the clamp", 32),
+                         ("T to 0", 64))
+COMPOSITE_EDGE_TILES = 2
+
+
+def composite_edge_attrs(rng, case, K, T, tiles_x, tile):
+    """random_composite_attrs's rows recut into one of COMPOSITE_EDGE_SHAPES's
+    cases."""
+    a = random_composite_attrs(rng, T, K, tiles_x, tile)
+    t = np.arange(T)
+    ox = ((t % tiles_x) * tile)[:, None].astype(np.float32)
+    oy = ((t // tiles_x) * tile)[:, None].astype(np.float32)
+    if case in ("one row", "all valid"):
+        a[..., 9] = 1.0
+    elif case == "all invalid":
+        a[0, :, 9] = 0.0
+    elif case == "interleaved":
+        a[:, 0::2, 9] = 0.0
+        a[:, 1::2, 9] = 1.0
+    elif case == "at the clamp":
+        # every fourth row on a pixel centre (power exactly -0 there) with
+        # opacity 0.99 in float32: o e^power is exactly ALPHA_MAX
+        n = len(range(0, K, 4))
+        a[:, 0::4, 0] = ox + rng.integers(0, tile, (T, n))
+        a[:, 0::4, 1] = oy + rng.integers(0, tile, (T, n))
+        a[:, 0::4, 5] = np.float32(0.99)
+        a[:, 0::4, 9] = 1.0
+    elif case == "T to 0":
+        # the first half of the rows broad, opaque (0.98, below the clamp)
+        # and centred on the tile: 32 of them take T below float32's range
+        h = K // 2
+        a[:, :h, 0] = ox + tile / 2
+        a[:, :h, 1] = oy + tile / 2
+        a[:, :h, 2] = a[:, :h, 4] = 0.005
+        a[:, :h, 3] = 0.0
+        a[:, :h, 5] = 0.98
+        a[:, :h, 9] = 1.0
+    return a
+
+
 def random_trunk(torch, din, device, seed):
     """A flax-initialised 8x256 trunk (lecun-normal kernels) with seeded
     N(0, 0.05) biases in place of flax's zeros, so the bias add is
@@ -385,6 +439,30 @@ def compare_bwd(torch, got, want, groups, zero_lanes, invalid):
         ok = ok and err <= tol
     ok = ok and not bool(got[..., zero_lanes].any()) and not bool(got[invalid].any())
     return max(e for e, _ in rep.values()), ok, rep
+
+
+def check_composite_bwd(torch, SK, attrs, g, ga, geo, what, errs, failures, res=None):
+    """Kernel 2 against its twin, without the forward's residuals and with
+    them (kernel 1's, or ``res``: rgb and S), each twin given the same; with
+    them launched twice: the same bits."""
+    res = res if res is not None else SK.composite_tiles(attrs, *geo, residuals=True)[0::2]
+    invalid = attrs[..., 9] < 0.5
+    got = SK.composite_bwd(attrs, g, ga, *geo)
+    e, ok, rep = compare_bwd(torch, got, SK.composite_bwd_ref(attrs, g, ga, *geo),
+                             COMPOSITE_GROUPS, ZERO_LANES["composite"], invalid)
+    got = SK.composite_bwd(attrs, g, ga, *geo, *res)
+    same = bool(torch.equal(SK.composite_bwd(attrs, g, ga, *geo, *res), got))
+    e_r, ok_r, rep_r = compare_bwd(
+        torch, got, SK.composite_bwd_ref(attrs, g, ga, *geo, rgb=res[0], S=res[1]),
+        COMPOSITE_GROUPS, ZERO_LANES["composite"], invalid)
+    errs["composite_bwd"] += [e, e_r]
+    log(f"# kernels/{what} {tuple(attrs.shape)} "
+        + ", ".join(f"{k} {v[0]:.3g} (tol {v[1]:.3g})" for k, v in rep.items())
+        + f" {'ok' if ok else 'FAIL'}; with kernel 1's residuals "
+        + ", ".join(f"{k} {v[0]:.3g} (tol {v[1]:.3g})" for k, v in rep_r.items())
+        + f" {'ok' if ok_r else 'FAIL'}, twice {'identical' if same else 'DIFFERENT'}")
+    if not (ok and ok_r and same):
+        failures.append(f"composite_bwd vs twin ({what})")
 
 
 def check_shade_bwd(torch, MK, attrs, g, gs, geo, what, errs, failures, res=None):
@@ -494,12 +572,20 @@ def max_err(a, b):
 
 
 def compare_composite(torch, SK, attrs, geo):
+    """Kernel 1 against its twin; and with its residual S against without:
+    rgb and alpha the same bits, S within TOL_COMPOSITE of the twin's
+    relative to max(1, |S|).  Returns (max abs err of rgb and alpha, ok,
+    residual ok)."""
     got = SK.composite_tiles(attrs, *geo)
-    want = SK.composite_tiles_ref(attrs, *geo)
+    res = SK.composite_tiles(attrs, *geo, residuals=True)
+    want = SK.composite_tiles_ref(attrs, *geo, residuals=True)
     torch.cuda.synchronize()
-    err = max_err(got, want)
+    err = max_err(got, want[:2])
     ok = all(bool(torch.isfinite(x).all()) for x in got) and err <= TOL_COMPOSITE
-    return err, ok
+    s_tol = TOL_COMPOSITE * want[2].abs().clamp_min(1.0)
+    res_ok = (all(bool(torch.equal(x, y)) for x, y in zip(got, res[:2]))
+              and bool(((res[2] - want[2]).abs() <= s_tol).all()))
+    return err, ok, res_ok
 
 
 def compare_shade(torch, MK, attrs, geo, sigma):
@@ -723,12 +809,15 @@ def main() -> int:
     errs = {"composite_tiles": [], "shade_tiles": []}
     a1 = torch.as_tensor(random_composite_attrs(rng, sc.num_tiles, sc.max_per_tile,
                                                 sc.tiles_x, sc.tile_w), device=dev)
-    e, ok = compare_composite(torch, SK, a1, geo_s)
+    e, ok, res_ok = compare_composite(torch, SK, a1, geo_s)
     errs["composite_tiles"].append(e)
     log(f"# kernels/random: composite_tiles {tuple(a1.shape)} max_abs_err {e:.3g} "
-        f"(tol {TOL_COMPOSITE}) {'ok' if ok else 'FAIL'}")
+        f"(tol {TOL_COMPOSITE}) {'ok' if ok else 'FAIL'}; with residuals: "
+        f"{'the same outputs, S ok' if res_ok else 'FAIL'}")
     if not ok:
         failures.append("composite_tiles vs twin (random)")
+    if not res_ok:
+        failures.append("composite_tiles residuals (random)")
     a2 = torch.as_tensor(random_shade_attrs(rng, mc.num_tiles, mc.max_per_tile,
                                             mc.tiles_x, mc.tile_w), device=dev)
     e, ok, nf, res_ok = compare_shade(torch, MK, a2, geo_m, mc.sigma)
@@ -743,15 +832,15 @@ def main() -> int:
     P = sc.tile_h * sc.tile_w
     errs["composite_bwd"], errs["shade_bwd"] = [], []
     g1, g2 = (torch.as_tensor(x, device=dev) for x in cotangents(rng, sc.num_tiles, P))
-    e, ok, rep = compare_bwd(torch, SK.composite_bwd(a1, g1, g2, *geo_s),
-                             SK.composite_bwd_ref(a1, g1, g2, *geo_s),
-                             COMPOSITE_GROUPS, ZERO_LANES["composite"], a1[..., 9] < 0.5)
-    errs["composite_bwd"].append(e)
-    log(f"# kernels/random: composite_bwd {tuple(a1.shape)} "
-        + ", ".join(f"{k} {v[0]:.3g} (tol {v[1]:.3g})" for k, v in rep.items())
-        + f" {'ok' if ok else 'FAIL'}")
-    if not ok:
-        failures.append("composite_bwd vs twin (random)")
+    check_composite_bwd(torch, SK, a1, g1, g2, geo_s, "random: composite_bwd", errs, failures)
+    # ... and at the shapes that are special to its compaction, gates and sums
+    for case, K in COMPOSITE_EDGE_SHAPES:
+        nt = COMPOSITE_EDGE_TILES
+        erng = np.random.default_rng(K)   # the CPU test's rows
+        ae = torch.as_tensor(composite_edge_attrs(erng, case, K, nt, 2, sc.tile_w), device=dev)
+        ge, gae = (torch.as_tensor(x, device=dev) for x in cotangents(erng, nt, P))
+        check_composite_bwd(torch, SK, ae, ge, gae, (2, sc.tile_h, sc.tile_w),
+                            f"edge: composite_bwd {case}", errs, failures)
     a3 = torch.as_tensor(shade_tie_attrs(rng, mc.num_tiles, mc.max_per_tile,
                                          mc.tiles_x, mc.tile_w), device=dev)
     g3, g4 = (torch.as_tensor(x, device=dev) for x in cotangents(rng, mc.num_tiles, P))
@@ -816,7 +905,10 @@ def main() -> int:
             failures.append(f"trunk kernels vs twins (edge shape {n}x{din})")
         del x, g
     if KERNELS_ONLY:
+        r1 = SK.composite_tiles(a1, *geo_s, residuals=True)[0::2]
         for name, fk in (("composite_bwd", lambda: SK.composite_bwd(a1, g1, g2, *geo_s)),
+                         ("composite_bwd with residuals",
+                          lambda: SK.composite_bwd(a1, g1, g2, *geo_s, *r1)),
                          ("shade_bwd", lambda: MK.shade_bwd(a3, g3, g4, *geo_m, mc.sigma))):
             log(f"# timing/random {name}: {time_cuda(torch, fk, 5):.4f} ms/launch")
         if failures:
@@ -915,12 +1007,15 @@ def main() -> int:
     ra1, ra2 = args["composite_kernel"][0], args["shade_kernel"][0]
     if args["composite_kernel"][1:] != geo_s or args["shade_kernel"][1:] != geo_m + (mc.sigma,):
         failures.append("kernels called with another geometry than the config's")
-    e, ok = compare_composite(torch, SK, ra1, geo_s)
+    e, ok, res_ok = compare_composite(torch, SK, ra1, geo_s)
     errs["composite_tiles"].append(e)
     log(f"# kernels/view0: composite_tiles {tuple(ra1.shape)} max_abs_err {e:.3g} "
-        f"{'ok' if ok else 'FAIL'}")
+        f"{'ok' if ok else 'FAIL'}; with residuals: "
+        f"{'the same outputs, S ok' if res_ok else 'FAIL'}")
     if not ok:
         failures.append("composite_tiles vs twin (view 0)")
+    if not res_ok:
+        failures.append("composite_tiles residuals (view 0)")
     e, ok, nf, res_ok = compare_shade(torch, MK, ra2, geo_m, mc.sigma)
     errs["shade_tiles"].append(e)
     log(f"# kernels/view0: shade_tiles {tuple(ra2.shape)} max_abs_err {e:.3g} "
@@ -1002,6 +1097,7 @@ def main() -> int:
     # of 1 (zeros stay zeros) before the kernels and the twins see them
     ca = args["composite_bwd_kernel"][0].detach()
     sa = args["shade_bwd_kernel"][0].detach()
+    c_res = tuple(x.detach() for x in args["composite_bwd_kernel"][6:8])  # kernel 1's rgb, S
     s_res = args["shade_bwd_kernel"][7:9]       # kernel 3's residuals in the step
     cg, cga, sg, sgs = (x.detach() / x.detach().abs().max().clamp_min(1e-30)
                         for x in (*args["composite_bwd_kernel"][1:3],
@@ -1012,20 +1108,12 @@ def main() -> int:
             ("g_alpha", args["composite_bwd_kernel"][2]),
             ("shade g_rgb", args["shade_bwd_kernel"][1]),
             ("g_soft", args["shade_bwd_kernel"][2]))))
-    if (args["composite_bwd_kernel"][3:] != geo_s
+    if (args["composite_bwd_kernel"][3:6] != geo_s or len(c_res) != 2
             or args["shade_bwd_kernel"][3:7] != geo_m + (mc.sigma,) or len(s_res) != 2):
         failures.append("backward kernels called with another geometry or residuals than "
                         "the config's")
-    got = SK.composite_bwd(ca, cg, cga, *geo_s)
-    e, ok, rep = compare_bwd(torch, got, SK.composite_bwd_ref(ca, cg, cga, *geo_s),
-                             COMPOSITE_GROUPS, ZERO_LANES["composite"], ca[..., 9] < 0.5)
-    errs["composite_bwd"].append(e)
-    log(f"# kernels/train: composite_bwd {tuple(got.shape)} "
-        + ", ".join(f"{k} {v[0]:.3g} (tol {v[1]:.3g})" for k, v in rep.items())
-        + f" {'ok' if ok else 'FAIL'}")
-    if not ok:
-        failures.append("composite_bwd vs twin (training rows)")
-    del got
+    check_composite_bwd(torch, SK, ca, cg, cga, geo_s, "train: composite_bwd", errs, failures,
+                        c_res)
     check_shade_bwd(torch, MK, sa, sg, sgs, geo_m + (mc.sigma,), "train: shade_bwd", errs,
                     failures, s_res)
     # kernel 4 twice on the same rows, as the step calls it: fixed-order
@@ -1046,11 +1134,11 @@ def main() -> int:
         f"{int((rows_per_tile > 0).sum())} of {sa.shape[0]} tiles, largest tile "
         f"{int(rows_per_tile.max())}, {int((rows_per_tile == sa.shape[1]).sum())} tiles at K")
     kernel_rows["composite_bwd"] = (
-        lambda: SK.composite_bwd(ca, cg, cga, *geo_s),
-        lambda: SK.composite_bwd_ref(ca, cg, cga, *geo_s),
-        2 * ca.numel() * 4 + cg.numel() * 4 + cga.numel() * 4,
+        lambda: SK.composite_bwd(ca, cg, cga, *geo_s, *c_res),
+        lambda: SK.composite_bwd_ref(ca, cg, cga, *geo_s, rgb=c_res[0], S=c_res[1]),
+        (2 * ca.numel() + cg.numel() + cga.numel() + sum(x.numel() for x in c_res)) * 4,
         c_valid * COMPOSITE_TEST_OPS + c_pass * COMPOSITE_BWD_PASS_OPS
-        + c_live * COMPOSITE_BWD_LIVE_OPS)
+        + c_live * COMPOSITE_BWD_LIVE_OPS + cga.numel() * COMPOSITE_BWD_PIXEL_OPS)
     kernel_rows["shade_bwd"] = (
         lambda: MK.shade_bwd(sa, sg, sgs, *geo_m, mc.sigma, *s_res),
         lambda: MK.shade_bwd_ref(sa, sg, sgs, *geo_m, mc.sigma),
@@ -1070,7 +1158,7 @@ def main() -> int:
         log(f"# timing {name}: {ms:.4f} ms/launch, twin {plain_ms:.3f} ms, bound "
             f"{max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB, {nops / 1e9:.2f} G ops); "
             f"no single PyTorch call computes it (library_ms null)")
-    del ca, cg, cga, sa, sg, sgs, s_res, ra1, ra2, args, kernel_rows
+    del ca, cg, cga, c_res, sa, sg, sgs, s_res, ra1, ra2, args, kernel_rows
 
     # 5f. the fused configuration (tpu.mlp_bf16 = tpu.mlp_fused = True) from
     #     the same state and view: every kernel counted, kernels 5 and 6

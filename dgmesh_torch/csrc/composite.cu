@@ -10,7 +10,11 @@
 //             alpha_i >= 1/255 and the row is valid (else 0);
 //   T_i     = exp(S_i - log1p(-alpha_i)), S_i = sum_{j<=i} log1p(-alpha_j)
 //             (the reference's log-space exclusive transmittance);
-//   rgb     = sum_i alpha_i T_i c_i,   alpha = 1 - exp(S_K).
+//   rgb     = sum_i alpha_i T_i c_i,   alpha = 1 - exp(S_K);
+// and, when asked (a non-null S), S_K itself: the backward kernel
+// (composite_bwd.cu) takes T_fin = exp(S_K) and, with rgb, the pixel's
+// total sum_i u_i w_i = g_rgb . rgb from it instead of walking the rows
+// once more.
 // Pixel centres are integer (splat convention).  There is no early
 // termination: the JAX reference has none, and parity depends on it.  The
 // background blend stays outside (dgmesh_torch/ops/splat.py::composite).
@@ -44,6 +48,7 @@ constexpr float ALPHA_MAX = 0.99f;
 __global__ void composite_kernel(const float* __restrict__ attrs,
                                  float* __restrict__ rgb_out,
                                  float* __restrict__ alpha_out,
+                                 float* __restrict__ s_out,
                                  int K, int tiles_x, int tile_h, int tile_w) {
   extern __shared__ float rows[];  // [blockDim.x][USED]
   const int tile = blockIdx.x;
@@ -85,21 +90,23 @@ __global__ void composite_kernel(const float* __restrict__ attrs,
     rgb_out[o * 3 + 1] = g;
     rgb_out[o * 3 + 2] = b;
     alpha_out[o] = 1.f - expf(S);
+    if (s_out) s_out[o] = S;
   }
 }
 
 }  // namespace
 
-// attrs (T,K,16) → rgb (T,P,3), alpha (T,P); all float32, contiguous, on the
-// device.  Launches on `stream`; returns cudaGetLastError() of the launch.
+// attrs (T,K,16) → rgb (T,P,3), alpha (T,P) and, where S is not null, each
+// pixel's log-transmittance S (T,P); all float32, contiguous, on the device.
+// Launches on `stream`; returns cudaGetLastError() of the launch.
 extern "C" int composite_tiles_launch(const float* attrs, float* rgb, float* alpha,
-                                      int T, int K, int tiles_x, int tile_h,
+                                      float* S, int T, int K, int tiles_x, int tile_h,
                                       int tile_w, void* stream) {
   const int P = tile_h * tile_w;
   if (T <= 0 || K <= 0) return 0;
   if (P <= 0 || P > 1024) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)P * USED * sizeof(float);
-  composite_kernel<<<T, P, smem, (cudaStream_t)stream>>>(attrs, rgb, alpha, K,
+  composite_kernel<<<T, P, smem, (cudaStream_t)stream>>>(attrs, rgb, alpha, S, K,
                                                          tiles_x, tile_h, tile_w);
   return (int)cudaGetLastError();
 }

@@ -17,82 +17,143 @@
 // kernel and its plain twin (ops/splat_kernels.py::composite_bwd_ref) gate
 // it; rows that are not valid get exactly zero; lanes 9-15 are written 0.
 //
-// What bounds it on the H100: the function needs the forward's 16
-// operations per (pixel, valid row) pair once, ~20 more per pair that
-// passes the alpha tests (the transmittance, u, the suffix, d rgb) and ~34
-// more where alpha is below its clamp (d alpha, the six partials), with
-// their sums over the tile; chip_smoke.py counts these on a training
-// step's rows.  This design pays the alpha tests and the transmittance
-// twice, once per walk, and its shuffle trees cost 5 steps per value.  The
-// bytes are the (T,K,16) rows in and out plus the cotangents: ~130 MB at
-// T=2500, K=384 (~0.04 ms at 3.35 TB/s).
+// What bounds it on the H100: bytes.  The (T,K,16) rows in and out, the
+// cotangents and the forward's residuals are ~143 MB at T=2500, K=384
+// (~0.043 ms at 3.35 TB/s); the operations the function needs (the
+// forward's 16 a (pixel, valid row) pair, ~20 more where alpha passes its
+// tests, ~34 more below its clamp; chip_smoke.py counts them on a training
+// step's rows) take less at the 67 TFLOP/s float32 peak.  The time goes to
+// the per-pixel walk front to back, which cannot be split across rows, and
+// to the per-row sums over the tile's pixels.
 //
-// Design: one CTA per tile, one thread per pixel, rows staged in shared
-// memory in batches of RB and broadcast to the pixel threads.
-//   walk 1: the forward's front-to-back loop in log space (kernel 1's
-//           formula, exp(S_i - log1p(-alpha_i)), no early termination), for
-//           T_fin and the pixel's total sum_k u_k w_k;
-//   walk 2: the same loop again, with the running sum of u_k w_k giving
-//           suffix_i = total - incl_i; each pixel forms its nine partials
-//           for the row; they are summed across the tile in a fixed order
-//           (xor-shuffle tree within each warp, then one partial per warp in
-//           shared memory, summed in warp order).  No atomics: the result is
-//           deterministic, and each tile writes only its own rows.
+// Design: one CTA per tile, one thread per pixel, in four steps.
+//   compaction: the tile's valid rows, listed in K order (a ballot and a
+//           prefix count per warp, so the list is deterministic); the rows
+//           that are not valid are written 0 here, coalesced; a tile with
+//           no valid row is done;
+//   totals: each pixel's T_fin and sum_k u_k w_k.  In training the forward
+//           kernel (composite.cu) has left each pixel's log-transmittance S
+//           and its rgb (composite_bwd_res_launch): T_fin = exp(S) and the
+//           total is g_rgb . rgb, the same sum in another order.  Without
+//           them (composite_bwd_launch) the forward's walk over the valid
+//           rows runs first, as the twin's cumsum does;
+//   phase A, one thread per pixel, over a batch of RB valid rows staged in
+//           shared memory: the forward's front-to-back step in log space
+//           (kernel 1's formula, exp(S_i - log1p(-alpha_i)), no early
+//           termination) with the running sum of u_k w_k giving suffix_i;
+//           each pixel leaves, per row, d alpha e^power and w in shared
+//           memory as one float2 (zeros where the pair does not pass);
+//   phase B, P/RB threads per row of the batch: each sums the row's
+//           gradients over RB consecutive pixels (row-major) in registers,
+//           recomputing dx and dy from the pixel index and d power as
+//           (d alpha e^power) o.  The mean and conic partials are linear in
+//           the sums of d power times dx, dy, dx^2, dx dy and dy^2, so it
+//           keeps those five and applies the row's conic once; then per row
+//           and lane the P/RB partial sums are added in segment order and
+//           the row leaves as four 16-byte stores.  With RB rows a batch,
+//           one thread a row would leave all but RB of the P threads idle
+//           while it walks P pixels (2x slower on a training step's rows).
+// No shuffles, no atomics: every sum runs in a fixed order, so two launches
+// give the same bits; each CTA writes only its own tile's rows.
 // Built with --fmad=false, so every gate (ok, live) is decided on the same
-// rounded values as the twin's separate PyTorch ops.
-// A simple, correct first kernel: no tensor cores, no TMA; tuning comes later.
+// rounded values as the twin's separate PyTorch ops.  d power = (d alpha
+// e^power) o where the twin takes d alpha (o e^power), and the conic is
+// applied to the moment sums, not pair by pair: the same sums, rounded in
+// another order.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int LANES = 16;   // row width of attrs
-constexpr int USED = 10;    // lanes read by the kernel
+constexpr int ROWW = 9;     // lanes of a staged row: mean2d, conic, opacity, rgb
 constexpr int NOUT = 9;     // lanes 0-8 of d_attrs carry gradient
-constexpr int RB = 32;      // rows per staged batch
+constexpr int RB = 16;      // valid rows per batch; also pixels per phase-B segment
+constexpr int PSTRIDE = RB + 1;  // per-pixel words of the pair buffers (banks)
 constexpr float ALPHA_MIN = 1.0f / 255.0f;
 constexpr float ALPHA_MAX = 0.99f;
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// dynamic shared memory, in 4-byte words, for K rows and P pixel threads
+__host__ __device__ constexpr size_t smem_words(int K, int P) {
+  return (size_t)4 * P              // g_rgb per pixel, as float4
+         + (size_t)2 * P * PSTRIDE  // d alpha e^power and w per (pixel, row), float2
+         + (size_t)P * NOUT         // phase B's partial sums: (P/RB) x NOUT x RB
+         + RB * ROWW                // the batch's staged rows
+         + (size_t)2 * K            // vrow, rowslot
+         + 32;                      // per-warp counts of the compaction
 }
 
-__global__ void composite_bwd_kernel(const float* __restrict__ attrs,
-                                     const float* __restrict__ g_rgb,
-                                     const float* __restrict__ g_alpha,
-                                     float* __restrict__ d_attrs,
-                                     int K, int tiles_x, int tile_h, int tile_w) {
+template <int MAX_THREADS, int MIN_BLOCKS>
+__global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
+composite_bwd_kernel(const float* __restrict__ attrs, const float* __restrict__ g_rgb,
+                     const float* __restrict__ g_alpha, const float* __restrict__ rgb_in,
+                     const float* __restrict__ s_in, float* __restrict__ d_attrs,
+                     int K, int tiles_x, int tile_h, int tile_w) {
   extern __shared__ float smem[];
-  float* rows = smem;                       // [RB][USED]
-  float* part = smem + RB * USED;           // [RB][nwarps][NOUT]
-  const int nwarps = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int tile = blockIdx.x;
   const int P = tile_h * tile_w;
-  const int p = threadIdx.x;
-  const float px = (float)((tile % tiles_x) * tile_w + p % tile_w);
-  const float py = (float)((tile / tiles_x) * tile_h + p / tile_w);
+  float4* gpix = reinterpret_cast<float4*>(smem);     // [P] g_rgb, 0
+  float2* pdw = reinterpret_cast<float2*>(gpix + P);  // [P][PSTRIDE] (d alpha e^power, w)
+  float* part = reinterpret_cast<float*>(pdw + P * PSTRIDE);  // [P/RB][NOUT][RB]
+  float* rows = part + P * NOUT;                      // [RB][ROWW]
+  int* vrow = reinterpret_cast<int*>(rows + RB * ROWW);  // [K] valid rows, K order
+  int* rowslot = vrow + K;                            // [K] slot in vrow, or -1
+  int* wcnt = rowslot + K;                            // [32]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  const int tile = blockIdx.x;
+  const int ox = (tile % tiles_x) * tile_w, oy = (tile / tiles_x) * tile_h;
   const float* a = attrs + (size_t)tile * K * LANES;
-  float* d = d_attrs + (size_t)tile * K * LANES;
+  float4* d4 = reinterpret_cast<float4*>(d_attrs + (size_t)tile * K * LANES);
+
+  // compaction: the valid rows in K order
+  int nv = 0;
+  for (int base = 0; base < K; base += blockDim.x) {
+    const int r = base + threadIdx.x;
+    const bool v = r < K && a[(size_t)r * LANES + 9] > 0.5f;
+    const unsigned m = __ballot_sync(0xffffffffu, v);
+    if (lane == 0) wcnt[warp] = __popc(m);
+    __syncthreads();
+    int before = nv, total = nv;
+    for (int w = 0; w < nwarps; ++w) {
+      before += w < warp ? wcnt[w] : 0;
+      total += wcnt[w];
+    }
+    const int pos = before + __popc(m & ((1u << lane) - 1u));
+    if (r < K) rowslot[r] = v ? pos : -1;
+    if (v) vrow[pos] = r;
+    nv = total;
+    __syncthreads();
+  }
+  // rows that are not valid: exactly 0
+  for (int i = threadIdx.x; i < K * (LANES / 4); i += blockDim.x)
+    if (rowslot[i / (LANES / 4)] < 0) d4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (nv == 0) return;
+
+  const int p = threadIdx.x;
+  const float px = (float)(ox + p % tile_w);
+  const float py = (float)(oy + p / tile_w);
   const size_t o = (size_t)tile * P + p;
   const float gr = g_rgb[o * 3 + 0], gg = g_rgb[o * 3 + 1], gb = g_rgb[o * 3 + 2];
   const float ga = g_alpha[o];
+  gpix[p] = make_float4(gr, gg, gb, 0.f);
 
-  // walk 1: T_fin and the total of u_k w_k
+  // totals: T_fin and sum_k u_k w_k, from the forward's residuals or its walk
   float S = 0.f, tot = 0.f;
-  for (int base = 0; base < K; base += RB) {
-    const int n = min(RB, K - base);
+  if (s_in) {
+    S = s_in[o];
+    tot = rgb_in[o * 3 + 0] * gr + rgb_in[o * 3 + 1] * gg + rgb_in[o * 3 + 2] * gb;
+  }
+  for (int base = 0; !s_in && base < nv; base += RB) {
+    const int n = min(RB, nv - base);
     __syncthreads();
-    for (int i = threadIdx.x; i < n * USED; i += blockDim.x) {
-      const int row = i / USED, ln = i - row * USED;
-      rows[i] = a[(size_t)(base + row) * LANES + ln];
+    for (int i = threadIdx.x; i < n * ROWW; i += blockDim.x) {
+      const int row = i / ROWW, ln = i - row * ROWW;
+      rows[i] = a[(size_t)vrow[base + row] * LANES + ln];
     }
     __syncthreads();
     for (int j = 0; j < n; ++j) {
-      const float* q = rows + j * USED;
-      if (!(q[9] > 0.5f)) continue;
+      const float* q = rows + j * ROWW;
       const float dx = q[0] - px;
       const float dy = q[1] - py;
       const float power = -0.5f * (q[2] * dx * dx + q[4] * dy * dy) - q[3] * dx * dy;
@@ -108,80 +169,143 @@ __global__ void composite_bwd_kernel(const float* __restrict__ attrs,
   }
   const float t_fin = expf(S);
 
-  // walk 2: per-row partials, reduced across the tile in a fixed order
+  // the batches of valid rows: phase A per pixel, phase B per row
+  const int seg = threadIdx.x / RB, r_own = threadIdx.x % RB;   // phase B's share
   S = 0.f;
   float inc = 0.f;
-  for (int base = 0; base < K; base += RB) {
-    const int n = min(RB, K - base);
-    __syncthreads();
-    for (int i = threadIdx.x; i < n * USED; i += blockDim.x) {
-      const int row = i / USED, ln = i - row * USED;
-      rows[i] = a[(size_t)(base + row) * LANES + ln];
+  __syncthreads();   // the walk above is done with `rows`
+  for (int base = 0; base < nv; base += RB) {
+    const int n = min(RB, nv - base);
+    // `rows` was last read by the previous batch's phase B, before its
+    // barrier; `part` is written again only after this batch's next two
+    for (int i = threadIdx.x; i < n * ROWW; i += blockDim.x) {
+      const int row = i / ROWW, ln = i - row * ROWW;
+      rows[i] = a[(size_t)vrow[base + row] * LANES + ln];
     }
     __syncthreads();
+    // phase A: this pixel's step through the batch's rows, front to back
+    float2* my_dw = pdw + p * PSTRIDE;
     for (int j = 0; j < n; ++j) {
-      const float* q = rows + j * USED;
-      float* pw = part + (j * nwarps + warp) * NOUT;
-      if (!(q[9] > 0.5f)) {                 // uniform across the block
-        if (lane == 0) {
-#pragma unroll
-          for (int c = 0; c < NOUT; ++c) pw[c] = 0.f;
-        }
-        continue;
-      }
-      float v[NOUT];
-#pragma unroll
-      for (int c = 0; c < NOUT; ++c) v[c] = 0.f;
+      const float* q = rows + j * ROWW;
       const float dx = q[0] - px;
       const float dy = q[1] - py;
       const float power = -0.5f * (q[2] * dx * dx + q[4] * dy * dy) - q[3] * dx * dy;
       const float expp = expf(power);
       const float raw = q[5] * expp;
       const float al = fminf(ALPHA_MAX, raw);
-      const bool ok = (power <= 0.f) && (al >= ALPHA_MIN);
-      if (ok) {
+      float de = 0.f, w = 0.f;
+      if ((power <= 0.f) && (al >= ALPHA_MIN)) {
         const float l = log1pf(-al);
         const float incl = S + l;
         const float trans = expf(incl - l);
-        const float w = al * trans;
+        w = al * trans;
         const float u = q[6] * gr + q[7] * gg + q[8] * gb;
         inc += u * w;
-        const float suffix = tot - inc;
         if (raw < ALPHA_MAX) {
+          const float suffix = tot - inc;
           const float d_al = u * trans - (suffix - ga * t_fin) / (1.f - al);
-          const float d_pow = d_al * al;
-          v[0] = d_pow * (-(q[2] * dx + q[3] * dy));
-          v[1] = d_pow * (-(q[4] * dy + q[3] * dx));
-          v[2] = d_pow * (-0.5f * dx * dx);
-          v[3] = d_pow * (-dx * dy);
-          v[4] = d_pow * (-0.5f * dy * dy);
-          v[5] = d_al * expp;
+          de = d_al * expp;
         }
-        v[6] = w * gr;
-        v[7] = w * gg;
-        v[8] = w * gb;
         S = incl;
       }
-      if (__any_sync(0xffffffffu, ok)) {
-#pragma unroll
-        for (int c = 0; c < NOUT; ++c) v[c] = warp_sum(v[c]);
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int c = 0; c < NOUT; ++c) pw[c] = v[c];
-      }
+      my_dw[j] = make_float2(de, w);
     }
     __syncthreads();
-    for (int i = threadIdx.x; i < n * LANES; i += blockDim.x) {
-      const int row = i / LANES, c = i - row * LANES;
-      float s = 0.f;
-      if (c < NOUT) {
-        const float* pr = part + row * nwarps * NOUT + c;
-        for (int w = 0; w < nwarps; ++w) s += pr[w * NOUT];
+    // phase B: row r_own's nine sums over the pixels of segment `seg`
+    if (r_own < n) {
+      const float* q = rows + r_own * ROWW;
+      const float mx = q[0], my = q[1], ca = q[2], cb = q[3], cc = q[4], op = q[5];
+      // sums of d power times dx, dy and their products: the six partials
+      // are linear in them (v0 = -(ca sum dp dx + cb sum dp dy), ...)
+      float m1 = 0.f, m2 = 0.f, m3 = 0.f, m4 = 0.f, m5 = 0.f;
+      float acc[NOUT];
+#pragma unroll
+      for (int c = 0; c < NOUT; ++c) acc[c] = 0.f;
+      const int p0 = seg * RB;
+      int xx = p0 % tile_w, yy = p0 / tile_w;
+      float fx = (float)(ox + xx);
+      float dy = my - (float)(oy + yy);
+      for (int k = 0; k < RB; ++k) {
+        const int pp = p0 + k;
+        const float2 dw = pdw[pp * PSTRIDE + r_own];
+        const float4 g = gpix[pp];
+        const float dx = mx - fx;
+        const float d_pow = dw.x * op;
+        const float ax = d_pow * dx, ay = d_pow * dy;
+        m1 += ax;
+        m2 += ay;
+        m3 += ax * dx;
+        m4 += ax * dy;
+        m5 += ay * dy;
+        acc[5] += dw.x;
+        acc[6] += dw.y * g.x;
+        acc[7] += dw.y * g.y;
+        acc[8] += dw.y * g.z;
+        fx += 1.f;
+        if (++xx == tile_w) {
+          xx = 0;
+          ++yy;
+          fx = (float)ox;
+          dy = my - (float)(oy + yy);
+        }
       }
-      d[(size_t)(base + row) * LANES + c] = s;
+      acc[0] = -(ca * m1 + cb * m2);
+      acc[1] = -(cc * m2 + cb * m1);
+      acc[2] = -0.5f * m3;
+      acc[3] = -m4;
+      acc[4] = -0.5f * m5;
+#pragma unroll
+      for (int c = 0; c < NOUT; ++c) part[(seg * NOUT + c) * RB + r_own] = acc[c];
+    }
+    __syncthreads();
+    // the batch's rows leave as whole 16-byte stores: lane c of row r is the
+    // sum of its segments' partials in segment order; lanes 9-15 are 0
+    const int nseg = blockDim.x / RB;
+    for (int i = threadIdx.x; i < n * (LANES / 4); i += blockDim.x) {
+      const int r = i / (LANES / 4), q4 = i - r * (LANES / 4);
+      float out[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int c = q4 * 4 + k;
+        float s = 0.f;
+        if (c < NOUT)
+          for (int sg = 0; sg < nseg; ++sg) s += part[(sg * NOUT + c) * RB + r];
+        out[k] = s;
+      }
+      d4[(size_t)vrow[base + r] * (LANES / 4) + q4] = make_float4(out[0], out[1], out[2], out[3]);
     }
   }
+}
+
+template <int MAX_THREADS, int MIN_BLOCKS>
+int run(const float* attrs, const float* g_rgb, const float* g_alpha, const float* rgb,
+        const float* S, float* d_attrs, int T, int K, int tiles_x, int tile_h, int tile_w,
+        void* stream) {
+  const auto kernel = composite_bwd_kernel<MAX_THREADS, MIN_BLOCKS>;
+  const size_t smem = smem_words(K, tile_h * tile_w) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<T, tile_h * tile_w, smem, (cudaStream_t)stream>>>(
+      attrs, g_rgb, g_alpha, rgb, S, d_attrs, K, tiles_x, tile_h, tile_w);
+  return (int)cudaGetLastError();
+}
+
+// 16x16 tiles (P = 256, every shipped config) run with at most 64 registers
+// a thread, so four CTAs (51 KB of shared memory each at K = 384) fit on an
+// SM; larger tiles get one CTA of up to 1024 threads
+int launch(const float* attrs, const float* g_rgb, const float* g_alpha, const float* rgb,
+           const float* S, float* d_attrs, int T, int K, int tiles_x, int tile_h,
+           int tile_w, void* stream) {
+  const int P = tile_h * tile_w;
+  if (T <= 0 || K <= 0) return 0;
+  if (P <= 0 || P > 1024 || P % 32 != 0) return (int)cudaErrorInvalidValue;
+  return P <= 256 ? run<256, 4>(attrs, g_rgb, g_alpha, rgb, S, d_attrs, T, K, tiles_x,
+                                tile_h, tile_w, stream)
+                  : run<1024, 1>(attrs, g_rgb, g_alpha, rgb, S, d_attrs, T, K, tiles_x,
+                                 tile_h, tile_w, stream);
 }
 
 }  // namespace
@@ -193,11 +317,17 @@ extern "C" int composite_bwd_launch(const float* attrs, const float* g_rgb,
                                     const float* g_alpha, float* d_attrs, int T,
                                     int K, int tiles_x, int tile_h, int tile_w,
                                     void* stream) {
-  const int P = tile_h * tile_w;
-  if (T <= 0 || K <= 0) return 0;
-  if (P <= 0 || P > 1024 || P % 32 != 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(RB * USED + RB * (P / 32) * NOUT) * sizeof(float);
-  composite_bwd_kernel<<<T, P, smem, (cudaStream_t)stream>>>(
-      attrs, g_rgb, g_alpha, d_attrs, K, tiles_x, tile_h, tile_w);
-  return (int)cudaGetLastError();
+  return launch(attrs, g_rgb, g_alpha, nullptr, nullptr, d_attrs, T, K, tiles_x, tile_h,
+                tile_w, stream);
+}
+
+// The same, given the forward kernel's rgb (T,P,3) and residual S (T,P),
+// each pixel's log-transmittance (composite_tiles_launch's outputs for these
+// attrs), so the rows are walked once.
+extern "C" int composite_bwd_res_launch(const float* attrs, const float* g_rgb,
+                                        const float* g_alpha, const float* rgb,
+                                        const float* S, float* d_attrs, int T, int K,
+                                        int tiles_x, int tile_h, int tile_w, void* stream) {
+  return launch(attrs, g_rgb, g_alpha, rgb, S, d_attrs, T, K, tiles_x, tile_h, tile_w,
+                stream);
 }

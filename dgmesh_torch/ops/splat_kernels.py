@@ -5,11 +5,15 @@ Counterpart of dgmesh_tpu/ops/splat_pallas.py.  ``composite_tiles`` launches
 ``csrc/composite_bwd.cu`` (its analytic backward) for a CUDA tensor; each
 runs its plain PyTorch twin (``composite_tiles_ref``, ``composite_bwd_ref``)
 only for a CPU tensor; there is no fallback.  ``CompositeTiles`` pairs the
-two as one ``torch.autograd.Function``.
+two as one ``torch.autograd.Function``: in training the forward also leaves
+each pixel's log-transmittance S (the residual), and the backward takes
+T_fin = e^S and the pixel's total Σ_k u_k w_k = g_rgb·rgb from S and the
+rgb output instead of walking the rows once more.
 
 Layout (T,K,16) float32 per tile row: 0,1 mean2d | 2-4 conic | 5 opacity |
 6-8 rgb | 9 valid | 10-15 padding.  Outputs rgb (T,P,3) and alpha (T,P),
-P = tile_h·tile_w, with no background term.
+P = tile_h·tile_w, with no background term; residual S (T,P) float32
+(alpha = 1 − e^S).
 """
 
 from __future__ import annotations
@@ -37,13 +41,15 @@ def tile_pixels(T: int, tiles_x: int, tile_h: int, tile_w: int, offset: float,
 
 
 def composite_tiles_ref(attrs: torch.Tensor, tiles_x: int, tile_h: int,
-                        tile_w: int, chunk: int = 64):
+                        tile_w: int, chunk: int = 64, residuals: bool = False):
     """Plain PyTorch twin of the kernel, after ``_composite_ref``
-    (dgmesh_tpu/ops/splat_pallas.py:229-261), chunked over tiles."""
+    (dgmesh_tpu/ops/splat_pallas.py:229-261), chunked over tiles.  With
+    ``residuals``, S follows rgb and alpha."""
     T, K, _ = attrs.shape
     P = tile_h * tile_w
     rgb = attrs.new_empty((T, P, 3))
     alpha = attrs.new_empty((T, P))
+    s_res = attrs.new_empty((T, P))
     px_all, py_all = tile_pixels(T, tiles_x, tile_h, tile_w, 0.0, attrs.device)
     for s in range(0, T, chunk):
         at = attrs[s:s + chunk]                             # (C,K,16)
@@ -57,41 +63,47 @@ def composite_tiles_ref(attrs: torch.Tensor, tiles_x: int, tile_h: int,
         csum = torch.cumsum(log1m, dim=1)
         w = al * torch.exp(csum - log1m)
         rgb[s:s + chunk] = torch.einsum("ckp,ckd->cpd", w, at[..., 6:9])
-        alpha[s:s + chunk] = 1.0 - torch.exp(csum[:, -1, :])
-    return rgb, alpha
+        s_res[s:s + chunk] = csum[:, -1, :]
+        alpha[s:s + chunk] = 1.0 - torch.exp(s_res[s:s + chunk])
+    return (rgb, alpha) + ((s_res,) if residuals else ())
 
 
-def composite_tiles(attrs: torch.Tensor, tiles_x: int, tile_h: int, tile_w: int):
-    """attrs (T,K,16) f32 → rgb (T,P,3), alpha (T,P).
+def composite_tiles(attrs: torch.Tensor, tiles_x: int, tile_h: int, tile_w: int,
+                    residuals: bool = False):
+    """attrs (T,K,16) f32 → rgb (T,P,3), alpha (T,P), and with ``residuals``
+    the backward's S (T,P) f32.
 
     A CUDA tensor goes to the kernel (``composite_tiles.launches`` counts
     each launch); a CPU tensor takes the plain twin."""
     cuda_build.check_rows(attrs, LANES, "composite_tiles")
     if attrs.device.type == "cpu":
-        return composite_tiles_ref(attrs, tiles_x, tile_h, tile_w)
+        return composite_tiles_ref(attrs, tiles_x, tile_h, tile_w, residuals=residuals)
     T, K, _ = attrs.shape
     P = tile_h * tile_w
     cuda_build.check_launch(K, P, "composite_tiles", attrs)
-    rgb = torch.empty((T, P, 3), dtype=torch.float32, device=attrs.device)
-    alpha = torch.empty((T, P), dtype=torch.float32, device=attrs.device)
+    f32 = dict(dtype=torch.float32, device=attrs.device)
+    rgb = torch.empty((T, P, 3), **f32)
+    alpha = torch.empty((T, P), **f32)
+    res = (torch.empty((T, P), **f32),) if residuals else ()
     lib = cuda_build.library("composite")
     fn = lib.composite_tiles_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(attrs.device).cuda_stream
     with torch.cuda.device(attrs.device):
         err = fn(attrs.data_ptr(), rgb.data_ptr(), alpha.data_ptr(),
-                 T, K, tiles_x, tile_h, tile_w, stream)
+                 res[0].data_ptr() if res else None, T, K, tiles_x, tile_h, tile_w, stream)
     cuda_build.check(err, "composite_tiles")
     composite_tiles.launches += 1
-    return rgb, alpha
+    return (rgb, alpha) + res
 
 
 composite_tiles.launches = 0
 
 
 def composite_bwd_ref(attrs: torch.Tensor, g_rgb: torch.Tensor, g_alpha: torch.Tensor,
-                      tiles_x: int, tile_h: int, tile_w: int, chunk: int = 64):
+                      tiles_x: int, tile_h: int, tile_w: int, chunk: int = 64,
+                      rgb=None, S=None):
     """Plain PyTorch twin of the backward kernel, after ``_composite_bwd_kernel``
     (dgmesh_tpu/ops/splat_pallas.py:116-202), chunked over tiles.
 
@@ -101,7 +113,13 @@ def composite_bwd_ref(attrs: torch.Tensor, g_rgb: torch.Tensor, g_alpha: torch.T
              suffix_i = Σ_{k>i} u_k w_k  (incl[K-1] − incl of a cumsum),
     and dα through α = o·e^power to the mean, conic and opacity.  dα is gated
     by live = ok & (o·e^power < 0.99): at exactly 0.99 it is 0.  Rows that
-    are not valid get exactly zero; lanes 9-15 are zero."""
+    are not valid get exactly zero; lanes 9-15 are zero.
+
+    Given the forward's rgb output and residual S (``composite_tiles_ref(...,
+    residuals=True)``), T_fin is e^S, the same bits as without them, and the
+    suffix's total is g_rgb·rgb (summed r, g, b in that order) in place of
+    the last inclusive sum: the same sum Σ_k u_k w_k in another order, so
+    the result moves by that sum's rounding over (1 − α)."""
     T, K, _ = attrs.shape
     d_attrs = attrs.new_zeros((T, K, LANES))
     px_all, py_all = tile_pixels(T, tiles_x, tile_h, tile_w, 0.0, attrs.device)
@@ -121,13 +139,20 @@ def composite_bwd_ref(attrs: torch.Tensor, g_rgb: torch.Tensor, g_alpha: torch.T
         csum = torch.cumsum(log1m, dim=1)
         trans = torch.exp(csum - log1m)
         w = al * trans
-        t_fin = torch.exp(csum[:, -1:, :])                  # (C,1,P)
+        last = csum[:, -1:, :] if S is None else S[s:s + chunk, None, :]
+        t_fin = torch.exp(last)                             # (C,1,P)
         g = g_rgb[s:s + chunk]                              # (C,P,3)
         g_a = g_alpha[s:s + chunk, None, :]                 # (C,1,P)
         d_rgb = torch.einsum("ckp,cpd->ckd", w, g)
         u = torch.einsum("ckd,cpd->ckp", at[..., 6:9], g)
         incl = torch.cumsum(u * w, dim=1)
-        suffix = incl[:, -1:, :] - incl
+        if rgb is None:
+            total = incl[:, -1:, :]
+        else:
+            c = rgb[s:s + chunk]
+            total = (c[..., 0] * g[..., 0] + c[..., 1] * g[..., 1]
+                     + c[..., 2] * g[..., 2])[:, None, :]
+        suffix = total - incl
         d_al = u * trans - (suffix - g_a * t_fin) / (1.0 - al)
         d_al = torch.where(live, d_al, 0.0)
         d_pow = d_al * al
@@ -143,8 +168,11 @@ def composite_bwd_ref(attrs: torch.Tensor, g_rgb: torch.Tensor, g_alpha: torch.T
 
 
 def composite_bwd(attrs: torch.Tensor, g_rgb: torch.Tensor, g_alpha: torch.Tensor,
-                  tiles_x: int, tile_h: int, tile_w: int) -> torch.Tensor:
-    """attrs (T,K,16), g_rgb (T,P,3), g_alpha (T,P) f32 → d_attrs (T,K,16).
+                  tiles_x: int, tile_h: int, tile_w: int, rgb=None, S=None) -> torch.Tensor:
+    """attrs (T,K,16), g_rgb (T,P,3), g_alpha (T,P) f32 → d_attrs (T,K,16);
+    optionally given the forward's rgb (T,P,3) and residual S (T,P) f32
+    (``composite_tiles(..., residuals=True)``), so the kernel walks the rows
+    once, not twice.
 
     A CUDA tensor goes to the kernel (``composite_bwd.launches`` counts each
     launch); a CPU tensor takes the plain twin."""
@@ -156,18 +184,27 @@ def composite_bwd(attrs: torch.Tensor, g_rgb: torch.Tensor, g_alpha: torch.Tenso
                          f"{tuple(g_rgb.shape)} and {tuple(g_alpha.shape)}")
     if g_rgb.dtype != torch.float32 or g_alpha.dtype != torch.float32:
         raise TypeError("cotangents must be float32")
+    if (rgb is None) != (S is None):
+        raise ValueError("composite_bwd takes both residuals rgb and S, or neither")
+    if rgb is not None and (tuple(rgb.shape) != (T, P, 3) or tuple(S.shape) != (T, P)
+                            or rgb.dtype != torch.float32 or S.dtype != torch.float32):
+        raise ValueError("residuals must be rgb (T,P,3) and S (T,P) float32")
     if attrs.device.type == "cpu":
-        return composite_bwd_ref(attrs, g_rgb, g_alpha, tiles_x, tile_h, tile_w)
-    cuda_build.check_launch(K, P, "composite_bwd", attrs, g_rgb, g_alpha, whole_warps=True)
+        return composite_bwd_ref(attrs, g_rgb, g_alpha, tiles_x, tile_h, tile_w,
+                                 rgb=rgb, S=S)
+    res = () if rgb is None else (rgb, S)
+    cuda_build.check_launch(K, P, "composite_bwd", attrs, g_rgb, g_alpha, *res,
+                            whole_warps=True)
     d_attrs = torch.empty((T, K, LANES), dtype=torch.float32, device=attrs.device)
     lib = cuda_build.library("composite_bwd")
-    fn = lib.composite_bwd_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn = lib.composite_bwd_res_launch if res else lib.composite_bwd_launch
+    fn.argtypes = [ctypes.c_void_p] * (4 + len(res)) + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(attrs.device).cuda_stream
     with torch.cuda.device(attrs.device):
         err = fn(attrs.data_ptr(), g_rgb.data_ptr(), g_alpha.data_ptr(),
-                 d_attrs.data_ptr(), T, K, tiles_x, tile_h, tile_w, stream)
+                 *(x.data_ptr() for x in res), d_attrs.data_ptr(),
+                 T, K, tiles_x, tile_h, tile_w, stream)
     cuda_build.check(err, "composite_bwd")
     composite_bwd.launches += 1
     return d_attrs
@@ -177,18 +214,22 @@ composite_bwd.launches = 0
 
 
 class CompositeTiles(torch.autograd.Function):
-    """Forward kernel 1, backward kernel 2; saves ``attrs`` and recomputes the
-    rest in the backward, as JAX's ``make_composite_tiles`` custom_vjp does
-    (dgmesh_tpu/ops/splat_pallas.py:264-290)."""
+    """Forward kernel 1, backward kernel 2, as JAX's ``make_composite_tiles``
+    custom_vjp (dgmesh_tpu/ops/splat_pallas.py:264-290), which saves
+    ``attrs`` and recomputes the rest in the backward.  Where attrs needs a
+    gradient, the forward's rgb output and residual S (16 bytes a pixel) are
+    saved too, so the backward walks the rows once; a render writes no S."""
 
     @staticmethod
     def forward(ctx, attrs, tiles_x: int, tile_h: int, tile_w: int):
         ctx.geo = (tiles_x, tile_h, tile_w)
-        ctx.save_for_backward(attrs)
-        return composite_tiles(attrs, tiles_x, tile_h, tile_w)
+        rgb, alpha, *res = composite_tiles(attrs, tiles_x, tile_h, tile_w,
+                                           residuals=ctx.needs_input_grad[0])
+        ctx.save_for_backward(attrs, rgb, *res)
+        return rgb, alpha
 
     @staticmethod
     def backward(ctx, g_rgb, g_alpha):
-        (attrs,) = ctx.saved_tensors
-        d = composite_bwd(attrs, g_rgb.contiguous(), g_alpha.contiguous(), *ctx.geo)
+        attrs, rgb, S = ctx.saved_tensors
+        d = composite_bwd(attrs, g_rgb.contiguous(), g_alpha.contiguous(), *ctx.geo, rgb, S)
         return d, None, None, None

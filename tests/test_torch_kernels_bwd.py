@@ -27,12 +27,28 @@ import chip_smoke  # noqa: E402  (seeded rows shared with the GPU check)
 from dgmesh_torch.ops import mesh_raster_kernels as MK  # noqa: E402
 from dgmesh_torch.ops import splat_kernels as SK  # noqa: E402
 from dgmesh_tpu.ops.mesh_raster_pallas import shade_bwd_pallas, shade_tiles_pallas  # noqa: E402
-from dgmesh_tpu.ops.splat_pallas import composite_bwd_pallas  # noqa: E402
+from dgmesh_tpu.ops.splat_pallas import composite_bwd_pallas, composite_tiles_pallas  # noqa: E402
 
 torch.set_num_threads(1)
 
 TILES_X, TILE = 2, 16
 T, P = 4, 256               # 2 x 2 tiles of 16 x 16
+# composite_bwd_ref given the forward's rgb and S against without them, per
+# lane group, relative to the group's largest |value|: the suffix's total is
+# g_rgb.rgb in place of the last inclusive sum, the same float32 sum of up
+# to K terms in another order, and its rounding reaches d alpha divided by
+# 1 - alpha (>= 0.01); at most 5e-6 on these rows
+TOL_RES_REL, TOL_RES_ABS = 5e-5, 1e-6
+
+
+def _residual_gap(got, want):
+    """Worst per-group |got - want| over its tolerance (<= 1 agrees)."""
+    worst = 0.0
+    for lanes in chip_smoke.COMPOSITE_GROUPS.values():
+        w = want[..., lanes].double()
+        err = float((got[..., lanes].double() - w).abs().max())
+        worst = max(worst, err / (TOL_RES_ABS + TOL_RES_REL * float(w.abs().max())))
+    return worst
 
 
 def _area(a):
@@ -60,6 +76,95 @@ def test_composite_bwd_twin_matches_pallas(seed, K):
     assert invalid.any() and not got[invalid].any() and not want[invalid].any()
     assert not got[..., 9:].any()
     assert np.abs(got[..., :9]).max(axis=(0, 1)).min() > 1e-3     # every lane is live
+
+
+@pytest.mark.parametrize("case,K", chip_smoke.COMPOSITE_EDGE_SHAPES)
+def test_composite_bwd_twin_matches_pallas_at_edge_shapes(case, K):
+    """The twin against the Pallas kernel at the shapes chip_smoke.py also
+    holds the CUDA kernel to (one row, a ragged K, a tile with no valid row,
+    every row valid, valid rows interleaved with invalid ones, rows at the
+    0.99 clamp, a pixel whose T falls to 0), over 2 tiles: every lane within
+    abs 1e-5 + rel 1e-5 of the lane's largest value; invalid rows and lanes
+    9-15 exactly 0; and the twin given the forward's residuals within the
+    residual bound of itself without them."""
+    rng = np.random.default_rng(K)
+    nt = chip_smoke.COMPOSITE_EDGE_TILES
+    a = chip_smoke.composite_edge_attrs(rng, case, K, nt, TILES_X, TILE)
+    g, ga = chip_smoke.cotangents(rng, nt, P)
+    want = np.asarray(composite_bwd_pallas(jnp.asarray(a), jnp.asarray(g), jnp.asarray(ga),
+                                           TILES_X, TILE, TILE, interpret=True))
+    at, gt, gat = (torch.as_tensor(x) for x in (a, g, ga))
+    got = SK.composite_bwd_ref(at, gt, gat, TILES_X, TILE, TILE)
+    for lane in range(16):
+        tol = 1e-5 + 1e-5 * np.abs(want[..., lane]).max()
+        np.testing.assert_allclose(got.numpy()[..., lane], want[..., lane], rtol=0, atol=tol,
+                                   err_msg=f"lane {lane}")
+    rgb, _, S = SK.composite_tiles_ref(at, TILES_X, TILE, TILE, residuals=True)
+    assert _residual_gap(SK.composite_bwd_ref(at, gt, gat, TILES_X, TILE, TILE, rgb=rgb, S=S),
+                         got) <= 1.0
+    valid = a[..., 9] > 0.5
+    assert not got.numpy()[~valid].any() and not want[~valid].any()
+    assert not got.numpy()[..., 9:].any()
+    assert np.abs(want[valid][:, :9]).max() > 0          # the valid rows carry gradient
+    if case == "all invalid":
+        assert not valid[0].any() and valid[1].any()
+    elif case in ("one row", "all valid"):
+        assert valid.all()
+    elif case == "interleaved":
+        assert not valid[:, 0::2].any() and valid[:, 1::2].all()
+    elif case == "at the clamp":
+        px, py = SK.tile_pixels(nt, TILES_X, TILE, TILE, 0.0, "cpu")
+        dx, dy = at[..., 0:1] - px[:, None], at[..., 1:2] - py[:, None]
+        power = (-0.5 * (at[..., 2:3] * dx * dx + at[..., 4:5] * dy * dy)
+                 - at[..., 3:4] * dx * dy)
+        raw = at[..., 5:6] * torch.exp(power)
+        assert bool(((raw == SK.ALPHA_MAX) & torch.as_tensor(valid)[..., None]).any())
+    elif case == "T to 0":
+        assert bool((torch.exp(S) == 0).any())
+
+
+@pytest.mark.parametrize("seed,K", [(0, 32), (1, 48)])
+def test_composite_forward_residuals_agree_with_jax_forward(seed, K):
+    """The forward twin's residual S against the Pallas forward (interpret
+    mode): 1 - exp(S) is JAX's alpha within abs 1e-5 (the forward's own
+    tolerance), and S is log(1 - alpha) of JAX's within (1e-5 + 1e-6) / (1 -
+    alpha): that alpha's error through the logarithm's slope, where 1 -
+    alpha >= 1e-4; rgb and alpha are the same bits with and without it."""
+    rng = np.random.default_rng(seed)
+    a = chip_smoke.random_composite_attrs(rng, T, K, TILES_X, TILE)
+    _, alpha_j = (np.asarray(x) for x in composite_tiles_pallas(
+        jnp.asarray(a), TILES_X, TILE, TILE, interpret=True))
+    out = SK.composite_tiles_ref(torch.as_tensor(a), TILES_X, TILE, TILE, residuals=True)
+    plain = SK.composite_tiles_ref(torch.as_tensor(a), TILES_X, TILE, TILE)
+    assert torch.equal(out[0], plain[0]) and torch.equal(out[1], plain[1])
+    S = out[2].numpy().astype(np.float64)
+    alpha_j = alpha_j.reshape(T, P).astype(np.float64)
+    np.testing.assert_allclose(1.0 - np.exp(S), alpha_j, rtol=0, atol=1e-5)
+    keep = 1.0 - alpha_j >= 1e-4
+    assert keep.mean() > 0.5 and (S < -1.0).any()
+    gap = np.abs(S - np.log1p(-alpha_j))[keep]
+    assert (gap <= (1e-5 + 1e-6) / (1.0 - alpha_j[keep])).all()
+
+
+@pytest.mark.parametrize("case,K", [("random", 32), ("at the clamp", 32), ("T to 0", 64)])
+def test_composite_bwd_twin_with_residuals(case, K):
+    """composite_bwd_ref given the forward twin's rgb and S within the
+    residual bound of itself without them; the wrapper with them on the CPU
+    is that twin, and the autograd Function, which saves them, gives its
+    bits."""
+    rng = np.random.default_rng(K)
+    a = (chip_smoke.random_composite_attrs(rng, T, K, TILES_X, TILE) if case == "random"
+         else chip_smoke.composite_edge_attrs(rng, case, K, T, TILES_X, TILE))
+    a = torch.as_tensor(a)
+    g, ga = (torch.as_tensor(x) for x in chip_smoke.cotangents(rng, T, P))
+    rgb, _, S = SK.composite_tiles_ref(a, TILES_X, TILE, TILE, residuals=True)
+    want = SK.composite_bwd_ref(a, g, ga, TILES_X, TILE, TILE, rgb=rgb, S=S)
+    assert _residual_gap(want, SK.composite_bwd_ref(a, g, ga, TILES_X, TILE, TILE)) <= 1.0
+    assert torch.equal(SK.composite_bwd(a, g, ga, TILES_X, TILE, TILE, rgb, S), want)
+    x = a.clone().requires_grad_(True)
+    rgb2, alpha2 = SK.CompositeTiles.apply(x, TILES_X, TILE, TILE)
+    (d,) = torch.autograd.grad((rgb2 * g).sum() + (alpha2 * ga).sum(), x)
+    assert torch.equal(d, want)
 
 
 @pytest.mark.parametrize("seed,K,sigma", [(0, 32, 1.0), (1, 40, 0.7)])
@@ -269,3 +374,10 @@ def test_bwd_wrappers_check_their_inputs(which):
         fn(torch.zeros((T, 8, lanes)), g[:, :-1], g1)
     with pytest.raises(TypeError):
         fn(torch.zeros((T, 8, lanes)), g, g1.double())
+    if which == "composite":   # and the forward's residuals rgb and S
+        x = torch.zeros((T, 8, lanes))
+        rgb, S = torch.zeros((T, P, 3)), torch.zeros((T, P))
+        for bad in ((rgb, None), (None, S), (rgb.double(), S), (rgb, S.double()),
+                    (rgb[:, :-1], S), (rgb, S[:-1]), (rgb[..., :2], S)):
+            with pytest.raises(ValueError):
+                SK.composite_bwd(x, g, g1, TILES_X, TILE, TILE, *bad)

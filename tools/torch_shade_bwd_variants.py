@@ -1,9 +1,34 @@
 #!/usr/bin/env python3
-"""Time versions of the port's mesh shade backward (kernel 4), or of its
-fused trunk forward (kernel 5), side by side on one NVIDIA GPU.
+"""Time versions of the port's mesh shade backward (kernel 4), of its splat
+compositor's backward (kernel 2) or of its fused trunk forward (kernel 5),
+side by side on one NVIDIA GPU.
 
     python3 tools/torch_shade_bwd_variants.py [--random] SOURCE.cu ...
+    python3 tools/torch_shade_bwd_variants.py [--random] COMPOSITE_BWD.cu ...
+    python3 tools/torch_shade_bwd_variants.py [--random] COMPOSITE.cu[:noS] ...
     python3 tools/torch_shade_bwd_variants.py TRUNK_FWD.cu[:transposed] ...
+
+Versions of the splat compositor's forward (kernel 1): each COMPOSITE.cu
+exports ``composite_tiles_launch``, with the residual pointer S, or with
+the ``:noS`` suffix without it (kernel 1's signature before it wrote S).
+On kernel 2's rows (below) each is timed as a render calls it (no S), in
+two rounds; printed: its error against the plain twin, whether its rgb and
+alpha are the first source's bits, and for a version with S whether
+asking for S leaves rgb and alpha the same bits and S within
+chip_smoke.TOL_COMPOSITE of the twin's, relative to max(1, |S|).
+
+Versions of the splat compositor's backward: each COMPOSITE_BWD.cu is a
+version of ``dgmesh_torch/csrc/composite_bwd.cu`` that exports
+``composite_bwd_launch`` with its C signature, or ``composite_bwd_res_launch``
+(given the forward's residuals, each pixel's rgb and log-transmittance S,
+as the training step calls it; a version with both is timed through it).
+The rows are those of kernel 4's versions below, with kernel 2's
+arguments: a float32 training step's rows and cotangents (each scaled to a
+largest |value| of 1), or with ``--random`` chip_smoke.py's random
+composite rows and cotangents.  Printed per source: ms per launch in two
+rounds, the error against the plain twin per lane group
+(chip_smoke.compare_bwd's limits), whether two launches give the same
+bits, and whether its output equals the first source's bit for bit.
 
 Versions of the fused trunk forward: each TRUNK_FWD.cu is a version of
 ``dgmesh_torch/csrc/mlp_fwd.cu`` that exports ``mlp_fwd_launch`` with its C
@@ -193,6 +218,138 @@ def random_rows(torch, chip_smoke, dev):
     return a, g, gs, geo, MK.shade_tiles(a, *geo, residuals=True)[4:]
 
 
+def composite_launcher(torch, lib, res):
+    """The version's kernel 2 on (attrs, g_rgb, g_alpha, geometry), through
+    its residual entry point with ``res`` (rgb, S) where it has one."""
+    with_res = hasattr(lib, "composite_bwd_res_launch")
+    fn = lib.composite_bwd_res_launch if with_res else lib.composite_bwd_launch
+    res = res if with_res else ()
+    fn.argtypes = [ctypes.c_void_p] * (4 + len(res)) + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(attrs, g_rgb, g_alpha, tiles_x, tile_h, tile_w):
+        T, K, _ = attrs.shape
+        d = torch.empty_like(attrs)
+        err = fn(attrs.data_ptr(), g_rgb.data_ptr(), g_alpha.data_ptr(),
+                 *(x.data_ptr() for x in res), d.data_ptr(), T, K, tiles_x, tile_h, tile_w,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"composite_bwd launch failed with cudaError {err}")
+        return d
+    return run
+
+
+def composite_rows(torch, chip_smoke, dev, random, need_res):
+    """Kernel 2's arguments: a float32 training step's (``random`` False) or
+    chip_smoke.py's random composite rows and cotangents, the geometry, and
+    where ``need_res`` the forward's residuals (rgb, S) for these rows."""
+    from dgmesh_torch.ops import splat_kernels as SK
+    from dgmesh_torch.train.step import StepContext
+    if random:
+        sc = StepContext(chip_smoke.load_cfg(), chip_smoke.IMG, chip_smoke.IMG,
+                         device=dev).splat_cfg
+        rng = np.random.default_rng(0)
+        a = chip_smoke.random_composite_attrs(rng, sc.num_tiles, sc.max_per_tile, sc.tiles_x,
+                                              sc.tile_w)
+        g, ga = chip_smoke.cotangents(rng, sc.num_tiles, sc.tile_h * sc.tile_w)
+        a, g, ga = (torch.as_tensor(x, device=dev) for x in (a, g, ga))
+        geo = (sc.tiles_x, sc.tile_h, sc.tile_w)
+    else:
+        from dgmesh_torch.train import step
+        cfg = chip_smoke.load_cfg()
+        ctx = StepContext(cfg, chip_smoke.IMG, chip_smoke.IMG, device=dev)
+        state = chip_smoke.build_shell_state(torch, cfg, chip_smoke.N_GAUSS, dev)
+        batch = chip_smoke.bench_batch(chip_smoke.IMG, chip_smoke.IMG, dev)
+        flags = chip_smoke.train_flags(step, cfg.model.sh_degree)
+        _, _, args = chip_smoke.call_by_stage(
+            torch, [(SK, "composite_bwd", "composite_bwd_kernel")],
+            lambda: step.train_step(ctx, state, batch, flags), 1, what="train_step")
+        a, g, ga = (x.detach() for x in args["composite_bwd_kernel"][:3])
+        g, ga = (x / x.abs().max().clamp_min(1e-30) for x in (g, ga))
+        geo = tuple(args["composite_bwd_kernel"][3:6])
+    res = SK.composite_tiles(a, *geo, residuals=True)[0::2] if need_res else ()
+    return a, g, ga, geo, res
+
+
+def composite_fwd_launcher(torch, lib, with_s):
+    """The version's kernel 1 on (attrs, geometry) → (rgb, alpha, S or
+    None); S is asked for only where ``s_out`` and the version has it."""
+    fn = lib.composite_tiles_launch
+    fn.argtypes = [ctypes.c_void_p] * (4 if with_s else 3) + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(attrs, tiles_x, tile_h, tile_w, s_out=False):
+        T, K, _ = attrs.shape
+        P = tile_h * tile_w
+        rgb = torch.empty((T, P, 3), dtype=torch.float32, device=attrs.device)
+        alpha = torch.empty((T, P), dtype=torch.float32, device=attrs.device)
+        S = torch.empty_like(alpha) if s_out and with_s else None
+        ptrs = [attrs.data_ptr(), rgb.data_ptr(), alpha.data_ptr()]
+        ptrs += [S.data_ptr() if S is not None else None] if with_s else []
+        err = fn(*ptrs, T, K, tiles_x, tile_h, tile_w, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"composite_tiles_launch failed with cudaError {err}")
+        return rgb, alpha, S
+    return run
+
+
+def composite_fwd_main(torch, chip_smoke, libs, no_s, dev) -> int:
+    """Kernel 1's versions (module docstring); those in ``no_s`` take no S."""
+    from dgmesh_torch.ops import splat_kernels as SK
+    a, _, _, geo, _ = composite_rows(torch, chip_smoke, dev, "--random" in sys.argv[1:], False)
+    print(f"# composite rows {tuple(a.shape)}: {int((a[..., 9] > 0.5).sum())} valid", flush=True)
+    want = SK.composite_tiles_ref(a, *geo, residuals=True)
+    runs = {src: composite_fwd_launcher(torch, lib, src not in no_s)
+            for src, (lib, _) in libs.items()}
+    times = timed_rounds(torch, chip_smoke, runs, lambda src: runs[src](a, *geo))
+    first = None
+    for src, run in runs.items():
+        rgb, alpha, _ = run(a, *geo)
+        first = (rgb, alpha) if first is None else first
+        err = chip_smoke.max_err((rgb, alpha), want[:2])
+        same = torch.equal(rgb, first[0]) and torch.equal(alpha, first[1])
+        line = (f"# {src}: {' / '.join(f'{t:.4f}' for t in times[src])} ms/launch; rgb, alpha "
+                f"max_abs_err {err:.3g} against the twin; "
+                f"{'the same bits as' if same else 'OTHER bits than'} the first source")
+        if src not in no_s:
+            rgb_s, alpha_s, S = run(a, *geo, s_out=True)
+            s_ok = bool(((S - want[2]).abs()
+                         <= chip_smoke.TOL_COMPOSITE * want[2].abs().clamp_min(1.0)).all())
+            line += (f"; with S: rgb, alpha "
+                     f"{'the same bits' if torch.equal(rgb_s, rgb) and torch.equal(alpha_s, alpha) else 'DIFFERENT'}"
+                     f", S {'agrees' if s_ok else 'DISAGREES'} with the twin")
+        print(line, flush=True)
+    return 0
+
+
+def composite_bwd_main(torch, chip_smoke, libs, dev) -> int:
+    """Kernel 2's versions (module docstring)."""
+    from dgmesh_torch.ops import splat_kernels as SK
+    need_res = any(hasattr(lib, "composite_bwd_res_launch") for lib, _ in libs.values())
+    a, g, ga, geo, res = composite_rows(torch, chip_smoke, dev, "--random" in sys.argv[1:],
+                                        need_res)
+    valid = (a[..., 9] > 0.5).sum(1)
+    print(f"# composite rows {tuple(a.shape)}: {int(valid.sum())} valid in "
+          f"{int((valid > 0).sum())} tiles, largest tile {int(valid.max())}, tiles at K "
+          f"{int((valid == a.shape[1]).sum())}", flush=True)
+    want = SK.composite_bwd_ref(a, g, ga, *geo)
+    runs = {src: composite_launcher(torch, lib, res) for src, (lib, _) in libs.items()}
+    times = timed_rounds(torch, chip_smoke, runs, lambda src: runs[src](a, g, ga, *geo))
+    first = None
+    for src, run in runs.items():
+        got, again = run(a, g, ga, *geo), run(a, g, ga, *geo)
+        first = got if first is None else first
+        e, ok, rep = chip_smoke.compare_bwd(torch, got, want, chip_smoke.COMPOSITE_GROUPS,
+                                            chip_smoke.ZERO_LANES["composite"], a[..., 9] < 0.5)
+        print(f"# {src}: {' / '.join(f'{t:.4f}' for t in times[src])} ms/launch; "
+              + ", ".join(f"{k} {v[0]:.3g} (tol {v[1]:.3g})" for k, v in rep.items())
+              + f" {'agrees' if ok else 'DISAGREES'} with the twin; two launches "
+              f"{'identical' if torch.equal(got, again) else 'DIFFERENT'}; "
+              f"{'the same bits as' if torch.equal(got, first) else 'OTHER bits than'} "
+              f"the first source", flush=True)
+    return 0
+
+
 def tail_report(torch, d, valid):
     """Where a version's blocks ran and when, from a tail probe: a version
     that writes, for each block, its SM id and the %globaltimer (ns) at its
@@ -230,8 +387,9 @@ def main() -> int:
     import chip_smoke
     from dgmesh_torch.ops import mesh_raster_kernels as MK
     named = [s for s in sys.argv[1:] if not s.startswith("--")]
-    sources = [s.removesuffix(":transposed") for s in named]
+    sources = [s.removesuffix(":transposed").removesuffix(":noS") for s in named]
     transposed = {s.removesuffix(":transposed") for s in named if s.endswith(":transposed")}
+    no_s = {s.removesuffix(":noS") for s in named if s.endswith(":noS")}
     print(chip_smoke.card_line(), flush=True)
     libs = build(sources, os.path.join(ROOT, "build", "variants"))
     for src, (_, lines) in libs.items():
@@ -240,6 +398,11 @@ def main() -> int:
     dev = torch.device("cuda")
     if all(hasattr(lib, "mlp_fwd_launch") for lib, _ in libs.values()):
         return trunk_fwd_main(torch, chip_smoke, libs, transposed, dev)
+    if all(hasattr(lib, "composite_tiles_launch") for lib, _ in libs.values()):
+        return composite_fwd_main(torch, chip_smoke, libs, no_s, dev)
+    if all(hasattr(lib, "composite_bwd_launch") or hasattr(lib, "composite_bwd_res_launch")
+           for lib, _ in libs.values()):
+        return composite_bwd_main(torch, chip_smoke, libs, dev)
     rows = random_rows if "--random" in sys.argv[1:] else training_rows
     a, g, gs, geo, res = rows(torch, chip_smoke, dev)
     valid = (a[..., 9] > 0.5).sum(1)
