@@ -1,12 +1,27 @@
 #!/usr/bin/env python3
-"""Time versions of the port's mesh shade backward (kernel 4), of its splat
-compositor's backward (kernel 2) or of its fused trunk forward (kernel 5),
-side by side on one NVIDIA GPU.
+"""Time versions of the port's mesh shade backward (kernel 4), of its mesh
+shade forward (kernel 3), of its splat compositor (kernels 1 and 2) or of
+its fused trunk forward (kernel 5), side by side on one NVIDIA GPU.
 
     python3 tools/torch_shade_bwd_variants.py [--random] SOURCE.cu ...
+    python3 tools/torch_shade_bwd_variants.py [--random] SHADE.cu ...
     python3 tools/torch_shade_bwd_variants.py [--random] COMPOSITE_BWD.cu ...
     python3 tools/torch_shade_bwd_variants.py [--random] COMPOSITE.cu[:noS] ...
     python3 tools/torch_shade_bwd_variants.py TRUNK_FWD.cu[:transposed] ...
+
+Versions of the mesh shade forward (kernel 3): each SHADE.cu is a version
+of ``dgmesh_torch/csrc/shade.cu`` that exports ``shade_tiles_launch`` with
+its C signature.  Each is timed as a render calls it (no residuals) and as
+training calls it (with the residuals win and M), in two rounds, the second
+in reverse order, on render view 0's rows (chip_smoke.py's phase 4b: the
+first orbit view of the state below) and on a float32 training step's rows
+(below), or with ``--random`` on chip_smoke.random_shade_attrs's rows.
+Printed per source and row set: ms per launch of each call, the error of
+rgb and soft against the plain twin (chip_smoke.TOL_SHADE), whether hard,
+fid and win are the twin's exactly and M within TOL_SHADE of it relative to
+max(1, |M|), whether the call with residuals gives the call without's four
+outputs, whether two launches give the same bits, and whether its six
+outputs are the first source's bits.
 
 Versions of the splat compositor's forward (kernel 1): each COMPOSITE.cu
 exports ``composite_tiles_launch``, with the residual pointer S, or with
@@ -218,6 +233,92 @@ def random_rows(torch, chip_smoke, dev):
     return a, g, gs, geo, MK.shade_tiles(a, *geo, residuals=True)[4:]
 
 
+def shade_fwd_launcher(torch, lib):
+    """The version's kernel 3 on (attrs, geometry) → (rgb, hard, soft, fid)
+    and, with ``residuals``, (win, M)."""
+    fn = lib.shade_tiles_launch
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(attrs, tiles_x, tile_h, tile_w, sigma, residuals=False):
+        T, K, _ = attrs.shape
+        P = tile_h * tile_w
+        f32 = dict(dtype=torch.float32, device=attrs.device)
+        out = (torch.empty((T, P, 3), **f32),) + tuple(torch.empty((T, P), **f32)
+                                                      for _ in range(3))
+        res = ((torch.empty((T, P), dtype=torch.int32, device=attrs.device),
+                torch.empty((T, P), **f32)) if residuals else ())
+        err = fn(attrs.data_ptr(), *(x.data_ptr() for x in out),
+                 *([x.data_ptr() for x in res] or [None, None]),
+                 T, K, tiles_x, tile_h, tile_w, float(sigma),
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"shade_tiles_launch failed with cudaError {err}")
+        return out + res
+    return run
+
+
+def render_rows(torch, chip_smoke, dev):
+    """Kernel 3's arguments in chip_smoke.py's render of view 0: rows and
+    geometry."""
+    from dgmesh_torch.eval.testing import render_frame_with_aux
+    from dgmesh_torch.ops import mesh_raster_kernels as MK
+    from dgmesh_torch.train.step import StepContext
+    cfg = chip_smoke.load_cfg()
+    ctx = StepContext(cfg, chip_smoke.IMG, chip_smoke.IMG, device=dev)
+    state = chip_smoke.build_shell_state(torch, cfg, chip_smoke.N_GAUSS, dev)
+    batch = chip_smoke.view_batches(chip_smoke.IMG, chip_smoke.IMG, chip_smoke.N_VIEWS, dev)[0]
+    with torch.no_grad():
+        _, _, args = chip_smoke.call_by_stage(
+            torch, [(MK, "shade_tiles", "shade_kernel")],
+            lambda: render_frame_with_aux(ctx, state, batch, cfg.model.sh_degree), 1)
+    return args["shade_kernel"][0], tuple(args["shade_kernel"][1:5])
+
+
+def shade_fwd_main(torch, chip_smoke, libs, dev) -> int:
+    """Kernel 3's versions (module docstring)."""
+    from dgmesh_torch.ops import mesh_raster_kernels as MK
+    if "--random" in sys.argv[1:]:
+        a, _, _, geo, _ = random_rows(torch, chip_smoke, dev)
+        sets = [("random rows", a, geo)]
+    else:
+        a, _, _, geo, _ = training_rows(torch, chip_smoke, dev)
+        sets = [("render view 0's rows", *render_rows(torch, chip_smoke, dev)),
+                ("a float32 step's rows", a, geo)]
+    runs = {src: shade_fwd_launcher(torch, lib) for src, (lib, _) in libs.items()}
+    for what, a, geo in sets:
+        valid = (a[..., 9] > 0.5).sum(1)
+        print(f"# {what} {tuple(a.shape)}: {int(valid.sum())} valid in "
+              f"{int((valid > 0).sum())} tiles, largest tile {int(valid.max())}, tiles at K "
+              f"{int((valid == a.shape[1]).sum())}", flush=True)
+        want = MK.shade_tiles_ref(a, *geo, residuals=True)
+        times = {mode: timed_rounds(torch, chip_smoke, runs,
+                                    lambda src: runs[src](a, *geo, residuals=mode))
+                 for mode in (False, True)}
+        first = None
+        for src, run in runs.items():
+            got, again = run(a, *geo, residuals=True), run(a, *geo, residuals=True)
+            plain = run(a, *geo)
+            first = got if first is None else first
+            err = chip_smoke.max_err((got[0], got[2]), (want[0], want[2]))
+            exact = all(bool(torch.equal(got[i], want[i])) for i in (1, 3, 4))
+            m_ok = bool(((got[5] - want[5]).abs()
+                         <= chip_smoke.TOL_SHADE * want[5].abs().clamp_min(1.0)).all())
+            ok = err <= chip_smoke.TOL_SHADE and exact and m_ok
+            same = lambda x, y: all(bool(torch.equal(u, v)) for u, v in zip(x, y))
+            print(f"# {src}: render {' / '.join(f'{t:.4f}' for t in times[False][src])}, "
+                  f"training {' / '.join(f'{t:.4f}' for t in times[True][src])} ms/launch; "
+                  f"rgb, soft max_abs_err {err:.3g}; hard, fid, win "
+                  f"{'exact' if exact else 'NOT EXACT'}, M {'ok' if m_ok else 'off'}: "
+                  f"{'agrees' if ok else 'DISAGREES'} with the twin; without residuals "
+                  f"{'the same' if same(plain, got[:4]) else 'OTHER'} outputs; two launches "
+                  f"{'identical' if same(got, again) else 'DIFFERENT'}; "
+                  f"{'the same bits as' if same(got, first) else 'OTHER bits than'} "
+                  f"the first source", flush=True)
+        del want
+    return 0
+
+
 def composite_launcher(torch, lib, res):
     """The version's kernel 2 on (attrs, g_rgb, g_alpha, geometry), through
     its residual entry point with ``res`` (rgb, S) where it has one."""
@@ -398,6 +499,8 @@ def main() -> int:
     dev = torch.device("cuda")
     if all(hasattr(lib, "mlp_fwd_launch") for lib, _ in libs.values()):
         return trunk_fwd_main(torch, chip_smoke, libs, transposed, dev)
+    if all(hasattr(lib, "shade_tiles_launch") for lib, _ in libs.values()):
+        return shade_fwd_main(torch, chip_smoke, libs, dev)
     if all(hasattr(lib, "composite_tiles_launch") for lib, _ in libs.values()):
         return composite_fwd_main(torch, chip_smoke, libs, no_s, dev)
     if all(hasattr(lib, "composite_bwd_launch") or hasattr(lib, "composite_bwd_res_launch")
