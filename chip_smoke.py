@@ -18,7 +18,10 @@ Phases; any failure exits non-zero and prints no result:
                 backward splits gradients in half; the splat backward with
                 and without kernel 1's residuals, launched twice for
                 identical bits, and at COMPOSITE_EDGE_SHAPES; the shade
-                backward also at SHADE_EDGE_SHAPES); the fused trunk
+                forward with and without its residuals, launched twice for
+                identical bits, on random rows, on rows with built ties
+                and at SHADE_EDGE_SHAPES, where the shade backward is held
+                too); the fused trunk
                 (kernels 5 and 6) at 131,072 and 479,966 (ragged) rows,
                 each launched twice there for identical bits and kernel
                 6's two passes timed apart, then at the shapes their
@@ -43,7 +46,8 @@ Phases; any failure exits non-zero and prints no result:
                 cotangents they got inside the step (each cotangent scaled
                 to a largest |value| of 1), the splat backward through kernel
                 1's residuals as the step calls it, both backward kernels
-                launched twice there for identical bits; all four kernels
+                launched twice there for identical bits, and the shade
+                forward held on the step's rows too; all four kernels
                 timed, each
                 beside the bound of the work its function needs on these
                 rows;
@@ -591,10 +595,12 @@ def compare_composite(torch, SK, attrs, geo):
 def compare_shade(torch, MK, attrs, geo, sigma):
     """Kernel 3 against its twin; and with its residuals against without:
     the four outputs the same bits, the winner rows equal to the twin's,
-    M within TOL_SHADE of the twin's relative to max(1, |M|).  Returns (max
-    abs err of rgb and soft, ok, fid mismatches, residuals ok)."""
+    M within TOL_SHADE of the twin's relative to max(1, |M|); and launched
+    twice with its residuals: the same bits.  Returns (max abs err of rgb
+    and soft, ok, fid mismatches, residuals ok, twice identical)."""
     got = MK.shade_tiles(attrs, *geo, sigma)
     res = MK.shade_tiles(attrs, *geo, sigma, residuals=True)
+    again = MK.shade_tiles(attrs, *geo, sigma, residuals=True)
     want = MK.shade_tiles_ref(attrs, *geo, sigma, residuals=True)
     torch.cuda.synchronize()
     err = max_err((got[0], got[2]), (want[0], want[2]))
@@ -605,7 +611,24 @@ def compare_shade(torch, MK, attrs, geo, sigma):
     res_ok = (all(bool(torch.equal(x, y)) for x, y in zip(got, res[:4]))
               and bool(torch.equal(res[4], want[4]))
               and bool(((res[5] - want[5]).abs() <= m_tol).all()))
-    return err, ok, n_fid, res_ok
+    same = all(bool(torch.equal(x, y)) for x, y in zip(res, again))
+    return err, ok, n_fid, res_ok, same
+
+
+def check_shade(torch, MK, attrs, geo, sigma, what, errs, failures):
+    """compare_shade, logged; a failure of any part is recorded."""
+    e, ok, nf, res_ok, same = compare_shade(torch, MK, attrs, geo, sigma)
+    errs["shade_tiles"].append(e)
+    log(f"# kernels/{what} {tuple(attrs.shape)} max_abs_err {e:.3g} (tol {TOL_SHADE}; "
+        f"hard/fid exact, {nf} fid mismatches) {'ok' if ok else 'FAIL'}; with residuals: "
+        f"{'the same outputs, residuals ok' if res_ok else 'FAIL'}; twice "
+        f"{'identical' if same else 'DIFFERENT'}")
+    if not ok:
+        failures.append(f"shade_tiles vs twin ({what})")
+    if not res_ok:
+        failures.append(f"shade_tiles residuals ({what})")
+    if not same:
+        failures.append(f"shade_tiles not deterministic ({what})")
 
 
 # ---------------------------------------------------------------------------
@@ -820,15 +843,7 @@ def main() -> int:
         failures.append("composite_tiles residuals (random)")
     a2 = torch.as_tensor(random_shade_attrs(rng, mc.num_tiles, mc.max_per_tile,
                                             mc.tiles_x, mc.tile_w), device=dev)
-    e, ok, nf, res_ok = compare_shade(torch, MK, a2, geo_m, mc.sigma)
-    errs["shade_tiles"].append(e)
-    log(f"# kernels/random: shade_tiles {tuple(a2.shape)} max_abs_err {e:.3g} "
-        f"(tol {TOL_SHADE}; hard/fid exact, {nf} fid mismatches) {'ok' if ok else 'FAIL'}; "
-        f"with residuals: {'the same outputs, residuals ok' if res_ok else 'FAIL'}")
-    if not ok:
-        failures.append("shade_tiles vs twin (random)")
-    if not res_ok:
-        failures.append("shade_tiles residuals (random)")
+    check_shade(torch, MK, a2, geo_m, mc.sigma, "random: shade_tiles", errs, failures)
     P = sc.tile_h * sc.tile_w
     errs["composite_bwd"], errs["shade_bwd"] = [], []
     g1, g2 = (torch.as_tensor(x, device=dev) for x in cotangents(rng, sc.num_tiles, P))
@@ -844,6 +859,8 @@ def main() -> int:
     a3 = torch.as_tensor(shade_tie_attrs(rng, mc.num_tiles, mc.max_per_tile,
                                          mc.tiles_x, mc.tile_w), device=dev)
     g3, g4 = (torch.as_tensor(x, device=dev) for x in cotangents(rng, mc.num_tiles, P))
+    check_shade(torch, MK, a3, geo_m, mc.sigma, "random: shade_tiles with built ties", errs,
+                failures)
     check_shade_bwd(torch, MK, a3, g3, g4, geo_m + (mc.sigma,),
                     "random: shade_bwd with built ties", errs, failures)
     # ... and at the shapes that are special to its compaction and row sums
@@ -852,6 +869,8 @@ def main() -> int:
         erng = np.random.default_rng(K)   # the CPU test's rows
         ae = torch.as_tensor(shade_edge_attrs(erng, case, K, nt, 2, mc.tile_w), device=dev)
         ge, gse = (torch.as_tensor(x, device=dev) for x in cotangents(erng, nt, P))
+        check_shade(torch, MK, ae, (2, mc.tile_h, mc.tile_w), mc.sigma,
+                    f"edge: shade_tiles {case}", errs, failures)
         check_shade_bwd(torch, MK, ae, ge, gse, (2, mc.tile_h, mc.tile_w, mc.sigma),
                         f"edge: shade_bwd {case}", errs, failures)
     # kernels 5 and 6 (the fused trunk) at the step's row counts, din 93
@@ -1016,15 +1035,7 @@ def main() -> int:
         failures.append("composite_tiles vs twin (view 0)")
     if not res_ok:
         failures.append("composite_tiles residuals (view 0)")
-    e, ok, nf, res_ok = compare_shade(torch, MK, ra2, geo_m, mc.sigma)
-    errs["shade_tiles"].append(e)
-    log(f"# kernels/view0: shade_tiles {tuple(ra2.shape)} max_abs_err {e:.3g} "
-        f"({nf} fid mismatches) {'ok' if ok else 'FAIL'}; with residuals: "
-        f"{'the same outputs, residuals ok' if res_ok else 'FAIL'}")
-    if not ok:
-        failures.append("shade_tiles vs twin (view 0)")
-    if not res_ok:
-        failures.append("shade_tiles residuals (view 0)")
+    check_shade(torch, MK, ra2, geo_m, mc.sigma, "view0: shade_tiles", errs, failures)
 
     P = sc.tile_h * sc.tile_w
     T1, K1 = ra1.shape[:2]
@@ -1114,6 +1125,7 @@ def main() -> int:
                         "the config's")
     check_composite_bwd(torch, SK, ca, cg, cga, geo_s, "train: composite_bwd", errs, failures,
                         c_res)
+    check_shade(torch, MK, sa, geo_m, mc.sigma, "train: shade_tiles", errs, failures)
     check_shade_bwd(torch, MK, sa, sg, sgs, geo_m + (mc.sigma,), "train: shade_bwd", errs,
                     failures, s_res)
     # kernel 4 twice on the same rows, as the step calls it: fixed-order

@@ -114,6 +114,8 @@ def shade_tiles(attrs: torch.Tensor, tiles_x: int, tile_h: int, tile_w: int,
     T, K, _ = attrs.shape
     P = tile_h * tile_w
     cuda_build.check_launch(K, P, "shade_tiles", attrs)
+    if attrs.data_ptr() % 16:
+        raise ValueError("shade_tiles: attrs must be 16-byte aligned (its rows are read as float4)")
     f32 = dict(dtype=torch.float32, device=attrs.device)
     rgb = torch.empty((T, P, 3), **f32)
     hard = torch.empty((T, P), **f32)
