@@ -873,6 +873,12 @@ def main() -> int:
                     f"edge: shade_tiles {case}", errs, failures)
         check_shade_bwd(torch, MK, ae, ge, gse, (2, mc.tile_h, mc.tile_w, mc.sigma),
                         f"edge: shade_bwd {case}", errs, failures)
+    # ... and at 12x12 tiles: 144 pixel threads, not whole warps, in rows
+    # (kernel 3 takes 8x4 pixel blocks a warp only where the tile divides)
+    a12 = torch.as_tensor(random_shade_attrs(np.random.default_rng(12), SHADE_EDGE_TILES, 40,
+                                             2, 12), device=dev)
+    check_shade(torch, MK, a12, (2, 12, 12), mc.sigma, "edge: shade_tiles 12x12 tiles", errs,
+                failures)
     # kernels 5 and 6 (the fused trunk) at the step's row counts, din 93
     from dgmesh_torch.ops import mlp_fused as MF
     errs["trunk_fwd"], errs["trunk_bwd"] = [], []
