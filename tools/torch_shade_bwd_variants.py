@@ -26,11 +26,19 @@ outputs are the first source's bits.
 Versions of the splat compositor's forward (kernel 1): each COMPOSITE.cu
 exports ``composite_tiles_launch``, with the residual pointer S, or with
 the ``:noS`` suffix without it (kernel 1's signature before it wrote S).
-On kernel 2's rows (below) each is timed as a render calls it (no S), in
-two rounds; printed: its error against the plain twin, whether its rgb and
-alpha are the first source's bits, and for a version with S whether
-asking for S leaves rgb and alpha the same bits and S within
-chip_smoke.TOL_COMPOSITE of the twin's, relative to max(1, |S|).
+Each is timed as a render calls it (no S) and as training calls it (with
+S), in two rounds, the second in reverse order, on render view 0's rows
+(chip_smoke.py's phase 4b, the rows its kernels line times) and on a
+float32 training step's rows (kernel 2's, below), or with ``--random`` on
+chip_smoke.py's random composite rows.  Printed per row set: its valid
+rows and tiles, the (pixel, valid row) pairs that pass the alpha gate, and
+the (warp, valid row) pairs in which some pixel passes, for warps of 8x4
+pixels and of two 16-pixel rows; then per source: ms per launch of each
+call, the error of rgb and alpha against the plain twin
+(chip_smoke.TOL_COMPOSITE), whether S is within it of the twin's relative
+to max(1, |S|) and asking for S leaves rgb and alpha the same bits, whether
+two launches give the same bits, and whether rgb, alpha and S are the
+first source's bits.
 
 Versions of the splat compositor's backward: each COMPOSITE_BWD.cu is a
 version of ``dgmesh_torch/csrc/composite_bwd.cu`` that exports
@@ -258,9 +266,11 @@ def shade_fwd_launcher(torch, lib):
     return run
 
 
-def render_rows(torch, chip_smoke, dev):
-    """Kernel 3's arguments in chip_smoke.py's render of view 0: rows and
-    geometry."""
+def render_rows(torch, chip_smoke, dev, owner=None, attr="shade_tiles", n_geo=4):
+    """A kernel's arguments in chip_smoke.py's render of view 0: rows and
+    geometry; kernel 3's (``owner`` mesh_raster_kernels, ``shade_tiles``,
+    four geometry arguments) or kernel 1's (splat_kernels,
+    ``composite_tiles``, three)."""
     from dgmesh_torch.eval.testing import render_frame_with_aux
     from dgmesh_torch.ops import mesh_raster_kernels as MK
     from dgmesh_torch.train.step import StepContext
@@ -270,9 +280,9 @@ def render_rows(torch, chip_smoke, dev):
     batch = chip_smoke.view_batches(chip_smoke.IMG, chip_smoke.IMG, chip_smoke.N_VIEWS, dev)[0]
     with torch.no_grad():
         _, _, args = chip_smoke.call_by_stage(
-            torch, [(MK, "shade_tiles", "shade_kernel")],
+            torch, [(owner or MK, attr, "kernel")],
             lambda: render_frame_with_aux(ctx, state, batch, cfg.model.sh_degree), 1)
-    return args["shade_kernel"][0], tuple(args["shade_kernel"][1:5])
+    return args["kernel"][0], tuple(args["kernel"][1:1 + n_geo])
 
 
 def shade_fwd_main(torch, chip_smoke, libs, dev) -> int:
@@ -394,32 +404,103 @@ def composite_fwd_launcher(torch, lib, with_s):
     return run
 
 
+def composite_block_stats(torch, SK, a, geo, chunk=50):
+    """(pixel, row) pairs of valid rows and of those that pass kernel 1's
+    gate; and per warp layout (8x4 pixel blocks, or two 16-pixel rows of a
+    16x16 tile) the (warp, valid row) pairs and those where some pixel of the
+    warp passes: how much a warp-uniform skip of a row could leave out; and
+    the 8x4 blocks that meet the bounding box of the row's gate ellipse."""
+    T, K, _ = a.shape
+    tiles_x, th, tw = geo
+    px, py = SK.tile_pixels(T, tiles_x, th, tw, 0.0, a.device)
+    n = {"valid": 0, "pass": 0, "8x4 warps": [0, 0], "16x2 warps": [0, 0], "8x4 boxes": 0}
+    with torch.no_grad():
+        for s in range(0, T, chunk):
+            at = a[s:s + chunk]
+            dx = at[..., 0:1] - px[s:s + chunk, None]
+            dy = at[..., 1:2] - py[s:s + chunk, None]
+            pw = -0.5 * (at[..., 2:3] * dx * dx + at[..., 4:5] * dy * dy) - at[..., 3:4] * dx * dy
+            al = torch.clamp_max(at[..., 5:6] * torch.exp(pw), SK.ALPHA_MAX)
+            valid = at[..., 9] > 0.5
+            ok = (pw <= 0) & (al >= SK.ALPHA_MIN) & valid[..., None]
+            n["valid"] += int(valid.sum()) * th * tw
+            n["pass"] += int(ok.sum())
+            if (th, tw) == (16, 16):
+                c = ok.shape[0]
+                blk = ok.reshape(c, K, 4, 4, 2, 8).any(5).any(3)
+                row = ok.reshape(c, K, 8, 32).any(3)
+                for key, b in (("8x4 warps", blk), ("16x2 warps", row)):
+                    n[key][0] += int(valid.sum()) * 8
+                    n[key][1] += int(b.sum())
+                # the gate's ellipse o e^power >= 1/255 has the bounding box
+                # |dx| <= sqrt(R2 c / det), |dy| <= sqrt(R2 a / det), with
+                # R2 = 2 ln(255 o): the 8x4 blocks a box test leaves in
+                d = at.double()
+                ca, cb, cc, o = d[..., 2], d[..., 3], d[..., 4], d[..., 5]
+                det = ca * cc - cb * cb
+                r2 = 2.0 * torch.log(o / SK.ALPHA_MIN)
+                hx = torch.sqrt((r2 * cc / det).clamp_min(0.0))[..., None, None]
+                hy = torch.sqrt((r2 * ca / det).clamp_min(0.0))[..., None, None]
+                x0 = px[s:s + chunk].reshape(c, 4, 4, 2, 8)[:, 0, 0, :, 0].double()
+                y0 = py[s:s + chunk].reshape(c, 4, 4, 2, 8)[:, :, 0, 0, 0].double()
+                x0, y0 = x0[:, None, None, :], y0[:, None, :, None]
+                mx, my = d[..., 0][..., None, None], d[..., 1][..., None, None]
+                keep = ((x0 + 7 >= mx - hx) & (x0 <= mx + hx) & (y0 + 3 >= my - hy)
+                        & (y0 <= my + hy) & (r2 >= 0)[..., None, None])
+                n["8x4 boxes"] += int((keep & valid[..., None, None]).sum())
+    return n
+
+
 def composite_fwd_main(torch, chip_smoke, libs, no_s, dev) -> int:
     """Kernel 1's versions (module docstring); those in ``no_s`` take no S."""
     from dgmesh_torch.ops import splat_kernels as SK
-    a, _, _, geo, _ = composite_rows(torch, chip_smoke, dev, "--random" in sys.argv[1:], False)
-    print(f"# composite rows {tuple(a.shape)}: {int((a[..., 9] > 0.5).sum())} valid", flush=True)
-    want = SK.composite_tiles_ref(a, *geo, residuals=True)
+    if "--random" in sys.argv[1:]:
+        a, _, _, geo, _ = composite_rows(torch, chip_smoke, dev, True, False)
+        sets = [("random rows", a, geo)]
+    else:
+        a, _, _, geo, _ = composite_rows(torch, chip_smoke, dev, False, False)
+        sets = [("render view 0's rows",
+                 *render_rows(torch, chip_smoke, dev, SK, "composite_tiles", 3)),
+                ("a float32 step's rows", a, geo)]
     runs = {src: composite_fwd_launcher(torch, lib, src not in no_s)
             for src, (lib, _) in libs.items()}
-    times = timed_rounds(torch, chip_smoke, runs, lambda src: runs[src](a, *geo))
-    first = None
-    for src, run in runs.items():
-        rgb, alpha, _ = run(a, *geo)
-        first = (rgb, alpha) if first is None else first
-        err = chip_smoke.max_err((rgb, alpha), want[:2])
-        same = torch.equal(rgb, first[0]) and torch.equal(alpha, first[1])
-        line = (f"# {src}: {' / '.join(f'{t:.4f}' for t in times[src])} ms/launch; rgb, alpha "
-                f"max_abs_err {err:.3g} against the twin; "
-                f"{'the same bits as' if same else 'OTHER bits than'} the first source")
-        if src not in no_s:
-            rgb_s, alpha_s, S = run(a, *geo, s_out=True)
-            s_ok = bool(((S - want[2]).abs()
-                         <= chip_smoke.TOL_COMPOSITE * want[2].abs().clamp_min(1.0)).all())
-            line += (f"; with S: rgb, alpha "
-                     f"{'the same bits' if torch.equal(rgb_s, rgb) and torch.equal(alpha_s, alpha) else 'DIFFERENT'}"
-                     f", S {'agrees' if s_ok else 'DISAGREES'} with the twin")
-        print(line, flush=True)
+    for what, a, geo in sets:
+        valid = (a[..., 9] > 0.5).sum(1)
+        st = composite_block_stats(torch, SK, a, geo)
+        print(f"# {what} {tuple(a.shape)}: {int(valid.sum())} valid in "
+              f"{int((valid > 0).sum())} tiles, largest tile {int(valid.max())}, tiles at K "
+              f"{int((valid == a.shape[1]).sum())}; (pixel, valid row) pairs {st['valid']}, "
+              f"{st['pass']} passing; (warp, valid row) pairs with a passing pixel: "
+              + ", ".join(f"{k} {st[k][1]} of {st[k][0]}" for k in ("8x4 warps", "16x2 warps"))
+              + f"; 8x4 warps inside the gate ellipse's bounding box {st['8x4 boxes']}",
+              flush=True)
+        want = SK.composite_tiles_ref(a, *geo, residuals=True)
+        times = {mode: timed_rounds(torch, chip_smoke, runs,
+                                    lambda src: runs[src](a, *geo, s_out=mode))
+                 for mode in (False, True)}
+        first = None
+        for src, run in runs.items():
+            got, again = run(a, *geo, s_out=True), run(a, *geo, s_out=True)
+            plain = run(a, *geo)
+            first = got if first is None else first
+            err = chip_smoke.max_err(got[:2], want[:2])
+            same = lambda x, y: all(u is None or v is None or bool(torch.equal(u, v))
+                                    for u, v in zip(x, y))
+            line = (f"# {src}: render {' / '.join(f'{t:.4f}' for t in times[False][src])}, "
+                    f"training {' / '.join(f'{t:.4f}' for t in times[True][src])} ms/launch; "
+                    f"rgb, alpha max_abs_err {err:.3g} "
+                    f"{'agrees' if err <= chip_smoke.TOL_COMPOSITE else 'DISAGREES'} with the "
+                    f"twin")
+            if got[2] is not None:
+                s_ok = bool(((got[2] - want[2]).abs()
+                             <= chip_smoke.TOL_COMPOSITE * want[2].abs().clamp_min(1.0)).all())
+                line += (f", S {'agrees' if s_ok else 'DISAGREES'}; without S "
+                         f"{'the same' if same(plain[:2], got[:2]) else 'OTHER'} rgb, alpha")
+            line += (f"; two launches {'identical' if same(got, again) else 'DIFFERENT'}; "
+                     f"{'the same bits as' if same(got, first) else 'OTHER bits than'} "
+                     f"the first source")
+            print(line, flush=True)
+        del want
     return 0
 
 
