@@ -17,7 +17,10 @@ Phases; any failure exits non-zero and prints no result:
                 kernels random cotangents, and built ties where the shade
                 backward splits gradients in half; the splat backward with
                 and without kernel 1's residuals, launched twice for
-                identical bits, and at COMPOSITE_EDGE_SHAPES; the shade
+                identical bits, and at COMPOSITE_EDGE_SHAPES, where kernel
+                1 is held too (with and without S, launched twice for
+                identical bits, as on the random, view 0 and step rows),
+                and kernel 1 also at 12x12 tiles; the shade
                 forward with and without its residuals, launched twice for
                 identical bits, on random rows, on rows with built ties
                 and at SHADE_EDGE_SHAPES, where the shade backward is held
@@ -576,12 +579,13 @@ def max_err(a, b):
 
 
 def compare_composite(torch, SK, attrs, geo):
-    """Kernel 1 against its twin; and with its residual S against without:
-    rgb and alpha the same bits, S within TOL_COMPOSITE of the twin's
-    relative to max(1, |S|).  Returns (max abs err of rgb and alpha, ok,
-    residual ok)."""
+    """Kernel 1 against its twin; with its residual S against without: rgb
+    and alpha the same bits, S within TOL_COMPOSITE of the twin's relative
+    to max(1, |S|); and launched twice with S: the same bits.  Returns (max
+    abs err of rgb and alpha, ok, residual ok, twice identical)."""
     got = SK.composite_tiles(attrs, *geo)
     res = SK.composite_tiles(attrs, *geo, residuals=True)
+    again = SK.composite_tiles(attrs, *geo, residuals=True)
     want = SK.composite_tiles_ref(attrs, *geo, residuals=True)
     torch.cuda.synchronize()
     err = max_err(got, want[:2])
@@ -589,7 +593,24 @@ def compare_composite(torch, SK, attrs, geo):
     s_tol = TOL_COMPOSITE * want[2].abs().clamp_min(1.0)
     res_ok = (all(bool(torch.equal(x, y)) for x, y in zip(got, res[:2]))
               and bool(((res[2] - want[2]).abs() <= s_tol).all()))
-    return err, ok, res_ok
+    same = all(bool(torch.equal(x, y)) for x, y in zip(res, again))
+    return err, ok, res_ok, same
+
+
+def check_composite(torch, SK, attrs, geo, what, errs, failures):
+    """compare_composite, logged; a failure of any part is recorded."""
+    e, ok, res_ok, same = compare_composite(torch, SK, attrs, geo)
+    errs["composite_tiles"].append(e)
+    log(f"# kernels/{what} {tuple(attrs.shape)} max_abs_err {e:.3g} (tol {TOL_COMPOSITE}) "
+        f"{'ok' if ok else 'FAIL'}; with residuals: "
+        f"{'the same outputs, S ok' if res_ok else 'FAIL'}; twice "
+        f"{'identical' if same else 'DIFFERENT'}")
+    if not ok:
+        failures.append(f"composite_tiles vs twin ({what})")
+    if not res_ok:
+        failures.append(f"composite_tiles residuals ({what})")
+    if not same:
+        failures.append(f"composite_tiles not deterministic ({what})")
 
 
 def compare_shade(torch, MK, attrs, geo, sigma):
@@ -832,15 +853,7 @@ def main() -> int:
     errs = {"composite_tiles": [], "shade_tiles": []}
     a1 = torch.as_tensor(random_composite_attrs(rng, sc.num_tiles, sc.max_per_tile,
                                                 sc.tiles_x, sc.tile_w), device=dev)
-    e, ok, res_ok = compare_composite(torch, SK, a1, geo_s)
-    errs["composite_tiles"].append(e)
-    log(f"# kernels/random: composite_tiles {tuple(a1.shape)} max_abs_err {e:.3g} "
-        f"(tol {TOL_COMPOSITE}) {'ok' if ok else 'FAIL'}; with residuals: "
-        f"{'the same outputs, S ok' if res_ok else 'FAIL'}")
-    if not ok:
-        failures.append("composite_tiles vs twin (random)")
-    if not res_ok:
-        failures.append("composite_tiles residuals (random)")
+    check_composite(torch, SK, a1, geo_s, "random: composite_tiles", errs, failures)
     a2 = torch.as_tensor(random_shade_attrs(rng, mc.num_tiles, mc.max_per_tile,
                                             mc.tiles_x, mc.tile_w), device=dev)
     check_shade(torch, MK, a2, geo_m, mc.sigma, "random: shade_tiles", errs, failures)
@@ -848,14 +861,23 @@ def main() -> int:
     errs["composite_bwd"], errs["shade_bwd"] = [], []
     g1, g2 = (torch.as_tensor(x, device=dev) for x in cotangents(rng, sc.num_tiles, P))
     check_composite_bwd(torch, SK, a1, g1, g2, geo_s, "random: composite_bwd", errs, failures)
-    # ... and at the shapes that are special to its compaction, gates and sums
+    # ... and, with kernel 1, at the shapes that are special to their
+    # compaction, gates and sums
     for case, K in COMPOSITE_EDGE_SHAPES:
         nt = COMPOSITE_EDGE_TILES
         erng = np.random.default_rng(K)   # the CPU test's rows
         ae = torch.as_tensor(composite_edge_attrs(erng, case, K, nt, 2, sc.tile_w), device=dev)
         ge, gae = (torch.as_tensor(x, device=dev) for x in cotangents(erng, nt, P))
+        check_composite(torch, SK, ae, (2, sc.tile_h, sc.tile_w), f"edge: composite_tiles {case}",
+                        errs, failures)
         check_composite_bwd(torch, SK, ae, ge, gae, (2, sc.tile_h, sc.tile_w),
                             f"edge: composite_bwd {case}", errs, failures)
+    # ... and kernel 1 at 12x12 tiles: 144 pixel threads, not whole warps, in
+    # rows, over two batches of valid rows
+    a12 = torch.as_tensor(random_composite_attrs(np.random.default_rng(12), COMPOSITE_EDGE_TILES,
+                                                 200, 2, 12), device=dev)
+    check_composite(torch, SK, a12, (2, 12, 12), "edge: composite_tiles 12x12 tiles", errs,
+                    failures)
     a3 = torch.as_tensor(shade_tie_attrs(rng, mc.num_tiles, mc.max_per_tile,
                                          mc.tiles_x, mc.tile_w), device=dev)
     g3, g4 = (torch.as_tensor(x, device=dev) for x in cotangents(rng, mc.num_tiles, P))
@@ -1032,15 +1054,7 @@ def main() -> int:
     ra1, ra2 = args["composite_kernel"][0], args["shade_kernel"][0]
     if args["composite_kernel"][1:] != geo_s or args["shade_kernel"][1:] != geo_m + (mc.sigma,):
         failures.append("kernels called with another geometry than the config's")
-    e, ok, res_ok = compare_composite(torch, SK, ra1, geo_s)
-    errs["composite_tiles"].append(e)
-    log(f"# kernels/view0: composite_tiles {tuple(ra1.shape)} max_abs_err {e:.3g} "
-        f"{'ok' if ok else 'FAIL'}; with residuals: "
-        f"{'the same outputs, S ok' if res_ok else 'FAIL'}")
-    if not ok:
-        failures.append("composite_tiles vs twin (view 0)")
-    if not res_ok:
-        failures.append("composite_tiles residuals (view 0)")
+    check_composite(torch, SK, ra1, geo_s, "view0: composite_tiles", errs, failures)
     check_shade(torch, MK, ra2, geo_m, mc.sigma, "view0: shade_tiles", errs, failures)
 
     P = sc.tile_h * sc.tile_w
@@ -1129,6 +1143,14 @@ def main() -> int:
             or args["shade_bwd_kernel"][3:7] != geo_m + (mc.sigma,) or len(s_res) != 2):
         failures.append("backward kernels called with another geometry or residuals than "
                         "the config's")
+    check_composite(torch, SK, ca, geo_s, "train: composite_tiles", errs, failures)
+    # the step's own rgb and S are kernel 1's on these rows, bit for bit
+    same = all(bool(torch.equal(x, y)) for x, y in
+               zip(c_res, SK.composite_tiles(ca, *geo_s, residuals=True)[0::2]))
+    log(f"# kernels/train: composite_tiles again on the step's rows: "
+        f"{'the step' if same else 'NOT the step'}'s rgb and S")
+    if not same:
+        failures.append("composite_tiles on the step's rows gives other rgb or S than the step")
     check_composite_bwd(torch, SK, ca, cg, cga, geo_s, "train: composite_bwd", errs, failures,
                         c_res)
     check_shade(torch, MK, sa, geo_m, mc.sigma, "train: shade_tiles", errs, failures)

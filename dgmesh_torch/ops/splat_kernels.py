@@ -81,6 +81,9 @@ def composite_tiles(attrs: torch.Tensor, tiles_x: int, tile_h: int, tile_w: int,
     T, K, _ = attrs.shape
     P = tile_h * tile_w
     cuda_build.check_launch(K, P, "composite_tiles", attrs)
+    if attrs.data_ptr() % 16:
+        raise ValueError("composite_tiles: attrs must be 16-byte aligned (its rows are read "
+                         "as float4)")
     f32 = dict(dtype=torch.float32, device=attrs.device)
     rgb = torch.empty((T, P, 3), **f32)
     alpha = torch.empty((T, P), **f32)

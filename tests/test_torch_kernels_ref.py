@@ -45,6 +45,32 @@ def test_composite_twin_matches_pallas(seed, K):
     assert float(got[1].max()) > 0.5          # the rows do cover pixels
 
 
+@pytest.mark.parametrize("case,K", chip_smoke.COMPOSITE_EDGE_SHAPES)
+def test_composite_twin_matches_pallas_at_edge_shapes(case, K):
+    """The twin against the Pallas kernel at the shapes chip_smoke.py also
+    holds the CUDA kernel to (one row, a ragged K, a tile with no valid row,
+    every row valid, valid rows interleaved with invalid ones, rows at the
+    0.99 clamp, a pixel whose T falls to 0), over 2 tiles at the card's
+    seeds: rgb and alpha within abs 1e-5 (sums in another order, as above);
+    a tile with no valid row exactly 0; S finite and alpha = 1 - e^S."""
+    rng = np.random.default_rng(K)
+    nt = chip_smoke.COMPOSITE_EDGE_TILES
+    a = chip_smoke.composite_edge_attrs(rng, case, K, nt, 2, TILE)
+    want = composite_tiles_pallas(jnp.asarray(a), 2, TILE, TILE, interpret=True)
+    rgb, alpha, S = SK.composite_tiles_ref(torch.as_tensor(a), 2, TILE, TILE, residuals=True)
+    for g, w in zip((rgb, alpha), want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-5)
+    assert torch.isfinite(S).all() and torch.equal(alpha, 1.0 - torch.exp(S))
+    valid = a[..., 9] > 0.5
+    if case == "all invalid":
+        assert not valid[0].any() and valid[1].any()
+        assert not rgb[0].any() and not alpha[0].any() and not S[0].any()
+    if case == "T to 0":
+        assert float(alpha.max()) == 1.0                # T fell below float32's range
+    else:
+        assert float(alpha.max()) > 0.0                 # the rows do cover pixels
+
+
 @pytest.mark.parametrize("seed,K,sigma", [(0, 32, 1.0), (1, 48, 0.7), (2, 64, 1.5)])
 def test_shade_twin_matches_pallas(seed, K, sigma):
     """rgb and soft abs 1e-5 (sums over K in another order); hard coverage
