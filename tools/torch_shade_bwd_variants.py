@@ -33,7 +33,8 @@ float32 training step's rows (kernel 2's, below), or with ``--random`` on
 chip_smoke.py's random composite rows.  Printed per row set: its valid
 rows and tiles, the (pixel, valid row) pairs that pass the alpha gate, and
 the (warp, valid row) pairs in which some pixel passes, for warps of 8x4
-pixels and of two 16-pixel rows; then per source: ms per launch of each
+pixels and of two 16-pixel rows, and the 8x4 warps that meet the bounding
+box of the row's gate ellipse; then per source: ms per launch of each
 call, the error of rgb and alpha against the plain twin
 (chip_smoke.TOL_COMPOSITE), whether S is within it of the twin's relative
 to max(1, |S|) and asking for S leaves rgb and alpha the same bits, whether
@@ -266,13 +267,12 @@ def shade_fwd_launcher(torch, lib):
     return run
 
 
-def render_rows(torch, chip_smoke, dev, owner=None, attr="shade_tiles", n_geo=4):
-    """A kernel's arguments in chip_smoke.py's render of view 0: rows and
-    geometry; kernel 3's (``owner`` mesh_raster_kernels, ``shade_tiles``,
-    four geometry arguments) or kernel 1's (splat_kernels,
-    ``composite_tiles``, three)."""
+def render_rows(torch, chip_smoke, dev, owner, attr, n_geo):
+    """The arguments of ``owner.attr`` in chip_smoke.py's render of view 0:
+    rows and ``n_geo`` geometry arguments; kernel 3's (mesh_raster_kernels,
+    ``shade_tiles``, 4) or kernel 1's (splat_kernels, ``composite_tiles``,
+    3)."""
     from dgmesh_torch.eval.testing import render_frame_with_aux
-    from dgmesh_torch.ops import mesh_raster_kernels as MK
     from dgmesh_torch.train.step import StepContext
     cfg = chip_smoke.load_cfg()
     ctx = StepContext(cfg, chip_smoke.IMG, chip_smoke.IMG, device=dev)
@@ -280,7 +280,7 @@ def render_rows(torch, chip_smoke, dev, owner=None, attr="shade_tiles", n_geo=4)
     batch = chip_smoke.view_batches(chip_smoke.IMG, chip_smoke.IMG, chip_smoke.N_VIEWS, dev)[0]
     with torch.no_grad():
         _, _, args = chip_smoke.call_by_stage(
-            torch, [(owner or MK, attr, "kernel")],
+            torch, [(owner, attr, "kernel")],
             lambda: render_frame_with_aux(ctx, state, batch, cfg.model.sh_degree), 1)
     return args["kernel"][0], tuple(args["kernel"][1:1 + n_geo])
 
@@ -293,7 +293,8 @@ def shade_fwd_main(torch, chip_smoke, libs, dev) -> int:
         sets = [("random rows", a, geo)]
     else:
         a, _, _, geo, _ = training_rows(torch, chip_smoke, dev)
-        sets = [("render view 0's rows", *render_rows(torch, chip_smoke, dev)),
+        sets = [("render view 0's rows",
+                 *render_rows(torch, chip_smoke, dev, MK, "shade_tiles", 4)),
                 ("a float32 step's rows", a, geo)]
     runs = {src: shade_fwd_launcher(torch, lib) for src, (lib, _) in libs.items()}
     for what, a, geo in sets:
