@@ -318,10 +318,15 @@ def shade_edge_attrs(rng, case, K, T, tiles_x, tile):
 # valid; valid rows interleaved with invalid ones (the first invalid, so the
 # valid rows are no prefix); rows whose o e^power is exactly 0.99 at a pixel
 # (alpha at its clamp: d alpha gated off there); opaque rows stacked on the
-# tile's centre until T falls to 0 there
+# tile's centre until T falls to 0 there; then, after them so that those
+# keep their rows, rows whose o e^power is NaN at every pixel (a NaN
+# opacity) or at every pixel but the one under the mean (an infinite
+# opacity and a conic so narrow that e^power is exactly 0 one pixel away:
+# inf times 0; inf, clamped to 0.99, at the mean): a NaN fails the gate, as
+# in JAX
 COMPOSITE_EDGE_SHAPES = (("one row", 1), ("37 rows", 37), ("all invalid", 40),
                          ("all valid", 48), ("interleaved", 48), ("at the clamp", 32),
-                         ("T to 0", 64))
+                         ("T to 0", 64), ("NaN opacity", 24), ("inf times 0", 20))
 COMPOSITE_EDGE_TILES = 2
 
 
@@ -357,6 +362,18 @@ def composite_edge_attrs(rng, case, K, T, tiles_x, tile):
         a[:, :h, 3] = 0.0
         a[:, :h, 5] = 0.98
         a[:, :h, 9] = 1.0
+    elif case == "NaN opacity":
+        a[..., 9] = 1.0
+        a[:, 0::3, 5] = np.nan
+    elif case == "inf times 0":
+        # every fourth row on a pixel centre, power -5000 one pixel away
+        n = len(range(0, K, 4))
+        a[..., 9] = 1.0
+        a[:, 0::4, 0] = ox + rng.integers(0, tile, (T, n))
+        a[:, 0::4, 1] = oy + rng.integers(0, tile, (T, n))
+        a[:, 0::4, 2] = a[:, 0::4, 4] = 1e4
+        a[:, 0::4, 3] = 0.0
+        a[:, 0::4, 5] = np.inf
     return a
 
 

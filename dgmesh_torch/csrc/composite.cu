@@ -131,7 +131,8 @@ __device__ __forceinline__ Pair gate(const Row& q, float px, float py) {
   const float dx = mc.x - px;
   const float dy = mc.y - py;
   const float power = -0.5f * (mc.z * dx * dx + co.x * dy * dy) - mc.w * dx * dy;
-  const float al = fminf(ALPHA_MAX, co.y * expf(power));
+  const float raw = co.y * expf(power);
+  const float al = raw > ALPHA_MAX ? ALPHA_MAX : raw;   // a NaN stays NaN and fails
   return {al, co.z, co.w, q.bl.x, (power <= 0.f) && (al >= ALPHA_MIN)};
 }
 

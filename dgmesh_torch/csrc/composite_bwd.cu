@@ -157,7 +157,8 @@ composite_bwd_kernel(const float* __restrict__ attrs, const float* __restrict__ 
       const float dx = q[0] - px;
       const float dy = q[1] - py;
       const float power = -0.5f * (q[2] * dx * dx + q[4] * dy * dy) - q[3] * dx * dy;
-      const float al = fminf(ALPHA_MAX, q[5] * expf(power));
+      const float raw = q[5] * expf(power);
+      const float al = raw > ALPHA_MAX ? ALPHA_MAX : raw;   // a NaN stays NaN and fails
       if (!((power <= 0.f) && (al >= ALPHA_MIN))) continue;
       const float l = log1pf(-al);
       const float incl = S + l;
@@ -192,7 +193,7 @@ composite_bwd_kernel(const float* __restrict__ attrs, const float* __restrict__ 
       const float power = -0.5f * (q[2] * dx * dx + q[4] * dy * dy) - q[3] * dx * dy;
       const float expp = expf(power);
       const float raw = q[5] * expp;
-      const float al = fminf(ALPHA_MAX, raw);
+      const float al = raw > ALPHA_MAX ? ALPHA_MAX : raw;
       float de = 0.f, w = 0.f;
       if ((power <= 0.f) && (al >= ALPHA_MIN)) {
         const float l = log1pf(-al);

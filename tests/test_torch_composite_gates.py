@@ -18,8 +18,9 @@ On seeded rows (``chip_smoke``'s random composite rows, every
 ``COMPOSITE_EDGE_SHAPES`` case), on rows built so that o e^power sits on
 1/255 at pixel centres, and on rows with o > 1, o = 0, NaN, infinite and
 ill-conditioned conics, every (row, pixel) outside the box must fail both
-the twin's gate (``composite_tiles_ref``: a NaN fails) and the kernel's
-(``fminf``: a NaN product is clamped to 0.99 and passes).  torch.exp is
+the twin's gate (``composite_tiles_ref``) and the kernel's (its clamp
+``raw > 0.99 ? 0.99 : raw`` keeps a NaN product, which fails, as in the
+twin and in JAX).  torch.exp is
 within an ulp here; the box's 2^-20 covers the 2 ulp of the card's expf.
 The kernel itself is held against the twin, and against its parent's
 bits, on the card (chip_smoke.py, tools/torch_shade_bwd_variants.py).
@@ -81,7 +82,8 @@ def gates(a, px, py):
     power = -0.5 * (a[..., 2:3] * dx * dx + a[..., 4:5] * dy * dy) - a[..., 3:4] * dx * dy
     raw = a[..., 5:6] * torch.exp(power)
     twin = (power <= 0.0) & (torch.clamp_max(raw, SK.ALPHA_MAX) >= SK.ALPHA_MIN)
-    kernel = (power <= 0.0) & (torch.fmin(raw, torch.tensor(SK.ALPHA_MAX)) >= SK.ALPHA_MIN)
+    kernel = (power <= 0.0) & (torch.where(raw > SK.ALPHA_MAX, SK.ALPHA_MAX, raw)
+                               >= SK.ALPHA_MIN)
     return twin, kernel
 
 
@@ -253,8 +255,8 @@ def test_special_rows_outside_the_box_fail_the_gate():
     assert (empty == (finite & (o <= 0) | (finite & (o > 0) & (o < 0.99 * ALPHA_MIN)))).all()
     unbounded = np.isinf(xlo) & np.isinf(xhi) & (xlo < xhi)
     assert unbounded[~finite].all() and unbounded[finite & (o > 2.0 ** 20)].all()
-    # a NaN opacity passes the kernel's gate (fminf) where the twin's fails:
-    # the box leaves every such pair to the gate
+    # a NaN opacity fails both gates at every pixel; the box leaves every
+    # such pair to the gate
     nan_o = np.isnan(o)
-    _, kernel = gates(torch.as_tensor(a[nan_o][:, None, :]), px[:1], py[:1])
-    assert kernel.any()
+    twin, kernel = gates(torch.as_tensor(a[nan_o][:, None, :]), px[:1], py[:1])
+    assert nan_o.any() and not twin.any() and not kernel.any()
