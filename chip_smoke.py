@@ -176,10 +176,12 @@ MLP_DIN = 93                    # blender nets: 63 position + 30 timenet lanes
 # last CTA; din 1 and 256 the narrowest and the widest input; din 64, 65,
 # 128, 129 and 192 either side of the 64-lane blocks of x that kernel 5
 # multiplies (ceil(din/64) of them), last so that the shapes before them
-# keep their random rows
+# keep their random rows; then NaN in one lane of every seventh row, which
+# stays NaN through every ReLU (jnp.maximum and torch.relu keep it) and
+# reaches every weight gradient the row meets
 MLP_EDGE_SHAPES = ((1, 93), (37, 93), (64, 93), (65, 93), (129, 93), (131_072 + 37, 93),
                    (129, 1), (129, 256), (129, 64), (129, 65), (129, 128), (129, 129),
-                   (129, 192))
+                   (129, 192), (129, 93, "NaN rows"))
 TRUNKS = 6    # fused trunks per step: deform, deform_normal, the two cycle nets,
               # deform_back and appearance on the mesh vertices
 # The small card-vs-CPU step in the fused configuration.  Card and CPU sum
@@ -394,18 +396,24 @@ def random_trunk(torch, din, device, seed):
 
 
 def compare_trunk(torch, MF, x, wb, bp, g):
-    """Kernels 5 and 6 against their twins on rows x and cotangent g.
-    Returns (ok, {output: (max |Δ| / max |twin|, ‖Δ‖ / ‖twin‖, max |Δ|)})."""
+    """Kernels 5 and 6 against their twins on rows x and cotangent g: every
+    NaN and infinity where the twin has one, and the limits on the elements
+    where the twin is finite.  Returns (ok, {output: (max |Δ| / max |twin|,
+    ‖Δ‖ / ‖twin‖, max |Δ|)})."""
     got = [MF.trunk_fwd(x, wb, bp), *MF.trunk_bwd(x, wb, bp, g)]
     want = [MF.trunk_fwd_ref(x, wb, bp), *MF.trunk_bwd_ref(x, wb, bp, g)]
     torch.cuda.synchronize()
-    rep = {}
+    rep, same_nonfinite = {}, True
     for name, a, b in zip(("out", "dx", "dW", "db"), got, want):
-        d = a.double() - b.double()
-        rep[name] = (float(d.abs().max()) / max(float(b.abs().max()), 1e-30),
-                     float(d.norm()) / max(float(b.double().norm()), 1e-30),
+        fin = torch.isfinite(b)
+        same_nonfinite &= (torch.equal(torch.isfinite(a), fin)
+                           and torch.equal(torch.isnan(a), torch.isnan(b)))
+        d = torch.where(fin, a.double() - b.double(), 0.0)
+        bf = torch.where(fin, b.double(), 0.0)
+        rep[name] = (float(d.abs().max()) / max(float(bf.abs().max()), 1e-30),
+                     float(d.norm()) / max(float(bf.norm()), 1e-30),
                      float(d.abs().max()))
-    ok = (all(bool(torch.isfinite(a).all()) for a in got)
+    ok = (same_nonfinite
           and rep["out"][0] <= TOL_MLP_FWD_MAX and rep["out"][1] <= TOL_MLP_FWD_NORM
           and all(rep[k][1] <= TOL_MLP_BWD_NORM for k in ("dx", "dW", "db"))
           and all(rep[k][0] <= TOL_MLP_BWD_MAX for k in ("dW", "db")))
@@ -955,18 +963,25 @@ def main() -> int:
     # ... at the shapes the kernels' tiling makes special: one row, a second
     # warpgroup wholly past n, a ragged last CTA, din 1 and 256 and either
     # side of a 64-lane block
-    for n, din in MLP_EDGE_SHAPES:
+    for n, din, *case in MLP_EDGE_SHAPES:
         _, wbe, bpe = (random_trunk(torch, din, dev, seed=din) if din != MLP_DIN
                        else (None, wb, bp))
         x = torch.as_tensor(rng.uniform(-1.0, 1.0, (n, din)).astype(np.float32), device=dev)
         g = torch.as_tensor(rng.normal(size=(n, 256)).astype(np.float32), device=dev)
+        what = f"({n},{din}{', ' + case[0] if case else ''})"
+        if case:
+            x[::7, 3] = float("nan")
         ok, rep = compare_trunk(torch, MF, x, wbe, bpe, g)
+        if case:
+            n_nan = int(torch.isnan(MF.trunk_fwd(x, wbe, bpe)).all(1).sum())
+            ok = ok and n_nan == len(range(0, n, 7))
+            what += f" ({n_nan} output rows NaN, as the twin's)"
         errs["trunk_fwd"].append(rep["out"][2])
         errs["trunk_bwd"].append(max(rep[k][2] for k in ("dx", "dW", "db")))
-        log(f"# kernels/edge: trunk_fwd/trunk_bwd ({n},{din}): {trunk_report(rep)} "
+        log(f"# kernels/edge: trunk_fwd/trunk_bwd {what}: {trunk_report(rep)} "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            failures.append(f"trunk kernels vs twins (edge shape {n}x{din})")
+            failures.append(f"trunk kernels vs twins (edge shape {what})")
         del x, g
     if KERNELS_ONLY:
         r1 = SK.composite_tiles(a1, *geo_s, residuals=True)[0::2]

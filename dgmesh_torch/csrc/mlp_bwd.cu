@@ -119,8 +119,8 @@ mlp_bwd_rows(const float* __restrict__ x, const bf16* __restrict__ w, const bf16
 #pragma unroll
       for (int half = 0; half < 2; ++half)
         *reinterpret_cast<bf162*>(H + wg::tile_at(wg::acc_row(half), col)) =
-            __floats2bfloat162_rn(fmaxf(a[j][2 * half] + b0, 0.f),
-                                  fmaxf(a[j][2 * half + 1] + b1, 0.f));
+            __floats2bfloat162_rn(relu(a[j][2 * half] + b0),
+                                  relu(a[j][2 * half + 1] + b1));
     }
   }, [&](int layer, int part) {
     wg::store_tile(wsr + (1 + layer) * buf, layer < 0 ? X : H, part);

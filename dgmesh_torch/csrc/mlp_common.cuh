@@ -30,6 +30,11 @@ static_assert(THREADS == W, "one thread per column in the bias-gradient sums");
 typedef __nv_bfloat16 bf16;
 typedef __nv_bfloat162 bf162;
 
+// ReLU as jnp.maximum(v, 0) and torch.relu compute it: a NaN stays NaN (so
+// a diverged row stays visible downstream), -0 and every v < 0 give +0.
+// fmaxf(v, 0) would turn a NaN into 0.
+__device__ __forceinline__ float relu(float v) { return v <= 0.f ? 0.f : v; }
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }

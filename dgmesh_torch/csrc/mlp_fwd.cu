@@ -251,8 +251,8 @@ mlp_fwd_kernel(const float* __restrict__ x, const bf16* __restrict__ ws,
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int row = wg::acc_row(half);
-        const bf162 h = __floats2bfloat162_rn(fmaxf(acc[j][2 * half] + b0, 0.f),
-                                              fmaxf(acc[j][2 * half + 1] + b1, 0.f));
+        const bf162 h = __floats2bfloat162_rn(relu(acc[j][2 * half] + b0),
+                                              relu(acc[j][2 * half + 1] + b1));
         if (layer < DEPTH - 1) {
           *reinterpret_cast<bf162*>(H + wg::tile_at(row, col)) = h;
         } else if (row0 + row < n) {
