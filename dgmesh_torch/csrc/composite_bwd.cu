@@ -62,6 +62,7 @@
 // another order.
 
 #include <cuda_runtime.h>
+#include <cmath>
 
 namespace {
 
@@ -255,6 +256,13 @@ composite_bwd_kernel(const float* __restrict__ attrs, const float* __restrict__ 
       acc[2] = -0.5f * m3;
       acc[3] = -m4;
       acc[4] = -0.5f * m5;
+      // a row with a mean, conic or opacity that is not finite has no pair
+      // below the clamp (its power or o e^power is NaN or infinite), so its
+      // d power is 0 at every pixel, as in the twin; the sums above took
+      // 0 times NaN or inf there
+      if (!(isfinite(mx) && isfinite(my) && isfinite(ca) && isfinite(cb) && isfinite(cc)
+            && isfinite(op)))
+        acc[0] = acc[1] = acc[2] = acc[3] = acc[4] = 0.f;
 #pragma unroll
       for (int c = 0; c < NOUT; ++c) part[(seg * NOUT + c) * RB + r_own] = acc[c];
     }
