@@ -91,7 +91,7 @@ def create_from_pcd(points: np.ndarray, colors: np.ndarray, capacity: int,
     alive = torch.zeros(M, dtype=torch.bool, device=dev)
     alive[:n] = True
     # only live rows are queried: dead rows' scales stay 0 (never read)
-    d2 = mean_knn_dist2(xyz[:n], k=3).clamp_min(1e-7)
+    d2 = mean_knn_dist2(xyz[:n], alive[:n], k=3).clamp_min(1e-7)
     scaling = torch.zeros((M, 3), **f32)
     scaling[:n] = torch.log(torch.sqrt(d2))[:, None]
 

@@ -1,4 +1,5 @@
-"""Uniform (umbrella) Laplacian regularizer on the padded mesh buffers.
+"""Uniform (umbrella) Laplacian regularizer on the padded mesh buffers, and
+the per-face helpers (normals, centroids, areas) of the structural ops.
 
 Counterpart of dgmesh_tpu/ops/laplacian.py::laplacian_uniform_tri
 (reference nvdiffrast_utils/regularizer.py laplace_regularizer_const
@@ -53,3 +54,26 @@ def laplacian_uniform_tri(tri, verts, faces, face_valid):
     """Laplacian loss over ``tri = verts[faces]`` (F,3,3); verts (V,3),
     faces (F,3) int, face_valid (F,) bool."""
     return LaplacianUniformTri.apply(tri, verts, faces, face_valid)
+
+
+# --- per-face helpers (dgmesh_tpu/ops/laplacian.py:95-113), zero on invalid faces
+
+def face_normals(verts, faces, face_valid, normalize: bool = True):
+    """(F,3) face normals (v1 − v0) × (v2 − v0), unit length with ``normalize``."""
+    tri = verts[faces]
+    n = torch.linalg.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0], dim=-1)
+    if normalize:
+        n = n / (torch.linalg.norm(n, dim=-1, keepdim=True) + 1e-12)
+    return torch.where(face_valid[:, None], n, 0.0)
+
+
+def face_centroids(verts, faces, face_valid):
+    """(F,3) mean of each face's corners."""
+    return torch.where(face_valid[:, None], verts[faces].mean(dim=1), 0.0)
+
+
+def face_areas(verts, faces, face_valid):
+    """(F,) triangle areas."""
+    tri = verts[faces]
+    n = torch.linalg.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0], dim=-1)
+    return torch.where(face_valid, 0.5 * torch.linalg.norm(n, dim=-1), 0.0)

@@ -4,12 +4,14 @@ Counterpart of dgmesh_tpu/train/step.py (``StepFlags``, ``StepContext``,
 ``Batch``, ``_deform_all``, ``extract_mesh``, ``_mesh_colors``,
 ``loss_and_aux``, ``train_step``) and of dgmesh_tpu/train/loop.py::make_batch
 (reference train.py:129-530): deform → GS splat → cycle consistency → DPSR →
-marching tets → mesh render → mask / mesh-image / Laplacian losses → GS image
-loss → one backward → masked Gaussian Adam and per-net Adam.  Phase gates
-are ``StepFlags``.  The nets run in ``StepContext.mlp_mode``: float32,
-bf16 (``mlp_bf16``) or the fused bf16 trunk kernels (``mlp_bf16`` and
-``mlp_fused``); the render path applies them in float32
-(``StepContext.f32``).  The anchor loss comes with the structural ops.
+marching tets → mesh render → mask / mesh-image / Laplacian losses → the
+anchor loss (on anchor iterations) → GS image loss → one backward → masked
+Gaussian Adam and per-net Adam.  Phase gates are ``StepFlags``.  The nets
+run in ``StepContext.mlp_mode``: float32, bf16 (``mlp_bf16``) or the fused
+bf16 trunk kernels (``mlp_bf16`` and ``mlp_fused``); the render path, the
+anchoring and the normal init apply them in float32 (``StepContext.f32``).
+The structural ops themselves (densify/prune, opacity reset, normal init,
+anchoring) are train/densify.py's, run around the step by train/loop.py.
 """
 
 from __future__ import annotations
@@ -39,11 +41,12 @@ SMALL = 1e-6
 
 class StepFlags(NamedTuple):
     """Static phase gates (dgmesh_tpu/train/step.py StepFlags, reference
-    train.py:127-304); the anchor gate comes with the structural ops."""
+    train.py:127-304)."""
     warm: bool = False                  # iter < warm_up: no deformation
     mesh: bool = False                  # iter >= dpsr_iter: the mesh branch
     freeze_pos: bool = False            # iter < dpsr_iter + normal_warm_up
     use_normal: bool = False            # iter >= dpsr_iter + 2000
+    anchor: bool = False                # every anchor_interval after anchor_iter: the anchor loss
     skip_gaussian_update: bool = False  # densify/anchor iterations
     densify_stats: bool = True
     sh_degree: int = 3
@@ -225,10 +228,12 @@ def _time_noise(ctx: StepContext, batch: Batch, step_f, gen: Optional[torch.Gene
 
 def loss_and_aux(ctx: StepContext, gp: G.GaussianParams, nets: NetParams, screen_offset,
                  gs: G.GaussianStats, batch: Batch, step_f, flags: StepFlags,
-                 gen: Optional[torch.Generator] = None):
+                 gen: Optional[torch.Generator] = None, anchor_info=None):
     """Total loss (reference train.py:193-321) and aux: the stop-gradient loss
     terms under ``losses``, the splat's radii and visibility, the capacity
-    counters, the PSNRs, the mesh size and the field-health scalars."""
+    counters, the PSNRs, the mesh size and the field-health scalars.  With
+    ``flags.anchor``, ``anchor_info`` (train/densify.py::AnchorInfo, from
+    this iteration's anchor step) gives the anchor loss."""
     cfg = ctx.cfg
     o = cfg.optimization
     M = gp.xyz.shape[0]
@@ -300,6 +305,15 @@ def loss_and_aux(ctx: StepContext, gp: G.GaussianParams, nets: NetParams, screen
         aux["mesh_n_faces"] = mesh.n_faces
         aux["raster_overflow"] = mout["aux"]["tile_overflow"]
 
+    # --- anchor loss (train.py:287-304): the 1-1 term is differentiable
+    # through means3d (into the deform net and xyz); the n-1 term is a
+    # constant, as tests/test_anchor_gradient_parity.py pins
+    if flags.anchor and anchor_info is not None:
+        w = anchor_info.gauss_1_1_mask
+        d2 = ((means3d - anchor_info.centroid_of_gaussian) ** 2).sum(-1)
+        a11 = torch.where(w, d2, 0.0).sum() / w.sum().clamp_min(1)
+        losses["anchor_loss"] = (a11 + anchor_info.loss_n_1) * 0.1
+
     # --- GS image loss (train.py:306-312)
     losses["img_loss"] = L.image_loss(image, batch.gt_image, o.lambda_dssim)
     aux["img_psnr"] = L.psnr(image.detach(), batch.gt_image)
@@ -334,14 +348,14 @@ def backward(loss: torch.Tensor, gp: G.GaussianParams, nets: NetParams,
 
 
 def loss_and_grads(ctx: StepContext, state: TrainState, batch: Batch, flags: StepFlags,
-                   gen: Optional[torch.Generator] = None):
+                   gen: Optional[torch.Generator] = None, anchor_info=None):
     """The forward (``loss_and_aux``) and the backward of one step, from
     ``state`` (which is not modified).  Returns (loss, aux, Grads)."""
     M = state.gp.xyz.shape[0]
     gp = G.GaussianParams(*[x.detach().requires_grad_(True) for x in state.gp])
     screen = state.gp.xyz.new_zeros((M, 2), requires_grad=True)
     loss, aux = loss_and_aux(ctx, gp, state.nets, screen, state.gs, batch,
-                             state.step.to(torch.float32), flags, gen)
+                             state.step.to(torch.float32), flags, gen, anchor_info)
     return loss.detach(), aux, backward(loss, gp, state.nets, screen)
 
 
@@ -408,11 +422,12 @@ METRIC_KEYS = ("mesh_psnr", "mesh_overflow", "splat_overflow", "splat_dup_overfl
 
 
 def train_step(ctx: StepContext, state: TrainState, batch: Batch, flags: StepFlags,
-               gen: Optional[torch.Generator] = None):
+               gen: Optional[torch.Generator] = None, anchor_info=None):
     """One optimisation step (dgmesh_tpu/train/step.py::train_step); returns
     (new_state, metrics).  ``state`` is not modified, so a step can be taken
-    again from it; ``gen`` draws the time noise of non-blender data."""
-    loss, aux, grads = loss_and_grads(ctx, state, batch, flags, gen)
+    again from it; ``gen`` draws the time noise of non-blender data;
+    ``anchor_info`` feeds the anchor loss on an anchor iteration."""
+    loss, aux, grads = loss_and_grads(ctx, state, batch, flags, gen, anchor_info)
     grads, nonfinite = sanitize(grads)
     new_state = apply_updates(ctx, state, aux, grads, flags)
     metrics = dict(loss=loss, **aux["losses"], img_psnr=aux["img_psnr"],

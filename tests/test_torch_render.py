@@ -88,8 +88,9 @@ def test_port_imports_no_jax(path):
 
 
 def test_port_renders_on_cpu_without_jax():
-    """A fresh interpreter imports the port and renders a small frame on the
-    CPU; jax is never loaded."""
+    """A fresh interpreter imports the port (the structural ops and the
+    training iteration too) and renders a small frame on the CPU; jax is
+    never loaded."""
     code = textwrap.dedent(f"""
         import sys
         sys.path.insert(0, {str(ROOT)!r})
@@ -100,6 +101,8 @@ def test_port_renders_on_cpu_without_jax():
         from dgmesh_torch.eval.testing import render_frame
         from dgmesh_torch.train.state import init_state
         from dgmesh_torch.train.step import StepContext, make_batch
+        from dgmesh_torch.ops import knn, occupancy  # noqa: F401  (the structural ops)
+        from dgmesh_torch.train import densify, loop  # noqa: F401
         cfg = Config()
         cfg.model.is_blender, cfg.model.grid_res, cfg.model.sh_degree = True, 24, 1
         cfg.optimization.dpsr_sig = 2.0
