@@ -64,11 +64,26 @@ Phases; any failure exits non-zero and prints no result:
      5g: the bf16 (cuBLAS) configuration, bench.py's own precision:
                 the same steps and checks and the stages, reported; then the
                 three steps side by side;
+     5s: the structural ops (train/densify.py, train/loop.py) at the same
+                state with the Adam moments and densify statistics of one
+                training step from it: the one-shot normal init at the config's
+                occ_res (128; a first call, then a timed one) and, measured
+                only, at the reference's 256, each part timed; one anchor iteration through run_iteration
+                with float32 nets and one with fused ones (the launch
+                counters zeroed just before and read just after, every
+                kernel of the step launched); densify/prune with and without
+                the size threshold, and on a varied copy of the state where
+                clone, split and prune all fire; the opacity reset.  Gates: finite
+                outputs, mesh_overflow 0, zero moments on every slot an op
+                touched, and on the anchor iteration an unchanged g_count
+                and updated nets;
   6. check    — render, and a training step from each of SMALL_SEEDS
                 states, on the card and on the CPU (the plain twins) at a
                 small size with room in the mesh caps must agree; the
                 training step again in the fused configuration, from
-                SMALL_SEEDS_FUSED states;
+                SMALL_SEEDS_FUSED states; normal init, anchor_step and
+                densify/prune with the same CPU-made draws on both (discrete
+                outputs equal, floats within TOL_STRUCT);
   7. result   — one JSON line of per-kernel numbers, then the last line
                 {"ok": true, "device": {...}}.
 """
@@ -200,6 +215,15 @@ TOL_SMALL_HEAD_FUSED = 1e-2
 TOL_SMALL_NET_FUSED = 2e-1
 TOL_SMALL_GP_FUSED = 2e-2
 SMALL_SEEDS_FUSED = 2 * SMALL_SEEDS
+# The structural ops.  The scene extent of bench.py's view: the camera at
+# distance 2.5, times 1.1 as the reference's getNerfppNorm pads it.
+STRUCT_EXTENT = 2.75
+REFERENCE_OCC_RES = 256   # the reference's normal-init grid (VERDICT r5 #8), timed only
+# card vs CPU at the small size: float leaves within abs + rel of the CPU's
+# (the same tolerances as the CPU parity tests against JAX,
+# tests/test_torch_structural.py); normals abs 1e-4 (a face normal turns
+# with its vertices, which move with the occupancy's float32 sums)
+TOL_STRUCT_ABS, TOL_STRUCT_REL, TOL_STRUCT_NORMAL = 1e-5, 1e-4, 1e-4
 
 
 def log(msg: str) -> None:
@@ -1332,6 +1356,13 @@ def main() -> int:
     log("# steps side by side (ms/step median; forward / backward / optimizer ms; peak GiB): "
         + "; ".join(f"{k} {v[0]:.2f} ({v[2]['forward']:.1f} / {v[2]['backward']:.1f} / "
                     f"{v[2]['optimizer']:.1f}; {v[1]:.3f})" for k, v in summary.items()))
+
+    # 5s. the structural ops at the same state: normal init, an anchor
+    #     iteration (float32 and fused), densify/prune, the opacity reset
+    t0 = time.perf_counter()
+    structural_phase(torch, ctx, ctx_f, tstate, tbatch, flags, counters, trunk_counters,
+                     failures)
+    log(f"# structural phase: {time.perf_counter() - t0:.2f} s")
     del tstate
 
     # 6. the same path on the card and on the CPU at a small size ------------
@@ -1368,6 +1399,8 @@ def main() -> int:
     fsmall.tpu.mlp_bf16 = fsmall.tpu.mlp_fused = True
     small_train_check(torch, step, fsmall, dev, failures, TOL_SMALL_GP_FUSED,
                       TOL_SMALL_HEAD_FUSED, TOL_SMALL_NET_FUSED, " fused", SMALL_SEEDS_FUSED)
+    # the structural ops on the card and on the CPU with the same draws
+    small_structural_check(torch, _small_cfg(Config), dev, failures)
 
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
@@ -1449,6 +1482,301 @@ def small_train_check(torch, step, small, dev, failures, tol_gp, tol_head, tol_n
         f"{worst['loss']:.3g} (tol {TOL_SMALL_LOSS}), Gaussian grads {worst['gp']:.3g} "
         f"(tol {tol_gp}), appearance head {worst['head']:.3g} (tol {tol_head}), "
         f"other net leaves {worst['net']:.3g} (tol {tol_net})")
+
+
+def touched_slots(pre_gp, pre_alive, post_gp, post_alive):
+    """Slots whose alive bit or any per-Gaussian leaf a structural op changed."""
+    from dgmesh_torch.train.densify import PER_GAUSS
+    t = pre_alive != post_alive
+    for n in PER_GAUSS:
+        a, b = getattr(pre_gp, n), getattr(post_gp, n)
+        t = t | (a != b).reshape(a.shape[0], -1).any(1)
+    return t
+
+
+def moments_zero_at(mu, nu, mask):
+    from dgmesh_torch.train.densify import PER_GAUSS
+    return all(not bool(getattr(m, n)[mask].any()) for m in (mu, nu) for n in PER_GAUSS)
+
+
+def all_finite(torch, tensors):
+    return all(bool(torch.isfinite(x).all()) for x in tensors)
+
+
+def structural_phase(torch, ctx, ctx_f, tstate, tbatch, flags, counters, trunk_counters,
+                     failures):
+    """5s (module docstring): the structural ops at phase 5's state and view,
+    with the moments and statistics of one float32 training step from it;
+    ``ctx``/``ctx_f`` the float32 and fused step contexts."""
+    from dgmesh_torch.models import gaussians as G
+    from dgmesh_torch.train import densify as D
+    from dgmesh_torch.train import loop as TLoop
+    from dgmesh_torch.train import step
+
+    cfg = ctx.cfg
+    dev = tstate.gp.xyz.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    # phase 5's state with the Adam moments and densify statistics one step
+    # leaves; its own Gaussians and nets (one Adam step from these random
+    # nets moves every head weight by its learning rate: offsets ~0.1, which
+    # would shrink every scale below 0)
+    st1, _ = step.train_step(ctx, tstate, tbatch, flags)
+    st = tstate._replace(gs=st1.gs, g_mu=st1.g_mu, g_nu=st1.g_nu)
+    del st1
+    alive = st.gs.alive
+
+    # the one-shot normal init, each part timed: at the config's grid twice
+    # (the first call pays for first uses), then at the reference's
+    occ_res = min(cfg.model.grid_res, cfg.tpu.occ_res)
+    for call, res in enumerate((occ_res, occ_res, REFERENCE_OCC_RES)):
+        out = {}
+        targets = [(D, "gaussian_occupancy_grid", "occupancy"), (D, "marching_tets",
+                                                                   "marching_tets"),
+                   (D, "sample_mesh_surface", "sampling"), (D, "knn", "knn")]
+        torch.cuda.reset_peak_memory_stats()
+        stages, total, _ = call_by_stage(
+            torch, targets, lambda: out.update(r=D.normal_initialization(
+                cfg, st.gp, st.gs, st.nets, tbatch.fid, occ_res=res, gen=gen)),
+            1, what="normal_initialization")
+        gp_n, m = out["r"]
+        nrm = gp_n.normal[alive]
+        ok = (all_finite(torch, [nrm, m.verts]) and int(m.overflow) == 0 and int(m.n_faces) > 0
+              and bool(((torch.linalg.norm(nrm, dim=-1) - 1).abs() < 1e-3).all())
+              and not bool(gp_n.normal[~alive].any()))
+        what = (" (first call)" if call == 0 else
+                " (reference grid, measured only)" if res != occ_res else "")
+        log(f"# structural/normal init at {res}^3{what}: "
+            f"{total:.2f} ms (" + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+            + f"); mesh V {int(m.n_verts)} F {int(m.n_faces)} mesh_overflow {int(m.overflow)}; "
+            f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+            f"{'ok' if ok else ('FAIL' if res == occ_res else 'over the mesh caps or not finite')}")
+        if res == occ_res and not ok:
+            failures.append(f"normal init at {res}^3: non-finite, not unit, or mesh overflow")
+        del out, gp_n, m, nrm
+
+    # one anchor iteration through run_iteration, float32 then fused nets
+    o = cfg.optimization
+    it = (o.anchor_iter // o.anchor_interval + 1) * o.anchor_interval
+    fl = TLoop.flags_for(cfg, it)
+    pre = st._replace(step=torch.tensor(it, dtype=torch.int32, device=dev))
+    for label, c, cs in (("float32", ctx, counters), ("fused", ctx_f, counters + trunk_counters)):
+        for rep in range(2):                       # the first warms the path up
+            res = {}
+            torch.cuda.reset_peak_memory_stats()
+            for k in cs:
+                k.launches = 0
+            stages, total, _ = call_by_stage(
+                torch, [(TLoop, "anchor_step", "anchor_step"), (TLoop, "train_step", "step")],
+                lambda: res.update(r=TLoop.run_iteration(c, pre, tbatch, it, STRUCT_EXTENT,
+                                                         gen=gen)),
+                1, what="run_iteration")
+            launches = {k.__name__: k.launches for k in cs}
+        post, m = res["r"]
+        touched = touched_slots(pre.gp, pre.gs.alive, post.gp, post.gs.alive)
+        nets_moved = any(not torch.equal(a, b) for a, b in zip(pre.nets.deform.parameters(),
+                                                              post.nets.deform.parameters()))
+        bad = step_problems(torch, m)
+        if not (fl.anchor and "anchor_loss" in m and bool(torch.isfinite(m["anchor_loss"]))):
+            bad.append("no finite anchor loss")
+        if not all_finite(torch, [getattr(post.gp, n)[post.gs.alive] for n in D.PER_GAUSS]):
+            bad.append("non-finite Gaussians")
+        if not moments_zero_at(post.g_mu, post.g_nu, touched):
+            bad.append("moments left on touched slots")
+        if int(post.g_count) != int(pre.g_count) or not nets_moved:
+            bad.append("g_count advanced or the nets did not move")
+        if min(launches.values()) < 1:
+            bad.append(f"a kernel of the step not launched {launches}")
+        stats = {k[len("anchor_"):]: int(v) for k, v in m.items() if k.startswith("anchor_")
+                 and k != "anchor_loss"}
+        log(f"# structural/anchor iteration {it} ({label} nets): {total:.2f} ms, anchor_step "
+            f"{stages['anchor_step']:.2f}, step {stages['step']:.2f}; {stats}; anchor_loss "
+            f"{float(m['anchor_loss']):.6g}; {int(touched.sum())} slots touched; launches "
+            f"{launches}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+            f"{'ok' if not bad else 'FAIL: ' + ', '.join(bad)}")
+        if bad:
+            failures.append(f"anchor iteration ({label}): " + ", ".join(bad))
+        del res, post, m, touched
+
+    # densify / prune, both ways, on the state as the step left it; then
+    # with every other live Gaussian 4x larger (past percent_dense ·
+    # extent: split), every tenth at opacity 0.003 (pruned) and the
+    # gradient threshold at the median of the step's non-zero statistics,
+    # so that clone, split and prune all run at full width
+    grads = torch.where(st.gs.denom > 0, st.gs.xyz_grad_accum / st.gs.denom.clamp_min(1), 0.0)
+    dcfg = type(cfg).from_dict(cfg.to_dict())
+    dcfg.optimization.densify_grad_threshold = float(grads[alive & (grads > 0)].median())
+    slot = torch.arange(alive.shape[0], device=dev)
+    varied = st.gp._replace(
+        scaling=torch.where((slot % 2 == 0)[:, None], st.gp.scaling + math.log(4.0),
+                            st.gp.scaling),
+        opacity=torch.where((slot % 10 == 5)[:, None], math.log(0.003 / 0.997), st.gp.opacity))
+    for label, c, gp0, use_size in (("as left", cfg, st.gp, False), ("as left", cfg, st.gp, True),
+                                    ("varied", dcfg, varied, True)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        gp_d, gs_d, mu_d, nu_d, n = D.densify_and_prune(c, gp0, st.gs, st.g_mu, st.g_nu,
+                                                        STRUCT_EXTENT, use_size, gen=gen)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        touched = touched_slots(gp0, st.gs.alive, gp_d, gs_d.alive)
+        n = {k: int(v) for k, v in n.items()}
+        ok = (all_finite(torch, [getattr(gp_d, k)[gs_d.alive] for k in D.PER_GAUSS])
+              and moments_zero_at(mu_d, nu_d, touched)
+              and int(gs_d.alive.sum()) == int(alive.sum()) + n["clone"] + n["split"] - n["prune"]
+              and not bool(gs_d.denom.any())
+              and (label == "as left" or min(n.values()) > 0))
+        log(f"# structural/densify_and_prune ({label}, use_size {use_size}, threshold "
+            f"{c.optimization.densify_grad_threshold:.3g}): {ms:.2f} ms; clone {n['clone']} "
+            f"split {n['split']} prune {n['prune']} of {int(alive.sum())} live; "
+            f"{int(touched.sum())} slots touched; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"densify_and_prune ({label}, use_size {use_size})")
+        del gp_d, gs_d, mu_d, nu_d, touched
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gp_r, mu_r, nu_r = D.reset_opacity(st.gp, st.g_mu, st.g_nu)
+    torch.cuda.synchronize()
+    ok = (float(G.get_opacity(gp_r).max()) <= 0.01 + 1e-6 and not bool(mu_r.opacity.any())
+          and not bool(nu_r.opacity.any()) and torch.equal(gp_r.xyz, st.gp.xyz))
+    log(f"# structural/reset_opacity: {(time.perf_counter() - t0) * 1e3:.2f} ms "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("reset_opacity")
+
+
+def small_structural_state(torch, small):
+    """The small card-vs-CPU check's state (CPU): chip_smoke's 256-point
+    shell with 40 copies of 20 of its Gaussians moved by N(0, 1e-3) (faces
+    with several Gaussians to merge), log-scales 0.1-0.3 (an iso-surface on
+    the 32³ occupancy grid; every fourth slot 0.005, small enough to clone)
+    and random rotations, opacities
+    0.002-0.9 (some below the prune threshold), seeded densify statistics
+    and Adam moments."""
+    st = build_shell_state(torch, small, 256, "cpu", seed=0)
+    g = torch.Generator().manual_seed(1)
+    M = st.gp.xyz.shape[0]
+    src = torch.arange(40) % 20
+    dst = 256 + torch.arange(40)
+    leaves = {n: getattr(st.gp, n).clone() for n in ("xyz", "f_dc", "f_rest", "normal")}
+    for n in leaves:
+        leaves[n][dst] = leaves[n][src]
+    leaves["xyz"][dst] += torch.randn((40, 3), generator=g) * 1e-3
+    alive = st.gs.alive.clone()
+    alive[dst] = True
+    u = lambda *shape: torch.rand(shape, generator=g)  # noqa: E731
+    scaling = torch.where(torch.arange(M)[:, None] % 4 == 0, 0.005, 0.1 + 0.2 * u(M, 3))
+    gp = st.gp._replace(**leaves, scaling=torch.log(scaling),
+                        rotation=torch.randn((M, 4), generator=g),
+                        opacity=torch.logit(0.002 + 0.898 * u(M, 1)))
+    gs = st.gs._replace(alive=alive, xyz_grad_accum=torch.where(alive, 6e-4 * u(M), 0.0),
+                        denom=torch.where(alive, 1.0 + torch.floor(3 * u(M)), 0.0),
+                        max_radii2d=30 * u(M))
+    mu = type(gp)(*[torch.randn(x.shape, generator=g) for x in gp])
+    nu = type(gp)(*[u(*x.shape) for x in gp])
+    return st._replace(gp=gp, gs=gs, g_mu=mu, g_nu=nu)
+
+
+def small_structural_check(torch, small, dev, failures):
+    """Normal init, anchor_step and densify/prune on the card and on the CPU
+    at the small size, with the same CPU-made draws: discrete outputs (mesh
+    sizes and faces, alive, the 1-1 mask, counters) equal, float outputs
+    within TOL_STRUCT_*."""
+    from dgmesh_torch.train import densify as D
+    from dgmesh_torch.train.state import state_to
+    from dgmesh_torch.train.step import StepContext, _deform_all, extract_mesh
+
+    small.optimization.anchor_n_1_bs, small.optimization.anchor_0_1_bs = 16, 64
+    st_c = small_structural_state(torch, small)
+    st_g = state_to(st_c, dev)
+    M, F = small.tpu.max_gaussians, small.tpu.max_faces
+    g = torch.Generator().manual_seed(2)
+    draws = dict(u=torch.rand(M, generator=g), uv=torch.rand((M, 2), generator=g),
+                 anchor={"n_1": torch.rand(F, generator=g), "0_1": torch.rand(F, generator=g),
+                         "angle": torch.randn((64, 1), generator=g)},
+                 split=[torch.randn((M, 3), generator=g) for _ in range(2)])
+    fid = torch.tensor(0.5)
+    worst, problems = 0.0, []
+
+    def cmp(what, a, b, atol=TOL_STRUCT_ABS):
+        nonlocal worst
+        a, b = a.detach().cpu().double(), b.detach().double()
+        gap = float(((a - b).abs() - TOL_STRUCT_REL * b.abs()).max()) if a.numel() else 0.0
+        worst = max(worst, gap / atol)
+        if not (torch.isfinite(a).all() and gap <= atol):
+            problems.append(what)
+
+    def same(what, a, b):
+        if not torch.equal(a.cpu(), b):
+            problems.append(what)
+
+    res = {}
+    for where, st in (("card", st_g), ("cpu", st_c)):
+        res[where] = D.normal_initialization(
+            small, st.gp, st.gs, st.nets, fid.to(st.gp.xyz.device),
+            occ_res=min(small.model.grid_res, small.tpu.occ_res),
+            u=draws["u"], uv=draws["uv"])
+    (gp_g, m_g), (gp_c, m_c) = res["card"], res["cpu"]
+    for k in ("n_verts", "n_faces", "overflow"):
+        same(f"normal init {k}", getattr(m_g, k), getattr(m_c, k))
+    same("normal init faces", m_g.faces, m_c.faces)
+    cmp("normal init verts", m_g.verts, m_c.verts)
+    cmp("normal init normals", gp_g.normal, gp_c.normal, TOL_STRUCT_NORMAL)
+    n_faces = int(m_c.n_faces)
+
+    # both sides anchor to the CPU's mesh (float32 nets, frozen positions)
+    ctx_c = StepContext(small, 64, 64, device="cpu")
+    with torch.no_grad():
+        d_xyz, _, _, d_n = _deform_all(st_c.nets, st_c.gp.xyz, fid, True, mode="f32")
+        mesh = extract_mesh(ctx_c, st_c.gp, st_c.gs, d_xyz, d_n, freeze_pos=True)
+    for where, st in (("card", st_g), ("cpu", st_c)):
+        d = st.gp.xyz.device
+        res[where] = D.anchor_step(small, st.gp, st.gs, st.g_mu, st.g_nu, st.nets, fid.to(d),
+                                   mesh.verts.to(d), mesh.faces.to(d), mesh.face_valid.to(d),
+                                   draws=draws["anchor"])
+    (gp_g, gs_g, mu_g, nu_g, in_g), (gp_c, gs_c, mu_c, nu_c, in_c) = res["card"], res["cpu"]
+    same("anchor alive", gs_g.alive, gs_c.alive)
+    same("anchor 1-1 mask", in_g.gauss_1_1_mask, in_c.gauss_1_1_mask)
+    for k in in_c.stats:
+        same(f"anchor {k}", in_g.stats[k], in_c.stats[k])
+    cmp("anchor centroids", in_g.centroid_of_gaussian, in_c.centroid_of_gaussian)
+    cmp("anchor loss_n_1", in_g.loss_n_1, in_c.loss_n_1)
+    for n in D.PER_GAUSS:
+        for what, a, b in (("", gp_g, gp_c), (" mu", mu_g, mu_c), (" nu", nu_g, nu_c)):
+            cmp(f"anchor {n}{what}", getattr(a, n), getattr(b, n))
+    # how far the CPU's rows are from a boundary: |d² − radius| and the gap
+    # between a Gaussian's two nearest centroids
+    from dgmesh_torch.ops.knn import knn
+    from dgmesh_torch.ops.laplacian import face_centroids
+    d2, _ = knn(st_c.gp.xyz + d_xyz, face_centroids(mesh.verts, mesh.faces, mesh.face_valid),
+                2, ref_valid=mesh.face_valid)
+    live = st_c.gs.alive
+    radius = float(st_c.gs.gaussian_scale) * small.optimization.anchor_search_radius
+    margin = (float((d2[live, 0] - radius).abs().min()), float((d2[live, 1] - d2[live, 0]).min()))
+    anchor_stats = {k: int(v) for k, v in in_c.stats.items()}
+
+    for use_size in (False, True):
+        for where, st in (("card", st_g), ("cpu", st_c)):
+            res[where] = D.densify_and_prune(small, st.gp, st.gs, st.g_mu, st.g_nu,
+                                             STRUCT_EXTENT / 2, use_size,
+                                             split_normals=draws["split"])
+        (gp_g, gs_g, mu_g, nu_g, n_g), (gp_c, gs_c, mu_c, nu_c, n_c) = res["card"], res["cpu"]
+        same(f"densify alive ({use_size})", gs_g.alive, gs_c.alive)
+        for k in n_c:
+            same(f"densify {k} ({use_size})", n_g[k], n_c[k])
+        for n in D.PER_GAUSS:
+            for what, a, b in (("", gp_g, gp_c), (" mu", mu_g, mu_c), (" nu", nu_g, nu_c)):
+                cmp(f"densify {n}{what} ({use_size})", getattr(a, n), getattr(b, n))
+        if use_size:
+            counts = {k: int(v) for k, v in n_c.items()}
+    ok = not problems and n_faces > 0 and anchor_stats["n_merged"] > 0 and min(counts.values()) > 0
+    log(f"# small structural ops, card vs CPU: normal init F {n_faces}; anchor {anchor_stats} "
+        f"(CPU rows' |d2 - radius| >= {margin[0]:.3g}, nearest-centroid gap >= {margin[1]:.3g}); "
+        f"densify (use_size) {counts}; worst float gap {worst:.3g} of its tolerance "
+        f"{'ok' if ok else 'FAIL: ' + ', '.join(problems)}")
+    if not ok:
+        failures.append("small structural ops: card and CPU disagree")
 
 
 def train_run(torch, step, ctx, state, batch, flags, counters, failures, label=""):

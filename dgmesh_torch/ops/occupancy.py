@@ -82,6 +82,9 @@ def gaussian_occupancy_grid(xyz, scaling, rotation, opacity, alive, center,
     gid = gid[order]
     bricks, per = torch.unique_consecutive(bid, return_counts=True)
     start = torch.cumsum(per, 0) - per
+    # the fullest bricks first, so that a block's bricks pad to similar counts
+    by_count = torch.sort(per, descending=True, stable=True).indices
+    bricks, per, start = bricks[by_count], per[by_count], start[by_count]
 
     off = torch.arange(brick ** 3, device=dev)
     off = torch.stack([off // (brick * brick), (off // brick) % brick, off % brick], -1)
