@@ -6,11 +6,11 @@ initialise normals (occupancy grid → marching tets → surface samples → kNN
 normal transfer, dgmesh_tpu/train/densify.py::normal_initialization).
 
 The field is Σᵢ opacityᵢ·exp(−½ qᵢ) over the live Gaussians, each term kept
-only where its quadratic form qᵢ = ‖Rᵢᵀ d / sᵢ‖² is below cutoff²·3, as in
+only where its quadratic form qᵢ = ‖Rᵢᵀ d / sᵢ‖² is below CUTOFF²·3, as in
 JAX.  JAX evaluates every (grid point, Gaussian) pair; here the grid is cut
 into bricks of BRICK³ points and each brick meets only the Gaussians whose
-cutoff box (the ellipsoid qᵢ < cutoff²·3 has half-widths
-cutoff·√3·‖(R diag s)[a]‖ along world axis a) overlaps it, the reference's
+cutoff box (the ellipsoid qᵢ < CUTOFF²·3 has half-widths
+CUTOFF·√3·‖(R diag s)[a]‖ along world axis a) overlaps it, the reference's
 own per-block culling (mesh_utils.py:48-54).  The same terms are summed, in
 Gaussian order per point, in another association than JAX's: values agree
 to float32 rounding.  Each brick's sum runs over a padded (brick, Gaussian,
@@ -26,6 +26,7 @@ import torch
 from .laplacian import face_areas, face_normals
 from .quaternion import quat_to_rotmat
 
+CUTOFF = 3.0              # σ: a term counts where q < CUTOFF² · 3 (JAX's cutoff)
 BRICK = 8                 # grid points per brick edge
 BLOCK_ELEMS = 1 << 24     # (brick, Gaussian, point) triples evaluated at once
 
@@ -39,14 +40,14 @@ def _grid_points(idx: torch.Tensor, res: int, center, half_extent: float) -> tor
 
 
 def gaussian_occupancy_grid(xyz, scaling, rotation, opacity, alive, center,
-                            half_extent: float, res: int, cutoff: float = 3.0,
-                            brick: int = BRICK, block_elems: int = BLOCK_ELEMS) -> torch.Tensor:
+                            half_extent: float, res: int) -> torch.Tensor:
     """The opacity field on a res³ grid spanning center ± half_extent,
     (res,res,res) float32.  xyz, scaling (activated) (N,3), rotation (N,4),
     opacity (N,1) or (N,), alive (N,) bool."""
     dev = xyz.device
     center = torch.as_tensor(center, dtype=torch.float32, device=dev)
-    q_max = cutoff * cutoff * 3.0
+    brick = BRICK
+    q_max = CUTOFF * CUTOFF * 3.0
     live = torch.nonzero(alive).reshape(-1)
     x = xyz[live]
     R = quat_to_rotmat(rotation[live])                       # (G,3,3)
@@ -94,7 +95,7 @@ def gaussian_occupancy_grid(xyz, scaling, rotation, opacity, alive, center,
     while b0 < len(per_h):
         # bricks b0..b1-1, padded to their largest Gaussian count L
         b1, L = b0, 0
-        while b1 < len(per_h) and max(L, per_h[b1]) * (b1 - b0 + 1) * brick ** 3 <= block_elems:
+        while b1 < len(per_h) and max(L, per_h[b1]) * (b1 - b0 + 1) * brick ** 3 <= BLOCK_ELEMS:
             L = max(L, per_h[b1])
             b1 += 1
         if b1 == b0:                      # one brick alone over the budget

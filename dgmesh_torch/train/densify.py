@@ -309,7 +309,7 @@ def anchor_step(cfg: Config, gp: GaussianParams, gs: GaussianStats, mu: Gaussian
     n_spawn = min(spawn_rows.numel(), free_idx.numel())
     dst = free_idx[:n_spawn]
     rows = spawn_rows[:n_spawn]
-    gp = gp._replace(**{n: _put(getattr(gp, n), dst, sp_vals[n][rows]) for n in PER_GAUSS})
+    gp = _copy_rows(gp, dst, dst, {n: v[rows] for n, v in sp_vals.items()})
     alive3 = alive2.clone()
     alive3[dst] = True
 
@@ -325,8 +325,3 @@ def anchor_step(cfg: Config, gp: GaussianParams, gs: GaussianStats, mu: Gaussian
                    hit_1_1=c1.sum(), faces=face_valid.sum()))
     return gp, gs, mu, nu, info
 
-
-def _put(arr: torch.Tensor, dst: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-    out = arr.clone()
-    out[dst] = vals
-    return out

@@ -180,7 +180,8 @@ def occ(fx):
 
 def test_occupancy_grid_matches_jax(fx, occ):
     """The bricked, culled sum against JAX's every-pair sum at res 16 and at
-    another center and extent: the same terms in another order."""
+    another center and extent at res 12 (a ragged last brick): the same
+    terms in another order."""
     st = fx.tstate
     got = TO.gaussian_occupancy_grid(*_occ_inputs(st.gp, st.gs, TG), torch.zeros(3),
                                      OCC["half"], OCC["res"])
@@ -189,7 +190,7 @@ def test_occupancy_grid_matches_jax(fx, occ):
     want = JO.gaussian_occupancy_grid(*_occ_inputs(fx.state.gp, fx.state.gs, JG),
                                       jnp.asarray([0.1, -0.2, 0.05]), 0.7, 12)
     got = TO.gaussian_occupancy_grid(*_occ_inputs(st.gp, st.gs, TG),
-                                     torch.tensor([0.1, -0.2, 0.05]), 0.7, 12, brick=5)
+                                     torch.tensor([0.1, -0.2, 0.05]), 0.7, 12)
     close(got, want)
 
 

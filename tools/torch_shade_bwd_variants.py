@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Time versions of the port's mesh shade backward (kernel 4), of its mesh
 shade forward (kernel 3), of its splat compositor (kernels 1 and 2) or of
-its fused trunk forward (kernel 5), side by side on one NVIDIA GPU.
+its fused trunk (kernels 5 and 6), side by side on one NVIDIA GPU.
 
     python3 tools/torch_shade_bwd_variants.py [--random] SOURCE.cu ...
     python3 tools/torch_shade_bwd_variants.py [--random] SHADE.cu ...
     python3 tools/torch_shade_bwd_variants.py [--random] COMPOSITE_BWD.cu ...
     python3 tools/torch_shade_bwd_variants.py [--random] COMPOSITE.cu[:noS] ...
     python3 tools/torch_shade_bwd_variants.py TRUNK_FWD.cu[:transposed] ...
+    python3 tools/torch_shade_bwd_variants.py TRUNK_BWD.cu ...
 
 Versions of the mesh shade forward (kernel 3): each SHADE.cu is a version
 of ``dgmesh_torch/csrc/shade.cu`` that exports ``shade_tiles_launch`` with
@@ -63,7 +64,16 @@ the fused step's trunk shapes, TRUNK_SHAPES, with chip_smoke.py's random
 trunk; printed per source and shape: ms per launch in two rounds, the
 error against the plain twin (chip_smoke.py's TOL_MLP_FWD_* measures),
 whether two launches give the same bits, and whether its output equals
-the first source's bit for bit.  What follows is about kernel 4's versions.
+the first source's bit for bit.
+
+Versions of the fused trunk backward (kernel 6): each TRUNK_BWD.cu is a
+version of ``dgmesh_torch/csrc/mlp_bwd.cu`` that exports
+``mlp_bwd_rows_launch`` and ``mlp_bwd_wgrad_launch`` with their C
+signatures.  The same rows and trunk as kernel 5's, with a seeded normal
+cotangent; printed per source and shape: ms per call (both passes) in two
+rounds, dx, dW and db against the plain twin (chip_smoke.compare_trunk's
+measures), whether two calls give the same bits, and whether dx, dW and db
+are the first source's bits.  What follows is about kernel 4's versions.
 
 Each SOURCE.cu is a version of ``dgmesh_torch/csrc/shade_bwd.cu`` that
 exports ``shade_bwd_launch`` with its C signature (an older version, or one
@@ -208,6 +218,70 @@ def trunk_fwd_main(torch, chip_smoke, libs, transposed, dev) -> int:
                   f"{'the same bits as' if torch.equal(got, first) else 'OTHER bits than'} "
                   f"the first source", flush=True)
         del x, want, got, again, first
+    return 0
+
+
+def trunk_bwd_launcher(torch, lib):
+    """The version's kernel 6, both passes, on (x, wpack, wpackt, bpack, g)
+    → (dx, dW, db)."""
+    from dgmesh_torch.ops import mlp_fused as MF
+    rows = lib.mlp_bwd_rows_launch
+    rows.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    wgrad = lib.mlp_bwd_wgrad_launch
+    wgrad.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    rows.restype = wgrad.restype = ctypes.c_int
+
+    def run(x, wb, wt, bp, g):
+        n, din = x.shape
+        dev = x.device
+        dx = torch.empty((n, din), dtype=torch.float32, device=dev)
+        dw = torch.empty((MF.DEPTH + 1, 256, 256), dtype=torch.float32, device=dev)
+        db = torch.empty((MF.DEPTH, 256), dtype=torch.float32, device=dev)
+        ws, db_part, dw_part = MF._bwd_buffers(n, dev)
+        stream = torch.cuda.current_stream().cuda_stream
+        err = rows(x.data_ptr(), wb.data_ptr(), wt.data_ptr(), bp.data_ptr(), g.data_ptr(),
+                   dx.data_ptr(), ws.data_ptr(), db_part.data_ptr(), n, din, stream)
+        err = err or wgrad(ws.data_ptr(), db_part.data_ptr(), dw_part.data_ptr(), dw.data_ptr(),
+                           db.data_ptr(), db_part.shape[0], dw_part.shape[0], stream)
+        if err:
+            raise RuntimeError(f"mlp_bwd launch failed with cudaError {err}")
+        return dx, dw, db
+    return run
+
+
+def trunk_bwd_main(torch, chip_smoke, libs, dev) -> int:
+    """Kernel 6's versions at TRUNK_SHAPES (module docstring)."""
+    from dgmesh_torch.ops import mlp_fused as MF
+    runs = {src: trunk_bwd_launcher(torch, lib) for src, (lib, _) in libs.items()}
+    rng = np.random.default_rng(0)
+    for n, din in TRUNK_SHAPES:
+        _, wb, bp = chip_smoke.random_trunk(torch, din, dev, seed=0)
+        wt = MF.transpose_pack(wb)
+        x = torch.as_tensor(rng.uniform(-1.0, 1.0, (n, din)).astype(np.float32), device=dev)
+        g = torch.as_tensor(rng.normal(size=(n, 256)).astype(np.float32), device=dev)
+        want = MF.trunk_bwd_ref(x, wb, bp, g)
+        times = timed_rounds(torch, chip_smoke, runs, lambda src: runs[src](x, wb, wt, bp, g))
+        first = None
+        for src, run in runs.items():
+            got, again = run(x, wb, wt, bp, g), run(x, wb, wt, bp, g)
+            first = got if first is None else first
+            rep = {}
+            for name, a, b in zip(("dx", "dW", "db"), got, want):
+                d = a.double() - b.double()
+                rep[name] = (float(d.abs().max()) / float(b.abs().max()),
+                             float(d.norm()) / float(b.double().norm()))
+            ok = (all(v[1] <= chip_smoke.TOL_MLP_BWD_NORM for v in rep.values())
+                  and all(rep[k][0] <= chip_smoke.TOL_MLP_BWD_MAX for k in ("dW", "db")))
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            same_first = all(torch.equal(a, b) for a, b in zip(got, first))
+            print(f"# {src} ({n},{din}): {' / '.join(f'{t:.4f}' for t in times[src])} "
+                  f"ms/call; " + ", ".join(f"{k} max {v[0]:.3g} norm {v[1]:.3g}"
+                                           for k, v in rep.items())
+                  + f" {'agrees' if ok else 'DISAGREES'} with the twin; two calls "
+                  f"{'identical' if same else 'DIFFERENT'}; "
+                  f"{'the same bits as' if same_first else 'OTHER bits than'} "
+                  f"the first source", flush=True)
+        del x, g, want, got, again, first
     return 0
 
 
@@ -581,6 +655,8 @@ def main() -> int:
     dev = torch.device("cuda")
     if all(hasattr(lib, "mlp_fwd_launch") for lib, _ in libs.values()):
         return trunk_fwd_main(torch, chip_smoke, libs, transposed, dev)
+    if all(hasattr(lib, "mlp_bwd_rows_launch") for lib, _ in libs.values()):
+        return trunk_bwd_main(torch, chip_smoke, libs, dev)
     if all(hasattr(lib, "shade_tiles_launch") for lib, _ in libs.values()):
         return shade_fwd_main(torch, chip_smoke, libs, dev)
     if all(hasattr(lib, "composite_tiles_launch") for lib, _ in libs.values()):
