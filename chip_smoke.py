@@ -316,9 +316,15 @@ def shade_tie_attrs(rng, T, K, tiles_x, tile):
 # (CPU tests hold the twin to JAX at the same shapes): one row; a ragged K;
 # a tile with no valid row beside a tile with some; every row valid; valid
 # rows interleaved with invalid ones (the first invalid, so the valid rows
-# are no prefix); one small triangle, so most pixels have no winner
+# are no prefix); one small triangle, so most pixels have no winner; then,
+# after them so that those keep their rows, valid rows of the first tile
+# with a NaN corner coordinate, with a NaN colour, or with two corners at
+# +inf (a live, infinite area whose edge between them has a NaN squared
+# length): a NaN where the twin has one
 SHADE_EDGE_SHAPES = (("one row", 1), ("37 rows", 37), ("all invalid", 40),
-                     ("all valid", 48), ("interleaved", 48), ("no winner", 3))
+                     ("all valid", 48), ("interleaved", 48), ("no winner", 3),
+                     ("NaN corner", 20), ("NaN colour", 21), ("NaN edge", 22))
+SHADE_NAN_CASES = ("NaN corner", "NaN colour", "NaN edge")
 SHADE_EDGE_TILES = 2
 
 
@@ -335,6 +341,17 @@ def shade_edge_attrs(rng, case, K, T, tiles_x, tile):
         a[:, 1::2, 9] = 1.0
     elif case == "no winner":
         a[:, 1:, 9] = 0.0           # row 0 alone: a built triangle of area 16
+    elif case in SHADE_NAN_CASES:   # every fifth row of tile 0, from row 2
+        r = slice(2, None, 5)
+        a[0, r, 9] = 1.0
+        if case == "NaN corner":
+            a[0, r, 0] = np.nan
+        elif case == "NaN colour":
+            a[0, r, 11] = np.nan
+        else:                       # b and c at x = +inf, by < ay < cy
+            a[0, r, 2] = a[0, r, 4] = np.inf
+            a[0, r, 3] = a[0, r, 1] - 3.0
+            a[0, r, 5] = a[0, r, 1] + 5.0
     return a
 
 
@@ -482,15 +499,16 @@ ZERO_LANES = {"composite": list(range(9, 16)), "shade": [9] + list(range(19, 24)
 
 
 def compare_bwd(torch, got, want, groups, zero_lanes, invalid):
-    """Per lane group: max |kernel - twin| against 1e-4·max|twin| + 1e-6;
-    the zero lanes and the invalid rows must be exactly 0 in the kernel's
-    output.  Returns (max abs err, ok, {group: (err, tol)})."""
+    """Per lane group: max |kernel - twin| against 1e-4·max|twin| + 1e-6
+    where both are finite, and a NaN (or inf) exactly where the twin has
+    one; the zero lanes and the invalid rows must be exactly 0 in the
+    kernel's output.  Returns (max abs err, ok, {group: (err, tol)})."""
     torch.cuda.synchronize()
-    rep, ok = {}, bool(torch.isfinite(got).all())
+    rep, ok = {}, nonfinite_match(torch, got, want)
     for name, lanes in groups.items():
         g, w = got[..., lanes].double(), want[..., lanes].double()
-        err = float((g - w).abs().max())
-        tol = TOL_BWD_REL * float(w.abs().max()) + TOL_BWD_ABS
+        err = max_err((g,), (w,))
+        tol = TOL_BWD_REL * max_err((w,), (torch.zeros_like(w),)) + TOL_BWD_ABS
         rep[name] = (err, tol)
         ok = ok and err <= tol
     ok = ok and not bool(got[..., zero_lanes].any()) and not bool(got[invalid].any())
@@ -526,12 +544,14 @@ def check_shade_bwd(torch, MK, attrs, g, gs, geo, what, errs, failures, res=None
     3's, or ``res``) against itself without them: the same bits."""
     got = MK.shade_bwd(attrs, g, gs, *geo)
     res = res if res is not None else MK.shade_tiles(attrs, *geo, residuals=True)[4:]
-    same = bool(torch.equal(MK.shade_bwd(attrs, g, gs, *geo, *res), got))
-    e, ok, rep = compare_bwd(torch, got, MK.shade_bwd_ref(attrs, g, gs, *geo), SHADE_GROUPS,
-                             ZERO_LANES["shade"], attrs[..., 9] < 0.5)
+    same = same_bits(torch, MK.shade_bwd(attrs, g, gs, *geo, *res), got)
+    want = MK.shade_bwd_ref(attrs, g, gs, *geo)
+    e, ok, rep = compare_bwd(torch, got, want, SHADE_GROUPS, ZERO_LANES["shade"],
+                             attrs[..., 9] < 0.5)
     errs["shade_bwd"].append(e)
     log(f"# kernels/{what} {tuple(attrs.shape)} "
         + ", ".join(f"{k} {v[0]:.3g} (tol {v[1]:.3g})" for k, v in rep.items())
+        + f"; {nan_report(torch, (got,), (want,))}"
         + f" {'ok' if ok else 'FAIL'}; with kernel 3's residuals "
         f"{'the same bits' if same else 'DIFFERENT'}")
     if not (ok and same):
@@ -624,7 +644,42 @@ def time_cuda(torch, fn, n):
 
 
 def max_err(a, b):
-    return max(float((x.double() - y.double()).abs().max()) for x, y in zip(a, b))
+    """max |x - y| over the pairs of tensors, at the places where both are
+    finite."""
+    out = 0.0
+    for x, y in zip(a, b):
+        both = x.isfinite() & y.isfinite()
+        if bool(both.any()):
+            out = max(out, float((x.double() - y.double())[both].abs().max()))
+    return out
+
+
+def nonfinite_match(torch, a, b):
+    """NaN where the other has NaN, and ±inf where the other has ±inf."""
+    return (bool(torch.equal(a.isnan(), b.isnan()))
+            and bool(torch.equal(a.isposinf(), b.isposinf()))
+            and bool(torch.equal(a.isneginf(), b.isneginf())))
+
+
+def nan_report(torch, got, want):
+    """How the kernel's NaNs sit against the twin's, over pairs of tensors:
+    'NaN n as the twin's, m missing, k extra'."""
+    both = miss = extra = 0
+    for x, y in zip(got, want):
+        both += int((x.isnan() & y.isnan()).sum())
+        miss += int((~x.isnan() & y.isnan()).sum())
+        extra += int((x.isnan() & ~y.isnan()).sum())
+    return f"NaN {both} as the twin's, {miss} missing, {extra} extra"
+
+
+def same_bits(torch, a, b):
+    """The same bits, NaNs of any payload or sign counted as equal."""
+    if not a.is_floating_point():
+        return bool(torch.equal(a, b))
+    na, nb = a.isnan(), b.isnan()
+    return (bool(torch.equal(na, nb))
+            and bool(torch.equal(a.masked_fill(na, 0).view(torch.int32),
+                                 b.masked_fill(nb, 0).view(torch.int32))))
 
 
 def compare_composite(torch, SK, attrs, geo):
@@ -663,7 +718,8 @@ def check_composite(torch, SK, attrs, geo, what, errs, failures):
 
 
 def compare_shade(torch, MK, attrs, geo, sigma):
-    """Kernel 3 against its twin; and with its residuals against without:
+    """Kernel 3 against its twin (a NaN where the twin has one, the finite
+    values within TOL_SHADE); and with its residuals against without:
     the four outputs the same bits, the winner rows equal to the twin's,
     M within TOL_SHADE of the twin's relative to max(1, |M|); and launched
     twice with its residuals: the same bits.  Returns (max abs err of rgb
@@ -676,20 +732,22 @@ def compare_shade(torch, MK, attrs, geo, sigma):
     err = max_err((got[0], got[2]), (want[0], want[2]))
     exact = bool(torch.equal(got[1], want[1])) and bool(torch.equal(got[3], want[3]))
     n_fid = int((got[3] != want[3]).sum())
-    ok = all(bool(torch.isfinite(x).all()) for x in got) and err <= TOL_SHADE and exact
+    ok = (all(nonfinite_match(torch, x, y) for x, y in zip(got, want[:4]))
+          and err <= TOL_SHADE and exact)
     m_tol = TOL_SHADE * want[5].abs().clamp_min(1.0)
-    res_ok = (all(bool(torch.equal(x, y)) for x, y in zip(got, res[:4]))
+    res_ok = (all(same_bits(torch, x, y) for x, y in zip(got, res[:4]))
               and bool(torch.equal(res[4], want[4]))
-              and bool(((res[5] - want[5]).abs() <= m_tol).all()))
-    same = all(bool(torch.equal(x, y)) for x, y in zip(res, again))
-    return err, ok, n_fid, res_ok, same
+              and nonfinite_match(torch, res[5], want[5])
+              and bool(((res[5] - want[5]).abs() <= m_tol)[want[5].isfinite()].all()))
+    same = all(same_bits(torch, x, y) for x, y in zip(res, again))
+    return err, ok, n_fid, res_ok, same, nan_report(torch, res, want)
 
 
 def check_shade(torch, MK, attrs, geo, sigma, what, errs, failures):
     """compare_shade, logged; a failure of any part is recorded."""
-    e, ok, nf, res_ok, same = compare_shade(torch, MK, attrs, geo, sigma)
+    e, ok, nf, res_ok, same, nans = compare_shade(torch, MK, attrs, geo, sigma)
     errs["shade_tiles"].append(e)
-    log(f"# kernels/{what} {tuple(attrs.shape)} max_abs_err {e:.3g} (tol {TOL_SHADE}; "
+    log(f"# kernels/{what} {tuple(attrs.shape)} max_abs_err {e:.3g} (tol {TOL_SHADE}; {nans}; "
         f"hard/fid exact, {nf} fid mismatches) {'ok' if ok else 'FAIL'}; with residuals: "
         f"{'the same outputs, residuals ok' if res_ok else 'FAIL'}; twice "
         f"{'identical' if same else 'DIFFERENT'}")

@@ -63,11 +63,21 @@
 // so the same bits.  Every output is the bits of the straightforward walk.
 // Built with --fmad=false, so every operation rounds like the plain
 // PyTorch twin's, and winners agree with it exactly.
+// NaN: the soft path's clamps and its nearest-edge minimum keep a NaN, as
+// the twin's and JAX's do (a row with a NaN corner makes the tile's soft
+// silhouette NaN).  On a row whose corners all lie within 2^60 of the
+// origin no NaN can arise there (|e| < 2^61, h < 2^123 and |u| < 2^82 are
+// finite), so such rows take fminf/fmaxf as before, the same bits; the
+// others (a NaN, an infinite or a huge corner) take keep_nan.cuh's
+// versions and the division (lim -inf).  Which of the two a row takes is
+// the same for every pixel of the walk, so warps do not diverge on it.
 
 #include <cuda_runtime.h>
 
 #include <cfloat>
 #include <cmath>
+
+#include "keep_nan.cuh"
 
 namespace {
 
@@ -77,6 +87,7 @@ constexpr float NEG = -3.0e38f;
 constexpr float S_MAX = 0.999999f;  // 1 - 1e-6 in float32
 constexpr float SURE_NEG = 2.384185791015625e-07f;  // 2^-22
 constexpr int UNROLL = 2;  // rows a walk iteration
+constexpr float SAFE = 1.152921504606846976e18f;  // 2^60: a corner this far in is safe
 
 // a staged row: five float4 of shared memory
 struct Row {
@@ -84,8 +95,27 @@ struct Row {
   float4 ce;    // cx, cy, and edge 0 (a→b): ex0, ey0
   float4 ee;    // edge 1 (b→c): ex1, ey1; edge 2 (c→a): ex2, ey2
   float4 h;     // max(ex² + ey², 1e-12) of edges 0-2; the live area or 0
-  float4 w;     // 1/w of the corners; lim: sg*e_i <= lim means b_i < 0
+  float4 w;     // 1/w of the corners; lim: sg*e_i <= lim means b_i < 0,
+                // -inf on a row that is not safe
 };
+
+// the pixel's squared distance to the row's nearest edge segment, edge e
+// from corner e; KEEP: its clamps and minimum keep a NaN
+template <bool KEEP>
+__device__ __forceinline__ float nearest_d2(const float (&qx)[3], const float (&qy)[3],
+                                            const float (&ex)[3], const float (&ey)[3],
+                                            const float (&hh)[3]) {
+  float d2min = 0.f;
+#pragma unroll
+  for (int e = 0; e < 3; ++e) {
+    const float u = (qx[e] * ex[e] + qy[e] * ey[e]) / hh[e];
+    const float t = KEEP ? keep_nan::clamp(u, 0.f, 1.f) : fminf(fmaxf(u, 0.f), 1.f);
+    const float dx = qx[e] - t * ex[e], dy = qy[e] - t * ey[e];
+    const float d2 = dx * dx + dy * dy;
+    d2min = (e == 0) ? d2 : (KEEP ? keep_nan::min(d2min, d2) : fminf(d2min, d2));
+  }
+  return d2min;
+}
 
 // MAX_THREADS >= blockDim.x; POW2: sigma is a power of two, inv_sigma 1/sigma
 template <int MAX_THREADS, bool POW2>
@@ -162,11 +192,14 @@ shade_kernel(const float* __restrict__ attrs, float* __restrict__ rgb_out,
       r.ab = v0;
       r.ce = make_float4(cx, cy, ex0, ey0);
       r.ee = make_float4(ex1, ey1, ex2, ey2);
-      r.h = make_float4(fmaxf(ex0 * ex0 + ey0 * ey0, 1e-12f),
-                        fmaxf(ex1 * ex1 + ey1 * ey1, 1e-12f),
-                        fmaxf(ex2 * ex2 + ey2 * ey2, 1e-12f), live ? area : 0.f);
-      // an infinite area never takes the shortcut: e/inf may be -0
-      r.w = make_float4(v1.z, v1.w, iw2, fabsf(area) <= FLT_MAX ? -SURE_NEG : -INFINITY);
+      r.h = make_float4(keep_nan::max(ex0 * ex0 + ey0 * ey0, 1e-12f),
+                        keep_nan::max(ex1 * ex1 + ey1 * ey1, 1e-12f),
+                        keep_nan::max(ex2 * ex2 + ey2 * ey2, 1e-12f), live ? area : 0.f);
+      // a row that is not safe never takes the shortcut (an infinite area
+      // would not: e/inf may be -0; a safe row's area is finite)
+      const bool safe = fabsf(ax) < SAFE && fabsf(ay) < SAFE && fabsf(bx) < SAFE &&
+                        fabsf(by) < SAFE && fabsf(cx) < SAFE && fabsf(cy) < SAFE;
+      r.w = make_float4(v1.z, v1.w, iw2, safe ? -SURE_NEG : -INFINITY);
       rows[threadIdx.x] = r;
       sgn[threadIdx.x] = area > 0.f ? 1.f : -1.f;
     }
@@ -206,19 +239,14 @@ shade_kernel(const float* __restrict__ attrs, float* __restrict__ rgb_out,
       const float qx[3] = {qax, qbx, qcx}, qy[3] = {qay, qby, qcy};
       const float ex[3] = {ce.z, ee.x, ee.z}, ey[3] = {ce.w, ee.y, ee.w};
       const float hh[3] = {h.x, h.y, h.z};
-      float d2min = 0.f;
-#pragma unroll
-      for (int e = 0; e < 3; ++e) {
-        const float t = fminf(fmaxf((qx[e] * ex[e] + qy[e] * ey[e]) / hh[e], 0.f), 1.f);
-        const float dx = qx[e] - t * ex[e], dy = qy[e] - t * ey[e];
-        const float d2 = dx * dx + dy * dy;
-        d2min = (e == 0) ? d2 : fminf(d2min, d2);
-      }
+      float d2min = nearest_d2<false>(qx, qy, ex, ey, hh);
+      if (r.w.w == -INFINITY) d2min = nearest_d2<true>(qx, qy, ex, ey, hh);   // not safe
       const float d = sqrtf(d2min + 1e-12f);
       const float sd = inside ? -d : d;
       const float xs = POW2 ? -sd * inv_sigma : -sd / sigma;
       const float s = 1.f / (1.f + expf(-xs));
-      log_keep += log1pf(-fminf(fmaxf(s, 0.f), S_MAX));
+      // s is in [+0, 1] or NaN: fminf(fmaxf(s, 0), S_MAX)'s bits, NaN kept
+      log_keep += log1pf(-(s > S_MAX ? S_MAX : s));
     }
   }
 
@@ -227,7 +255,7 @@ shade_kernel(const float* __restrict__ attrs, float* __restrict__ rgb_out,
     float cr = 0.f, cg = 0.f, cb = 0.f, f = 0.f;
     if (win >= 0) {
       float pw0 = bw0 * ww0, pw1 = bw1 * ww1, pw2 = bw2 * ww2;
-      const float norm = fmaxf(pw0 + pw1 + pw2, 1e-12f);
+      const float norm = keep_nan::max(pw0 + pw1 + pw2, 1e-12f);
       pw0 = pw0 / norm; pw1 = pw1 / norm; pw2 = pw2 / norm;
       const float* w = a + (size_t)win * LANES;
       cr = pw0 * w[10] + pw1 * w[13] + pw2 * w[16];

@@ -71,8 +71,15 @@
 // divisions a pair took 1.47 of 2.42 ms, far more than the fast path of a
 // division costs; their numerators carry e^M, which is tiny where a pixel
 // is covered many times over, and such divisions take the slow path.
+// NaN: the soft path's clamps and its nearest-edge minimum keep a NaN, as
+// the twin's and JAX's do (keep_nan.cuh).  In phase B a row whose corners
+// all lie within 2^60 of the origin cannot meet a NaN there (as in
+// shade.cu), so it takes fminf/fmaxf, the same bits; any other row takes
+// keep_nan.cuh's versions.
 
 #include <cuda_runtime.h>
+
+#include "keep_nan.cuh"
 
 namespace {
 
@@ -85,6 +92,26 @@ constexpr int SPLIT = 2;    // CTAs per tile, each summing a share of its rows
 constexpr float AREA_MIN = 1e-4f;
 constexpr float NEG = -3.0e38f;
 constexpr float S_MAX = 0.999999f;  // 1 - 1e-6 in float32
+
+constexpr float SAFE = 1.152921504606846976e18f;  // 2^60: a corner this far in is safe
+
+// the edge projections clamped to [0, 1] (tt), the squared distances to the
+// three edge segments (d2), the nearer of the first two (m01) and the
+// nearest (d2min); KEEP: the clamps and minima keep a NaN
+template <bool KEEP>
+__device__ __forceinline__ void nearest_edge(const float (&qx)[3], const float (&qy)[3],
+                                             const float (&ex)[3], const float (&ey)[3],
+                                             const float (&uu)[3], float (&tt)[3],
+                                             float (&d2)[3], float& m01, float& d2min) {
+#pragma unroll
+  for (int e = 0; e < 3; ++e) {
+    tt[e] = KEEP ? keep_nan::clamp(uu[e], 0.f, 1.f) : fminf(fmaxf(uu[e], 0.f), 1.f);
+    const float dx = qx[e] - tt[e] * ex[e], dy = qy[e] - tt[e] * ey[e];
+    d2[e] = dx * dx + dy * dy;
+  }
+  m01 = KEEP ? keep_nan::min(d2[0], d2[1]) : fminf(d2[0], d2[1]);
+  d2min = KEEP ? keep_nan::min(m01, d2[2]) : fminf(m01, d2[2]);
+}
 
 // jnp.minimum's gradient share of the first argument
 __device__ __forceinline__ float half_split(float a, float b) {
@@ -214,16 +241,16 @@ shade_bwd_kernel(const float* __restrict__ attrs, const float* __restrict__ g_rg
         const float vx1 = q[(2 * e + 2) % 6], vy1 = q[(2 * e + 3) % 6];
         const float ex = vx1 - vx0, ey = vy1 - vy0;
         const float qx = px - vx0, qy = py - vy0;
-        const float t = fminf(fmaxf((qx * ex + qy * ey) / fmaxf(ex * ex + ey * ey, 1e-12f),
-                                    0.f), 1.f);
+        const float t = keep_nan::clamp(
+            (qx * ex + qy * ey) / keep_nan::max(ex * ex + ey * ey, 1e-12f), 0.f, 1.f);
         const float dx = qx - t * ex, dy = qy - t * ey;
         const float d2 = dx * dx + dy * dy;
-        d2min = (e == 0) ? d2 : fminf(d2min, d2);
+        d2min = (e == 0) ? d2 : keep_nan::min(d2min, d2);
       }
       const float dist = sqrtf(d2min + 1e-12f);
       const float sd = inside ? -dist : dist;
       const float s = 1.f / (1.f + expf(sd / sigma));
-      log_keep += log1pf(-fminf(fmaxf(s, 0.f), S_MAX));
+      log_keep += log1pf(-(s > S_MAX ? S_MAX : s));   // s in [+0, 1] or NaN
     }
   }
 
@@ -236,7 +263,7 @@ shade_bwd_kernel(const float* __restrict__ attrs, const float* __restrict__ g_rg
     const float q0 = bw0 * ww0, q1 = bw1 * ww1, q2 = bw2 * ww2;
     const float S_raw = q0 + q1 + q2;
     const float S_live = (S_raw >= 1e-12f) ? 1.f : 0.f;
-    const float S = fmaxf(S_raw, 1e-12f);
+    const float S = keep_nan::max(S_raw, 1e-12f);
     const float pw0 = q0 / S, pw1 = q1 / S, pw2 = q2 / S;
     const float u0 = w[10] * gr + w[11] * gg + w[12] * gb;
     const float u1 = w[13] * gr + w[14] * gg + w[15] * gb;
@@ -282,7 +309,7 @@ shade_bwd_kernel(const float* __restrict__ attrs, const float* __restrict__ g_rg
         ex[e] = vx[(e + 1) % 3] - vx[e];
         ey[e] = vy[(e + 1) % 3] - vy[e];
         const float h_raw = ex[e] * ex[e] + ey[e] * ey[e];
-        h[e] = fmaxf(h_raw, 1e-12f);
+        h[e] = keep_nan::max(h_raw, 1e-12f);
         hl[e] = (h_raw >= 1e-12f) ? 1.f : 0.f;
         rh[e] = 1.f / h[e];
       }
@@ -290,6 +317,8 @@ shade_bwd_kernel(const float* __restrict__ attrs, const float* __restrict__ g_rg
       const float area_raw = (bx - ax) * (cy - ay) - (by - ay) * (cx - ax);
       const bool live = fabsf(area_raw) >= AREA_MIN;
       const float area = live ? area_raw : 1.f;
+      const bool safe = fabsf(ax) < SAFE && fabsf(ay) < SAFE && fabsf(bx) < SAFE &&
+                        fabsf(by) < SAFE && fabsf(cx) < SAFE && fabsf(cy) < SAFE;
       float acc[NOUT];
 #pragma unroll
       for (int c = 0; c < NOUT; ++c) acc[c] = 0.f;
@@ -304,18 +333,15 @@ shade_bwd_kernel(const float* __restrict__ attrs, const float* __restrict__ g_rg
           const float b0 = e0 / area, b1 = e1 / area, b2 = e2 / area;
           const bool inside = (b0 >= 0.f) && (b1 >= 0.f) && (b2 >= 0.f) && live;
           // soft path: the nearest edge segment
-          float qx[3], qy[3], d2[3], tt[3], uu[3];
+          float qx[3], qy[3], d2[3], tt[3], uu[3], m01, d2min;
 #pragma unroll
           for (int e = 0; e < 3; ++e) {
             qx[e] = px - vx[e];
             qy[e] = py - vy[e];
             uu[e] = (qx[e] * ex[e] + qy[e] * ey[e]) / h[e];
-            tt[e] = fminf(fmaxf(uu[e], 0.f), 1.f);
-            const float dx = qx[e] - tt[e] * ex[e], dy = qy[e] - tt[e] * ey[e];
-            d2[e] = dx * dx + dy * dy;
           }
-          const float m01 = fminf(d2[0], d2[1]);
-          const float d2min = fminf(m01, d2[2]);
+          if (safe) nearest_edge<false>(qx, qy, ex, ey, uu, tt, d2, m01, d2min);
+          else nearest_edge<true>(qx, qy, ex, ey, uu, tt, d2, m01, d2min);
           const float w0a = half_split(d2[0], d2[1]);
           const float wm = half_split(m01, d2[2]);
           const float picks[3] = {w0a * wm, (1.f - w0a) * wm, 1.f - wm};

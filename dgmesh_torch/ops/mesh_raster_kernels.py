@@ -161,7 +161,13 @@ def shade_bwd_ref(attrs: torch.Tensor, g_rgb: torch.Tensor, g_soft: torch.Tensor
     soft term is gated by s ≤ 1 − 1e-6.  Rows that are not valid get exactly
     zero; lanes 9 and 19-23 are zero.  Given the forward's residuals ``win``
     and ``M`` (``shade_tiles_ref(..., residuals=True)``), the winner and the
-    soft sum are taken from them, with the same result bit for bit."""
+    soft sum are taken from them, with the same result bit for bit.
+
+    The rgb path's terms of a (row, pixel) pair are selected where the row
+    wins the pixel (``torch.where``, not a product with the one-hot): a NaN
+    in one row's corners or colours then reaches only that row's gradients
+    and the pixels it wins, as in the kernel.  (The Pallas kernel's dense
+    one-hot sums spread it over the tile through 0·NaN.)"""
     T, K, _ = attrs.shape
     d_attrs = attrs.new_zeros((T, K, LANES))
     px_all, py_all = tile_pixels(T, tiles_x, tile_h, tile_w, 0.5, attrs.device)
@@ -192,10 +198,12 @@ def shade_bwd_ref(attrs: torch.Tensor, g_rgb: torch.Tensor, g_soft: torch.Tensor
         else:
             w_res = win[s:s + chunk, None, :].long()
             winslot, has_win = w_res.clamp_min(0), w_res >= 0
-        win_1h = (torch.zeros_like(b[0]).scatter_(1, winslot, 1.0)) * has_win
+        wins = torch.zeros_like(b[0], dtype=torch.bool).scatter_(1, winslot, True) & has_win
+        win_1h = wins.float()
 
         def pick(x):                                            # winner's value (C,1,P)
-            return torch.gather(x.expand(-1, -1, b[0].shape[-1]), 1, winslot) * has_win
+            return torch.where(has_win, torch.gather(x.expand(-1, -1, b[0].shape[-1]), 1,
+                                                     winslot), 0.0)
 
         bw = [pick(bj) for bj in b]
         ww = [pick(w) for w in iw]
@@ -211,15 +219,15 @@ def shade_bwd_ref(attrs: torch.Tensor, g_rgb: torch.Tensor, g_soft: torch.Tensor
         for j in range(3):
             col = a[..., 10 + 3 * j:13 + 3 * j]                 # (C,K,3)
             d[..., 10 + 3 * j:13 + 3 * j] = torch.einsum("ckp,cpd->ckd", win_1h * pw[j], g)
-            u.append(torch.einsum("ckp,ckp->cp", win_1h,
-                                  torch.einsum("ckd,cpd->ckp", col, g))[:, None, :])
+            u.append(torch.where(wins, torch.einsum("ckd,cpd->ckp", col, g), 0.0)
+                     .sum(1, keepdim=True))
         ubar = pw[0] * u[0] + pw[1] * u[1] + pw[2] * u[2]
         dq = [(u[j] - ubar) / S * S_live for j in range(3)]
         for j in range(3):
-            d[..., 6 + j] = (win_1h * (dq[j] * bw[j])).sum(-1)
+            d[..., 6 + j] = torch.where(wins, dq[j] * bw[j], 0.0).sum(-1)
         alive = area_live.float()
-        de = [win_1h * (dq[j] * ww[j]) / area * alive for j in range(3)]
-        d_area = -(de[0] * b[0] + de[1] * b[1] + de[2] * b[2])
+        de = [torch.where(wins, dq[j] * ww[j], 0.0) / area * alive for j in range(3)]
+        d_area = torch.where(wins, -(de[0] * b[0] + de[1] * b[1] + de[2] * b[2]), 0.0)
         # e0: v0=b v1=c; e1: v0=c v1=a; e2: v0=a v1=b
         d_ax = de[1] * (py - cy) + de[2] * (by - py)
         d_ay = de[1] * (cx - px) + de[2] * (px - bx)
@@ -279,6 +287,8 @@ def shade_bwd_ref(attrs: torch.Tensor, g_rgb: torch.Tensor, g_soft: torch.Tensor
             dv[v1][1] = dv[v1][1] + d_ey
         for i in range(6):
             d[..., i] = dv[i // 2][i % 2].sum(-1) + face[i][..., 0]
+        # invalid rows: exactly 0, whatever a NaN elsewhere in the tile
+        d.masked_fill_(~valid, 0.0)
     return d_attrs
 
 

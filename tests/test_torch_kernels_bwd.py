@@ -197,6 +197,32 @@ def test_shade_bwd_twin_matches_pallas_with_ties(seed, K, sigma):
     assert not got[..., [9, 19, 20, 21, 22, 23]].any()
 
 
+def _nan_tile_holds(case, a, got, want, win):
+    """Tile 0 of a NaN case (its NaN rows: every fifth from row 2).  Every
+    NaN of the twin is one of JAX's.  JAX has more: its dense one-hot sums
+    (win·b, win·colour over all rows) carry a row's NaN into every pixel
+    and row of the tile through 0·NaN, where the twin (and the kernel)
+    select the winner's terms, so the NaN stays with the row that holds it
+    and the pixels it wins.  With a NaN corner or edge length the tile's
+    soft sum is NaN in both, so every valid row's screen lanes are NaN in
+    both; with a NaN colour, the twin's NaNs are lanes 0-8 of the NaN rows
+    that win a pixel, nothing else."""
+    got, want, valid = got[0], want[0], a[0, :, 9] > 0.5
+    assert (np.isnan(want) | ~np.isnan(got)).all()
+    nan_rows = np.zeros(len(valid), bool)
+    nan_rows[2::5] = True
+    if case == "NaN colour":
+        wins = np.isin(np.arange(len(valid)), win[0])
+        expect = np.zeros_like(got, bool)
+        expect[nan_rows & wins, :9] = True
+        assert (nan_rows & wins).any()
+        np.testing.assert_array_equal(np.isnan(got), expect)
+    else:
+        assert np.isnan(got[valid][:, :6]).all() and np.isnan(want[valid][:, :6]).all()
+        assert np.isfinite(got[:, 6:]).all()
+    assert not got[~valid].any()
+
+
 @pytest.mark.parametrize("case,K", chip_smoke.SHADE_EDGE_SHAPES)
 def test_shade_bwd_twin_matches_pallas_at_edge_shapes(case, K):
     """The twin against the Pallas kernel at the shapes chip_smoke.py also
@@ -204,7 +230,9 @@ def test_shade_bwd_twin_matches_pallas_at_edge_shapes(case, K):
     every row valid, valid rows interleaved with invalid ones, pixels with
     no winner), over 2 tiles with built ties: every lane within abs 1e-5 +
     rel 1e-5 of the lane's largest value (lanes 0, 1, 4, 5 of sliver rows
-    left out, as above); invalid rows and lanes 9, 19-23 exactly 0."""
+    left out, as above); invalid rows and lanes 9, 19-23 exactly 0.  In the
+    NaN cases tile 1 holds no NaN row and is held so; tile 0 by
+    ``_nan_tile_holds``."""
     rng = np.random.default_rng(K)
     nt = chip_smoke.SHADE_EDGE_TILES
     a = chip_smoke.shade_edge_attrs(rng, case, K, nt, TILES_X, TILE)
@@ -213,6 +241,11 @@ def test_shade_bwd_twin_matches_pallas_at_edge_shapes(case, K):
                                        TILES_X, TILE, TILE, 1.0, interpret=True))
     got = MK.shade_bwd_ref(torch.as_tensor(a), torch.as_tensor(g), torch.as_tensor(gs),
                            TILES_X, TILE, TILE, 1.0).numpy()
+    if case in chip_smoke.SHADE_NAN_CASES:
+        win = MK.shade_tiles_ref(torch.as_tensor(a), TILES_X, TILE, TILE, 1.0,
+                                 residuals=True)[4].numpy()
+        _nan_tile_holds(case, a, got, want, win)
+        a, got, want = a[1:], got[1:], want[1:]
     valid = a[..., 9] > 0.5
     sliver = (np.abs(_area(a)) < 1e-4) & valid
     for lane in range(24):
@@ -232,6 +265,44 @@ def test_shade_bwd_twin_matches_pallas_at_edge_shapes(case, K):
     elif case == "no winner":
         _, hard, _, _ = MK.shade_tiles_ref(torch.as_tensor(a), TILES_X, TILE, TILE, 1.0)
         assert (hard == 0).any(dim=1).all() and (hard == 1).any(dim=1).all()
+
+
+@pytest.mark.parametrize("case,K", [c for c in chip_smoke.SHADE_EDGE_SHAPES
+                                    if c[0] in chip_smoke.SHADE_NAN_CASES])
+def test_shade_forward_twin_keeps_nan_rows_as_jax(case, K):
+    """The forward twin against the Pallas forward on the NaN cases: tile 1
+    (no NaN row) within 1e-5 with hard and fid exact, as everywhere; in
+    tile 0 hard and fid exactly JAX's, the soft silhouette NaN exactly
+    where JAX's is (every pixel with a NaN corner or edge length: the row's
+    nearest-edge distance is NaN) and within 1e-5 elsewhere, and the rgb
+    NaN only where JAX's is (JAX's win·b sums spread a row's NaN
+    barycentrics over the tile; the twin's NaNs are the pixels whose winner
+    has a NaN colour), within 1e-5 where both are finite."""
+    rng = np.random.default_rng(K)
+    nt = chip_smoke.SHADE_EDGE_TILES
+    a = chip_smoke.shade_edge_attrs(rng, case, K, nt, TILES_X, TILE)
+    want = [np.asarray(x).reshape(nt, P, -1) for x in shade_tiles_pallas(
+        jnp.asarray(a), TILES_X, TILE, TILE, 1.0, interpret=True)]
+    out = MK.shade_tiles_ref(torch.as_tensor(a), TILES_X, TILE, TILE, 1.0, residuals=True)
+    got = [x.numpy().reshape(nt, P, -1) for x in out[:4]]
+    for name, x, w in zip(("rgb", "hard", "soft", "fid"), got, want):
+        both = np.isfinite(x) & np.isfinite(w)
+        np.testing.assert_allclose(x[both], w[both], rtol=0, atol=1e-5, err_msg=name)
+        assert (np.isnan(w) | ~np.isnan(x)).all(), name
+        assert np.isfinite(x[1]).all() and np.isfinite(w[1]).all(), name
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[3], want[3])
+    np.testing.assert_array_equal(np.isnan(got[2]), np.isnan(want[2]))
+    m = out[5].numpy()
+    if case == "NaN colour":
+        assert np.isfinite(got[2]).all()
+        win = out[4].numpy()[0]
+        nan_win = np.isin(win, np.arange(2, K, 5))
+        assert nan_win.any()
+        np.testing.assert_array_equal(np.isnan(got[0][0]).any(-1), nan_win)
+    else:
+        assert np.isnan(got[2][0]).all() and np.isnan(m[0]).all()
+        assert np.isfinite(got[0]).all()
 
 
 @pytest.mark.parametrize("seed,K", [(0, 32), (1, 40)])

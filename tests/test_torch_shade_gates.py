@@ -15,7 +15,9 @@ anyway, and takes per-row constants from shared memory:
 with built ties, every ``SHADE_EDGE_SHAPES`` case), on built rows and on
 built values they must give the same gate, the same barycentrics and the
 same squared edge distances, bit for bit.  The kernel itself is held
-against the twin on the card by chip_smoke.py.
+against the twin on the card by chip_smoke.py.  The kernel's clamps and
+nearest-edge minimum keep a NaN, as the twin's do (``keep_nan.cuh``; with
+``fminf``/``fmaxf`` a row with a NaN corner gave a finite d2min, F5).
 """
 
 import math
@@ -48,6 +50,20 @@ def f32(*v):
 
 def bits(x):
     return x.contiguous().view(torch.int32)
+
+
+# keep_nan.cuh: fmaxf/fminf where no operand is NaN, the NaN otherwise
+def keep_nan_max(v, lo):
+    return torch.where(v.isnan(), v, torch.fmax(v, torch.full_like(v, lo)))
+
+
+def keep_nan_clamp(v, lo, hi):
+    return torch.where(v.isnan(), v, torch.fmin(torch.fmax(v, torch.full_like(v, lo)),
+                                                torch.full_like(v, hi)))
+
+
+def keep_nan_min(a, b):
+    return torch.where((b < a) | b.isnan(), b, a)
 
 
 def sure_negative(e, sg, lim):
@@ -93,9 +109,11 @@ def kernel_walk(a, px, py):
     area = (bx - ax) * (cy - ay) - (by - ay) * (cx - ax)
     live = area.abs() >= MK.AREA_MIN
     as_ = torch.where(live, area, 0.0)
-    h = [torch.fmax(x * x + y * y, torch.full_like(x, 1e-12)) for x, y in zip(ex, ey)]
+    h = [keep_nan_max(x * x + y * y, 1e-12) for x, y in zip(ex, ey)]
     sg = torch.where(area > 0, 1.0, -1.0)
-    lim = torch.where(area.abs() <= FLT_MAX, -SURE_NEG, -INF)
+    # a row with a corner at or beyond 2^60 (or NaN) is not safe: no shortcut
+    safe = (a[..., 0:6].abs() < 2.0 ** 60).all(-1, keepdim=True)
+    lim = torch.where(safe, -SURE_NEG, -INF)
     # each pixel: q from each corner, the edge functions from the edge vectors
     qx, qy = (px - ax, px - bx, px - cx), (py - ay, py - by, py - cy)
     e = (ex[1] * qy[1] - ey[1] * qx[1],
@@ -106,14 +124,12 @@ def kernel_walk(a, px, py):
     divide = valid & live & ~skip
     b = tuple(torch.where(divide, ei / torch.where(live, as_, 1.0), 0.0) for ei in e)
     inside = divide & (b[0] >= 0.0) & (b[1] >= 0.0) & (b[2] >= 0.0)
-    d2min = None
+    d2min = None     # keep_nan's clamps and minimum: fminf/fmaxf's bits on a safe row
     for k in range(3):
-        # fminf(fmaxf(num / h, 0), 1)
-        t = torch.fmin(torch.fmax((qx[k] * ex[k] + qy[k] * ey[k]) / h[k], torch.zeros(())),
-                       torch.ones(()))
+        t = keep_nan_clamp((qx[k] * ex[k] + qy[k] * ey[k]) / h[k], 0.0, 1.0)
         dx, dy = qx[k] - t * ex[k], qy[k] - t * ey[k]
         d2 = dx * dx + dy * dy
-        d2min = d2 if d2min is None else torch.fmin(d2min, d2)
+        d2min = d2 if d2min is None else keep_nan_min(d2min, d2)
     taken = {"skip": int((valid & live & skip).sum()), "divide": int(divide.sum())}
     return inside, b, d2min, taken
 
@@ -166,7 +182,15 @@ def test_shortcuts_give_the_twins_gate_and_distances(case, K):
     for x, y in zip(b_k, b_t):
         assert torch.equal(bits(x[inside_t]), bits(y[inside_t]))
     valid = (a[..., 9:10] > 0.5).expand_as(d2_t)
-    assert torch.equal(bits(d2_k[valid]), bits(d2_t[valid]))
+    nan = d2_t.isnan()
+    assert torch.equal(d2_k.isnan(), nan)             # a NaN row keeps its NaN
+    assert torch.equal(bits(d2_k[valid & ~nan]), bits(d2_t[valid & ~nan]))
+    if case in chip_smoke.SHADE_NAN_CASES[::2]:       # a NaN corner or edge length
+        assert bool(nan[0].any()) and not bool(nan[1].any())
+    # a safe row (every corner within 2^60) never meets a NaN there, so the
+    # kernel's fminf/fmaxf path for it gives keep_nan's bits
+    safe = (a[..., 0:6].abs() < 2.0 ** 60).all(-1, keepdim=True).expand_as(d2_t)
+    assert not bool(nan[safe].any())
     # the winner (first maximum 1/w in K order) and coverage of the twin
     zi = b_k[0] * a[..., 6:7] + b_k[1] * a[..., 7:8] + b_k[2] * a[..., 8:9]
     zkey = torch.where(inside_k, zi, MK.NEG)

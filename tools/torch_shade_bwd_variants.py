@@ -93,8 +93,8 @@ Printed per source: ptxas's register, spill and C75xx (serialised wgmma)
 lines; then, for kernel 4's versions, ms per launch (CUDA
 events over 20 launches after a warm-up), measured in two rounds, the
 second in reverse order; the error against the plain twin per lane group
-(chip_smoke.compare_bwd's limits); whether two launches give the same bits.
-A version that leaves work out disagrees with the twin: that is reported,
+(chip_smoke.compare_bwd's limits); whether two launches give the same bits,
+and whether its output equals the first source's bit for bit.  A version that leaves work out disagrees with the twin: that is reported,
 not failed.  A version that writes a tail probe (each block's SM id and the
 %globaltimer at its start and end in lanes 20-22 of a row of its tile)
 also gets a line on how its blocks spread over the SMs and in time
@@ -673,14 +673,18 @@ def main() -> int:
     want = MK.shade_bwd_ref(a, g, gs, *geo)
     runs = {src: launcher(torch, lib, res) for src, (lib, _) in libs.items()}
     times = timed_rounds(torch, chip_smoke, runs, lambda src: runs[src](a, g, gs, *geo))
+    first = None
     for src in sources:
         got, again = runs[src](a, g, gs, *geo), runs[src](a, g, gs, *geo)
+        first = got if first is None else first
         e, ok, rep = chip_smoke.compare_bwd(torch, got, want, chip_smoke.SHADE_GROUPS,
                                             chip_smoke.ZERO_LANES["shade"], a[..., 9] < 0.5)
         print(f"# {src}: {' / '.join(f'{t:.4f}' for t in times[src])} ms/launch; "
               + ", ".join(f"{k} {v[0]:.3g} (tol {v[1]:.3g})" for k, v in rep.items())
               + f" {'agrees' if ok else 'DISAGREES'} with the twin; two launches "
-              f"{'identical' if torch.equal(got, again) else 'DIFFERENT'}", flush=True)
+              f"{'identical' if torch.equal(got, again) else 'DIFFERENT'}; "
+              f"{'the same bits as' if torch.equal(got, first) else 'OTHER bits than'} "
+              f"the first source", flush=True)
         tail = tail_report(torch, got, valid)
         if tail:
             print(tail, flush=True)
