@@ -113,6 +113,9 @@ class Camera:
     image_name: str = ""
     K: Optional[np.ndarray] = None            # (3,3) pinhole intrinsics, optional
     orig_transform: Optional[np.ndarray] = None  # (4,4) c2w blender/OpenGL pose
+    # per-frame GT mesh (finetune-nerf format, reference dataset_readers.py:404-409)
+    mesh_verts: Optional[np.ndarray] = None
+    mesh_faces: Optional[np.ndarray] = None
     znear: float = ZNEAR
     zfar: float = ZFAR
     trans: np.ndarray = field(default_factory=lambda: np.zeros(3, dtype=np.float32))

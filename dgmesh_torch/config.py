@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import os
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -162,6 +164,16 @@ _GROUPS = {
     "tpu": TpuParams,
 }
 
+# CLI shorthands of the reference's `_`-prefixed attributes
+# (arguments/__init__.py:26-35): -s/-m/-i/-r/-w
+_SHORTHAND = {
+    "source_path": "-s",
+    "model_path": "-m",
+    "images": "-i",
+    "resolution": "-r",
+    "white_background": "-w",
+}
+
 
 @dataclass
 class Config:
@@ -172,6 +184,11 @@ class Config:
 
     def to_dict(self):
         return dataclasses.asdict(self)
+
+    def save(self, path: str):
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(self.to_dict(), f, indent=2)
 
     @staticmethod
     def from_dict(d: dict) -> "Config":
@@ -184,9 +201,41 @@ class Config:
                         setattr(grp, k, v)
         return cfg
 
+    @staticmethod
+    def load(path: str) -> "Config":
+        with open(path) as f:
+            return Config.from_dict(json.load(f))
+
 
 def _field_names(gcls) -> dict:
     return {f.name: f for f in dataclasses.fields(gcls)}
+
+
+def add_config_args(parser: argparse.ArgumentParser) -> None:
+    """Register every dataclass field as a CLI flag (flat namespace, the
+    reference's shorthands), and ``--device``: where the CLI runs, ``cuda``
+    unless asked for another (dgmesh_torch/device.py)."""
+    seen = set()
+    for gcls in _GROUPS.values():
+        for f in dataclasses.fields(gcls):
+            if f.name in seen:
+                continue
+            seen.add(f.name)
+            default = f.default if f.default is not dataclasses.MISSING else None
+            if f.default_factory is not dataclasses.MISSING:  # type: ignore[misc]
+                default = f.default_factory()  # type: ignore[misc]
+            names = ["--" + f.name]
+            if f.name in _SHORTHAND:
+                names.append(_SHORTHAND[f.name])
+            if isinstance(default, bool):
+                parser.add_argument(*names, action="store_true", default=default)
+            elif isinstance(default, list):
+                parser.add_argument(*names, nargs="+", type=float, default=default)
+            else:
+                parser.add_argument(*names, type=type(default) if default is not None else str,
+                                    default=default)
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device to run on (default cuda; 'cpu' on request)")
 
 
 def load_yaml_config(path: str) -> dict:

@@ -1,7 +1,8 @@
 """Carry a JAX state across: numpy leaves → the port's tensors and modules.
 
 Inputs are the JAX package's structures with every leaf already converted to
-numpy (for example ``jax.tree.map(np.asarray, state)``): the
+numpy (for example ``jax.tree.map(np.asarray, state)``), or the nested maps
+that train/checkpoint.py decodes from a flax ``state_N.msgpack``: the
 ``GaussianParams`` / ``GaussianStats`` leaves and their Adam moments, for
 each of the five nets flax's parameter tree, a nested dict (optionally under
 ``"params"``), and optax's ScaleByAdamState (``count``, ``mu``, ``nu``).  Flax
@@ -92,10 +93,27 @@ def nets_from_flax(cfg: Config, nets, device: DeviceLike = None) -> NetParams:
     return NetParams(*[n.to(dev) for n in out])
 
 
+def _adam_state(opt):
+    """The ScaleByAdamState in ``opt``: itself, or, for an optax chain
+    (a tuple, or the map keyed "0", "1", ... that flax's serialisation
+    makes of it), its one element with ``count``, ``mu`` and ``nu``."""
+    if isinstance(opt, Mapping) and "count" not in opt:
+        opt = [opt[k] for k in sorted(opt, key=int)]
+    if isinstance(opt, (list, tuple)) and not hasattr(opt, "_fields"):
+        found = [o for o in opt if (isinstance(o, Mapping) and "count" in o)
+                 or hasattr(o, "count") and hasattr(o, "mu")]
+        if len(found) != 1:
+            raise ValueError("expected one scale_by_adam state in the net's optax chain")
+        opt = found[0]
+    return opt
+
+
 def net_adam_from_optax(net: mlp._TimeConditioned, opt, device: DeviceLike = None) -> NetAdam:
     """optax's ScaleByAdamState (``count``, ``mu``, ``nu``; numpy leaves) of
-    one net → the port's NetAdam, moments in ``net.parameters()`` order."""
+    one net, alone or in a chain → the port's NetAdam, moments in
+    ``net.parameters()`` order."""
     dev = resolve_device(device)
+    opt = _adam_state(opt)
 
     def tensors(tree):
         return tuple(torch.tensor(np.ascontiguousarray(x), dtype=torch.float32, device=dev)

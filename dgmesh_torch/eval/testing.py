@@ -1,20 +1,31 @@
-"""Inference render of one frame: the port's entry point.
+"""Held-out evaluation: the inference render of a frame and the test pass.
 
-Counterpart of dgmesh_tpu/eval/testing.py::render_frame (reference train.py
-testing() :559-760, per test camera): deform MLPs → Gaussian splat → DPSR →
-marching tets → deform-back + appearance MLPs → mesh raster.  The nets
-always apply in float32 (``ctx.f32()``), whatever the training step's
-``mlp_bf16``/``mlp_fused``, as in JAX.
+Counterpart of dgmesh_tpu/eval/testing.py (reference train.py testing()
+:559-760).  ``render_frame``, per test camera: deform MLPs → Gaussian
+splat → DPSR → marching tets → deform-back + appearance MLPs → mesh
+raster; the nets always apply in float32 (``ctx.f32()``), whatever the
+training step's ``mlp_bf16``/``mlp_fused``, as in JAX.  ``run_testing``:
+PSNR, SSIM and MS-SSIM (at 176 px and up) of the GS and mesh renders over
+the test cameras, the images and meshes, and fps.  LPIPS is not ported
+yet; JAX without converted weights reports none either.
 """
 
 from __future__ import annotations
 
+import os
+import time
+from typing import Dict
+
+import numpy as np
 import torch
 
+from ..config import Config
 from ..models import gaussians as G
+from ..ops import losses as L
 from ..ops import mesh_raster as MR
 from ..ops import splat
-from ..train.step import StepContext, _deform_all, _mesh_colors, extract_mesh
+from ..train.step import StepContext, _deform_all, _mesh_colors, extract_mesh, make_batch
+from ..utils_io import save_image, write_mesh_ply
 
 
 @torch.no_grad()
@@ -55,3 +66,53 @@ def render_frame(ctx: StepContext, state, batch, sh_degree: int,
     with ``with_mesh``, ``mesh_image`` (3,H,W), ``mask`` (H,W), the padded
     ``verts``/``faces``, ``n_verts``/``n_faces`` and ``vtx_color``."""
     return render_frame_with_aux(ctx, state, batch, sh_degree, with_mesh)[0]
+
+
+@torch.no_grad()
+def run_testing(cfg: Config, trainer, scene, save_dir: str = None,
+                with_mesh: bool = True) -> Dict[str, float]:
+    """The test pass over ``scene.test_cameras`` with the trainer's state
+    (dgmesh_tpu/eval/testing.py::run_testing without LPIPS): the mean
+    psnr, ssim, ms_ssim and mesh_psnr, mesh_ssim, mesh_ms_ssim, and fps
+    (renders per second of device-synchronised time); with ``save_dir``
+    each view's render_NNN.png, mesh_NNN.png and mesh_NNN.ply."""
+    ctx, state = trainer.ctx, trainer.state
+    dev = ctx.device
+    metrics = {k: [] for k in ("psnr", "ssim", "ms_ssim", "mesh_psnr", "mesh_ssim",
+                               "mesh_ms_ssim")}
+    t_total = 0.0
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def score(prefix, img, gt):
+        metrics[prefix + "psnr"].append(float(L.psnr(img, gt)))
+        metrics[prefix + "ssim"].append(float(L.ssim(img, gt)))
+        if img.shape[1] >= 176 and img.shape[2] >= 176:
+            metrics[prefix + "ms_ssim"].append(float(L.ms_ssim(img, gt)))
+
+    for i, cam in enumerate(scene.test_cameras):
+        batch = make_batch(cam, scene.time_interval, trainer.bg, dev)
+        sync()
+        t0 = time.time()
+        out = render_frame(ctx, state, batch, cfg.model.sh_degree, with_mesh)
+        sync()
+        t_total += time.time() - t0
+        img = out["render"].clamp(0, 1)
+        score("", img, batch.gt_image)
+        if with_mesh:
+            score("mesh_", out["mesh_image"].clamp(0, 1), batch.gt_image)
+        if save_dir:
+            save_image(os.path.join(save_dir, f"render_{i:03d}.png"),
+                       img.cpu().numpy().transpose(1, 2, 0))
+            if with_mesh:
+                save_image(os.path.join(save_dir, f"mesh_{i:03d}.png"),
+                           out["mesh_image"].cpu().numpy().transpose(1, 2, 0))
+                nv, nf = int(out["n_verts"]), int(out["n_faces"])
+                write_mesh_ply(os.path.join(save_dir, f"mesh_{i:03d}.ply"),
+                               out["verts"][:nv].cpu().numpy(), out["faces"][:nf].cpu().numpy(),
+                               out["vtx_color"][:nv].cpu().numpy())
+    result = {k: float(np.mean(v)) for k, v in metrics.items() if v}
+    result["fps"] = len(scene.test_cameras) / t_total if t_total > 0 else 0.0
+    return result

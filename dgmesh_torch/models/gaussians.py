@@ -127,3 +127,112 @@ def update_scale_center(params: GaussianParams, stats: GaussianStats,
                                  device=params.xyz.device)
         half = torch.maximum((maxs - center).abs(), (center - mins).abs()).max()
     return stats._replace(gaussian_center=center, gaussian_scale=half * gaussian_ratio)
+
+
+# --- PLY files (reference schema: save_ply :253-289 / load_ply :296-362) ----
+
+def _ply_property_list(n_rest: int):
+    props = ["x", "y", "z", "nx", "ny", "nz"]
+    props += [f"f_dc_{i}" for i in range(3)]
+    props += [f"f_rest_{i}" for i in range(3 * n_rest)]
+    props += ["opacity"]
+    props += [f"scale_{i}" for i in range(3)]
+    props += [f"rot_{i}" for i in range(4)]
+    props += ["density_thres", "gaussian_center", "gaussian_scale"]
+    return props
+
+
+def save_ply(path: str, params: GaussianParams, stats: GaussianStats):
+    """The live Gaussians as a binary little-endian PLY in the JAX package's
+    layout, byte for byte (dgmesh_tpu/models/gaussians.py::save_ply): the
+    reference's extended schema (gaussian_model_dpsr_dynamic_anchor.py:253-289)
+    with per-vertex density_thres, gaussian_center (the centre's mean) and
+    gaussian_scale columns, and the centre itself in a header comment."""
+    import os
+    host = lambda x: x.detach().cpu().numpy()  # noqa: E731
+    idx = np.nonzero(host(stats.alive))[0]
+    n = len(idx)
+    n_rest = params.f_rest.shape[1]
+    f_dc = host(params.f_dc)[idx].transpose(0, 2, 1).reshape(n, 3)
+    f_rest = host(params.f_rest)[idx].transpose(0, 2, 1).reshape(n, 3 * n_rest)
+    center = host(stats.gaussian_center)
+    dt = np.full((n, 1), float(params.density_thres), np.float32)
+    gc = np.tile(center.mean(), (n, 1)).astype(np.float32)
+    gs = np.full((n, 1), float(stats.gaussian_scale), np.float32)
+    data = np.concatenate([host(params.xyz)[idx], host(params.normal)[idx], f_dc, f_rest,
+                           host(params.opacity)[idx], host(params.scaling)[idx],
+                           host(params.rotation)[idx], dt, gc, gs], axis=1).astype("<f4")
+    props = _ply_property_list(n_rest)
+    assert data.shape[1] == len(props)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        header = ["ply", "format binary_little_endian 1.0",
+                  f"comment gaussian_center {center[0]} {center[1]} {center[2]}",
+                  f"element vertex {n}"]
+        header += [f"property float {p}" for p in props]
+        header += ["end_header"]
+        f.write(("\n".join(header) + "\n").encode("ascii"))
+        f.write(data.tobytes())
+
+
+def load_ply(path: str, capacity: int,
+             device: DeviceLike = None) -> Tuple[GaussianParams, GaussianStats]:
+    """Read a PLY of ``save_ply``'s layout (or the reference's, without the
+    extra columns) into ``capacity`` padded slots, the live ones first."""
+    dev = resolve_device(device)
+    with open(path, "rb") as f:
+        props, center, n = [], None, 0
+        while True:
+            line = f.readline().decode("ascii").strip()
+            if line.startswith("element vertex"):
+                n = int(line.split()[-1])
+            elif line.startswith("property float"):
+                props.append(line.split()[-1])
+            elif line.startswith("comment gaussian_center"):
+                center = np.array([float(v) for v in line.split()[-3:]], np.float32)
+            elif line == "end_header":
+                break
+        data = np.frombuffer(f.read(n * len(props) * 4), dtype="<f4").reshape(n, len(props))
+    col = {p: i for i, p in enumerate(props)}
+    M = capacity
+    assert n <= M, f"PLY has {n} points > capacity {M}"
+    n_rest = sum(1 for p in props if p.startswith("f_rest_")) // 3
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def grab(names):
+        return data[:, [col[p] for p in names]]
+
+    def pad(x, tail):
+        out = np.zeros((M,) + tail, np.float32)
+        out[:n] = x.reshape((n,) + tail)
+        return torch.as_tensor(out, **f32)
+
+    f_dc = grab([f"f_dc_{i}" for i in range(3)]).reshape(n, 3, 1).transpose(0, 2, 1)
+    f_rest = grab([f"f_rest_{i}" for i in range(3 * n_rest)]).reshape(n, 3, n_rest)
+    dt = float(data[0, col["density_thres"]]) if "density_thres" in col else 0.0
+    gsc = float(data[0, col["gaussian_scale"]]) if "gaussian_scale" in col else 1.0
+    params = GaussianParams(
+        xyz=pad(grab(["x", "y", "z"]), (3,)), f_dc=pad(f_dc, (1, 3)),
+        f_rest=pad(f_rest.transpose(0, 2, 1), (n_rest, 3)),
+        scaling=pad(grab([f"scale_{i}" for i in range(3)]), (3,)),
+        rotation=pad(grab([f"rot_{i}" for i in range(4)]), (4,)),
+        opacity=pad(grab(["opacity"]), (1,)), normal=pad(grab(["nx", "ny", "nz"]), (3,)),
+        density_thres=torch.tensor(dt, **f32))
+    alive = torch.zeros(M, dtype=torch.bool, device=dev)
+    alive[:n] = True
+    stats = GaussianStats(
+        alive=alive, max_radii2d=torch.zeros(M, **f32), xyz_grad_accum=torch.zeros(M, **f32),
+        denom=torch.zeros(M, **f32),
+        gaussian_center=torch.as_tensor(np.zeros(3, np.float32) if center is None else center,
+                                        **f32),
+        gaussian_scale=torch.tensor(gsc, **f32))
+    return params, stats
+
+
+def random_init_cloud(rng: np.random.Generator, n: int = 100_000, extent: float = 1.3):
+    """The random init cloud of a dataset that ships no SfM points
+    (reference dataset_readers.py:330-341): uniform in a cube of side
+    2·extent, random colours."""
+    points = (rng.random((n, 3)) * 2 - 1) * extent
+    colors = rng.random((n, 3))
+    return points.astype(np.float32), colors.astype(np.float32)

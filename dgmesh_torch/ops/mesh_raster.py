@@ -161,3 +161,40 @@ def render_mesh(verts, faces, face_valid, vtx_color, pose, proj, bg_color,
         # straight-through mask: the hard value with the soft gradient
         out["st_mask"] = out["mask"].detach() + (soft - soft.detach())
     return out
+
+
+def phong_vertex_colors(verts, faces, face_valid, cam_center, light_dir=None,
+                        ambient=0.5, diffuse=0.3, specular=0.2, shininess=10.0):
+    """Blinn-Phong vertex shading for the shape render
+    (dgmesh_tpu/ops/mesh_raster.py::phong_vertex_colors; the reference's
+    pytorch3d SoftPhongShader setup, utils/renderer.py:236-319: white
+    vertices, a directional light from the camera towards the mesh centre,
+    specular 0.2, shininess 10, ambient 0.5, diffuse 0.3), per vertex
+    (Gouraud) with area-weighted vertex normals.  Returns (V,3)."""
+    faces = faces.long()
+    vn = vertex_normals(verts, faces, face_valid)
+    cam = torch.as_tensor(cam_center, dtype=torch.float32, device=verts.device)
+    if light_dir is None:
+        v0, v1, v2 = verts[faces[:, 0]], verts[faces[:, 1]], verts[faces[:, 2]]
+        corners = torch.where(face_valid[:, None], v0 + v1 + v2, 0.0)
+        wsum = torch.clamp_min(face_valid.sum() * 3.0, 1.0)
+        light_dir = corners.sum(0) / wsum - cam
+    light = -torch.as_tensor(light_dir, dtype=torch.float32, device=verts.device)
+    light = light / (torch.linalg.norm(light) + 1e-9)
+    view = cam - verts
+    view = view / (torch.linalg.norm(view, dim=-1, keepdim=True) + 1e-9)
+    ndl = (vn * light[None, :]).sum(-1, keepdim=True).abs()
+    h = light[None, :] + view
+    h = h / (torch.linalg.norm(h, dim=-1, keepdim=True) + 1e-9)
+    ndh = (vn * h).sum(-1, keepdim=True).abs()
+    shade = ambient + diffuse * ndl + specular * ndh ** shininess
+    return torch.clamp(shade, 0.0, 1.0) * torch.ones((1, 3), device=verts.device)
+
+
+def vertex_normals(verts, faces, face_valid):
+    """Area-weighted vertex normals (pytorch3d ``verts_normals`` convention)."""
+    faces = faces.long()
+    v0, v1, v2 = verts[faces[:, 0]], verts[faces[:, 1]], verts[faces[:, 2]]
+    fn = torch.where(face_valid[:, None], torch.linalg.cross(v1 - v0, v2 - v0), 0.0)
+    vn = torch.zeros_like(verts).index_add_(0, faces.reshape(-1), fn.repeat_interleave(3, 0))
+    return vn / (torch.linalg.norm(vn, dim=-1, keepdim=True) + 1e-9)

@@ -264,8 +264,11 @@ def loss_and_aux(ctx: StepContext, gp: G.GaussianParams, nets: NetParams, screen
         n_live = gs.alive.sum()
 
         def masked_l1(a, b):
+            # |diff| with jnp.abs's gradient, +1 at 0 (JAX's cycle loss;
+            # torch.abs gives 0 there): on the first non-warm iteration the
+            # zero-initialised heads make every diff exactly 0
             diff = torch.where(gs.alive[:, None], a - b, 0.0)
-            return diff.abs().sum() / (n_live * a.shape[-1]).clamp_min(1)
+            return torch.where(diff >= 0, diff, -diff).sum() / (n_live * a.shape[-1]).clamp_min(1)
 
         cyc = [masked_l1(-d_back, d_xyz), masked_l1(-d_rot_back, d_rot),
                masked_l1(-d_scale_back, d_scale)]

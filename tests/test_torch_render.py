@@ -64,7 +64,7 @@ def test_render_frame_without_mesh_matches_jax():
 
 # --- the import rule ---------------------------------------------------------
 
-FORBIDDEN = ("jax", "flax", "optax", "dgmesh_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "msgpack", "dgmesh_tpu")
 
 
 def _port_files():
@@ -72,9 +72,18 @@ def _port_files():
             + sorted((ROOT / "tools").glob("torch_*.py")))
 
 
+def test_import_scan_covers_the_driver():
+    """The scan reads the CLIs and the data readers."""
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {"dgmesh_torch/cli/train.py", "dgmesh_torch/cli/render_test.py",
+            "dgmesh_torch/data/readers.py", "dgmesh_torch/data/scene.py",
+            "dgmesh_torch/train/checkpoint.py"} <= names
+
+
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax(path):
-    """AST scan: no import of jax, flax, optax or dgmesh_tpu, at any depth."""
+    """AST scan: no import of jax, flax, optax, msgpack or dgmesh_tpu, at any
+    depth (every file of the package, cli/ and data/ included)."""
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -102,7 +111,9 @@ def test_port_renders_on_cpu_without_jax():
         from dgmesh_torch.train.state import init_state
         from dgmesh_torch.train.step import StepContext, make_batch
         from dgmesh_torch.ops import knn, occupancy  # noqa: F401  (the structural ops)
-        from dgmesh_torch.train import densify, loop  # noqa: F401
+        from dgmesh_torch.train import checkpoint, densify, loop  # noqa: F401
+        from dgmesh_torch.cli import render_test, train  # noqa: F401  (the CLIs)
+        from dgmesh_torch.data import readers, scene, synthetic_mesh  # noqa: F401
         cfg = Config()
         cfg.model.is_blender, cfg.model.grid_res, cfg.model.sh_degree = True, 24, 1
         cfg.optimization.dpsr_sig = 2.0
@@ -122,6 +133,7 @@ def test_port_renders_on_cpu_without_jax():
         assert out["render"].shape == (3, 48, 48) and out["mesh_image"].shape == (3, 48, 48)
         assert int(out["n_faces"]) > 0 and bool(torch.isfinite(out["render"]).all())
         assert "jax" not in sys.modules and "dgmesh_tpu" not in sys.modules
+        assert "msgpack" not in sys.modules and "PIL" not in sys.modules
         print("ok")
     """)
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
