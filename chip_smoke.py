@@ -84,7 +84,27 @@ Phases; any failure exits non-zero and prints no result:
                 SMALL_SEEDS_FUSED states; normal init, anchor_step and
                 densify/prune with the same CPU-made draws on both (discrete
                 outputs equal, floats within TOL_STRUCT);
-  7. result   — one JSON line of per-kernel numbers, then the last line
+  7. driver   — the port's trainer, data and CLIs (module 3) at full width:
+                generate_mesh_dataset at 800² (DRIVER_FRAMES training and
+                DRIVER_TEST test frames, an icosphere of subdiv 5), then
+                cli.train.main on a copy of configs/synthetic-quality-288.yaml
+                whose schedule keys are DRIVER_SCHEDULE (every width, cap and
+                K as the YAML has them): warm-up, a densify iteration, normal
+                init at dpsr_iter, mesh iterations, an anchor iteration, the
+                tripwire check at 25, checkpoints at DRIVER_SAVE and the end,
+                the test pass; once with float32 nets and once fused, the
+                launch counters zeroed just before each and read just after
+                (kernels 1-4, and 5-6 fused, must have launched).  Gates:
+                every iteration's loss finite, mesh_overflow 0,
+                nonfinite_grad_leaves 0, no tripwire, the files written.
+                A fresh Trainer resumed from the DRIVER_SAVE checkpoint runs
+                the next iteration, held to the uninterrupted run's (its
+                checkpoint and logged metrics) within TOL_RESUME_*; then
+                cli.render_test on the final checkpoint (kernels 1 and 3);
+     7b: the converging regime of tests/test_mesh_phase_learns.py
+                (420 iterations at 64², grid 24) trained by the port's
+                Trainer, with that test's four properties;
+  8. result   — one JSON line of per-kernel numbers, then the last line
                 {"ok": true, "device": {...}}.
 """
 
@@ -92,6 +112,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import io
 import json
 import math
 import os
@@ -100,10 +121,12 @@ import subprocess
 import sys
 import time
 import traceback
+import warnings
 
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+DRIVER_DIR = os.path.join(ROOT, "build", "chip_smoke_driver")   # phases 7 and 7b's files
 CONFIG = os.path.join(ROOT, "configs", "synthetic-quality-288.yaml")
 
 # H100 SXM published peaks (NVIDIA data sheet): float32 outside the tensor
@@ -217,6 +240,35 @@ TOL_SMALL_GP_FUSED = 2e-2
 SMALL_SEEDS_FUSED = 2 * SMALL_SEEDS
 # The structural ops.  The scene extent of bench.py's view: the camera at
 # distance 2.5, times 1.1 as the reference's getNerfppNorm pads it.
+# phase 7 (the driver): the dataset, the schedule that replaces the YAML's
+# (every width, cap and K stay the YAML's), and the resume check.  200
+# iterations fit the Gaussians before the mesh phase opens (the shipped
+# schedule fits 5000); the two fields phase 5 takes from bench.py's
+# Config() (gaussian_ratio 1.5, init_density_threshold 0.05) replace the
+# YAML's 1.2 and 0.0 here too: with those the mesh of this fit overflows
+# the caps (PERF.md §6)
+DRIVER_FRAMES, DRIVER_TEST, DRIVER_SUBDIV = 8, 2, 5
+DRIVER_SCHEDULE = dict(iterations=240, warm_up=30, densify_from_iter=20, densify_until_iter=160,
+                       densification_interval=20, dpsr_iter=200, normal_warm_up=10,
+                       normal_net_warmup=20, anchor_iter=220, anchor_interval=230,
+                       position_lr_max_steps=240, deform_lr_max_steps=240, log_every=1,
+                       opacity_reset_interval=100_000, gaussian_ratio=1.5,
+                       init_density_threshold=0.05)
+DRIVER_SAVE = 212           # resumed from; the uninterrupted run also saves DRIVER_SAVE + 1
+DRIVER_ITERS = {"densify": 40, "normal init": 200, "anchor": 230}
+# A resumed iteration against the uninterrupted run's on the card: the
+# card's scatter sums (index_add_, autograd's scatters, DPSR) run in another
+# order run to run (PERF.md §6 (f)).  Loss terms relative; V and F
+# relative; each Gaussian group's and net leaf's gradient (from the Adam
+# first moments) as ‖Δ‖/‖g‖, at the card-vs-CPU check's TOL_SMALL_GP and
+# TOL_SMALL_NET (max |Δ| over max |g| is reported only: it reached 3.6e-3
+# against 5e-5 between two resumes on an H100); every
+# parameter within two learning rates (an element whose gradient is noise
+# moves by ~±lr either way, as tests/test_torch_train.py bounds it)
+TOL_RESUME_LOSS = 1e-4
+TOL_RESUME_MESH = 1e-3
+CONVERGE_ITERS = 420        # phase 7b: tests/test_mesh_phase_learns.py's regime
+
 STRUCT_EXTENT = 2.75
 REFERENCE_OCC_RES = 256   # the reference's normal-init grid (VERDICT r5 #8), timed only
 # card vs CPU at the small size: float leaves within abs + rel of the CPU's
@@ -1460,6 +1512,17 @@ def main() -> int:
     # the structural ops on the card and on the CPU with the same draws
     small_structural_check(torch, _small_cfg(Config), dev, failures)
 
+    # 7. the driver: the port's trainer, data and CLIs at full width --------
+    t0 = time.perf_counter()
+    driver_phase(torch, dev, failures, summary, (SK.composite_tiles, SK.composite_bwd,
+                                                 MK.shade_tiles, MK.shade_bwd,
+                                                 MF.trunk_fwd, MF.trunk_bwd))
+    log(f"# phase 7 (driver): {time.perf_counter() - t0:.2f} s")
+    # 7b. the converging regime of tests/test_mesh_phase_learns.py ---------
+    t0 = time.perf_counter()
+    converging_phase(torch, dev, failures)
+    log(f"# phase 7b (converging regime): {time.perf_counter() - t0:.2f} s")
+
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
@@ -1931,6 +1994,322 @@ def profile_train(torch, cfg, dev) -> int:
         log(ka.table(sort_by="self_cpu_time_total", row_limit=20, max_name_column_width=60))
     log("# --profile: stopping after the profiles; no result line")
     return 0
+
+
+def driver_yaml(path: str, **extra) -> str:
+    """A copy of CONFIG with DRIVER_SCHEDULE's keys (and ``extra``) in place
+    of the YAML's: the YAML overrides the command line, so the schedule goes
+    into the copy."""
+    import yaml
+    with open(CONFIG) as f:
+        flat = yaml.safe_load(f)
+    flat.update(DRIVER_SCHEDULE, **extra)
+    with open(path, "w") as f:
+        yaml.safe_dump(flat, f)
+    return path
+
+
+def driver_run(torch, dev, failures, data, label, counters, extra):
+    """cli.train.main on the dataset with DRIVER_SCHEDULE (stdout to a log
+    file beside the run), the counters zeroed just before and read just
+    after; the run's gates.  Returns (model path, its log rows, launches)."""
+    from dgmesh_torch.cli import train as cli_train
+    from dgmesh_torch.train.loop import TrainingHalted
+    out = os.path.join(DRIVER_DIR, f"run_{label}")
+    if os.path.isdir(out):
+        import shutil
+        shutil.rmtree(out)
+    os.makedirs(out)
+    yml = driver_yaml(os.path.join(DRIVER_DIR, f"{label}.yaml"), **extra)
+    argv = ["--config", yml, "-s", data, "-m", out, "--save_iterations", str(DRIVER_SAVE),
+            str(DRIVER_SAVE + 1)]
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results = None
+    with open(os.path.join(DRIVER_DIR, f"{label}.log"), "w") as f, \
+            contextlib.redirect_stdout(f):
+        try:
+            _, results = cli_train.main(argv, device=DEVICE)
+        except TrainingHalted as e:
+            failures.append(f"driver {label}: tripwire: {str(e).splitlines()[0]}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    rows = []
+    log_path = os.path.join(out, "train_log.jsonl")
+    if os.path.exists(log_path):
+        with open(log_path) as f:
+            rows = [json.loads(line) for line in f]
+    n_it = DRIVER_SCHEDULE["iterations"]
+    bad = [f"iter {r['iter']}: {k} {r.get(k)}" for r in rows
+           for k in ("loss", "mesh_overflow", "nonfinite_grad_leaves")
+           if (k == "loss" and not math.isfinite(r[k])) or (k != "loss" and r.get(k, 0) != 0)]
+    files = (["cfg_args.json", "train_log.jsonl", "test_results/test_result.txt",
+              f"point_cloud/iteration_{n_it}/point_cloud.ply"]
+             + [f"checkpoint/state_{i}.pt" for i in (DRIVER_SAVE, DRIVER_SAVE + 1, n_it)]
+             + [f"{n}/iteration_{n_it}/{n}.pt" for n in ("deform", "deform_normal",
+                                                         "deform_back", "deform_back_normal",
+                                                         "appearance")])
+    missing = [p for p in files if not os.path.exists(os.path.join(out, p))]
+    want = [c.__name__ for c in counters
+            if label == "fused" or c.__name__ not in ("trunk_fwd", "trunk_bwd")]
+    unlaunched = [k for k in want if launches[k] == 0]
+    res_ok = results is not None and all(math.isfinite(v) for v in results.values())
+    mesh_rows = [r for r in rows if "mesh_n_verts" in r]
+    ok = (len(rows) == n_it and not bad and not missing and not unlaunched and res_ok
+          and mesh_rows and min(r["mesh_n_verts"] for r in mesh_rows) > 0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"# driver {label}: cli.train {n_it} iterations at {IMG}², {DRIVER_FRAMES} training "
+        f"views, {wall:.2f} s, peak memory {peak:.3f} GiB; launches "
+        f"{launches}; logged rows {len(rows)}; problems {bad[:6]}; missing files {missing}; "
+        f"test pass {results} {'ok' if ok else 'FAIL'}")
+    by_it = {int(r["iter"]): r for r in rows}
+    if len(by_it) == n_it:
+        d = DRIVER_ITERS["densify"]
+        log(f"#   live Gaussians {int(by_it[1]['n_alive'])} → {int(by_it[n_it]['n_alive'])} "
+            f"(densify at {d}: {int(by_it[d - 1]['n_alive'])} → {int(by_it[d]['n_alive'])}); "
+            f"V at the first mesh iteration {int(mesh_rows[0]['mesh_n_verts'])}, at the last "
+            f"{int(mesh_rows[-1]['mesh_n_verts'])}; at the last: "
+            + ", ".join(f"{k} {by_it[n_it][k]:.6g}" for k in (
+                "loss", "img_psnr", "mesh_psnr", "mask_loss", "density_thres")
+                if k in by_it[n_it])
+            + "; anchor " + ", ".join(f"{k[7:]} {int(v)}" for k, v in by_it[
+                DRIVER_ITERS["anchor"]].items() if k.startswith("anchor_")))
+    if not ok:
+        failures.append(f"driver {label}: cli.train run")
+    return out, rows, launches
+
+
+def iteration_times(rows):
+    """ms per iteration from the log rows (log_every 1: each row's
+    iters_per_sec is over its own iteration, logging and the metrics'
+    device sync included): {what: ms}."""
+    ms = {int(r["iter"]): 1e3 / r["iters_per_sec"] for r in rows if r["iters_per_sec"] > 0}
+    special = set(DRIVER_ITERS.values()) | {1}
+    mesh = [ms[i] for i in sorted(ms) if i > DRIVER_ITERS["normal init"] and i not in special
+            and i >= DRIVER_SCHEDULE["dpsr_iter"] + DRIVER_SCHEDULE["normal_net_warmup"]]
+    pre = [ms[i] for i in sorted(ms) if 1 < i < DRIVER_SCHEDULE["dpsr_iter"] and i not in special]
+    out = {f"{k} (iteration {i})": ms.get(i, float("nan")) for k, i in DRIVER_ITERS.items()}
+    out["first iteration"] = ms.get(1, float("nan"))
+    if pre:
+        out[f"median before the mesh phase ({len(pre)})"] = statistics.median(pre)
+    if mesh:
+        out[f"median mesh iteration with normals ({len(mesh)})"] = statistics.median(mesh)
+    return out
+
+
+def resume_gaps(torch, cfg, got, want, before):
+    """A resumed iteration's state ``got`` against the uninterrupted run's
+    ``want``, both from ``before``: the gradients from the Adam first moments
+    ((μ - 0.9·μ_before)/0.1), per Gaussian group and per net leaf as
+    ‖Δ‖/‖g‖ (and, reported only, the Gaussian groups' max |Δ|/max |g|);
+    and max |Δp|/lr over the parameters.  Returns {measure: (gap, worst
+    leaf)}."""
+    from dgmesh_torch.train.state import gaussian_group_lrs, net_lrs
+    out = {"gaussian grads": (0.0, ""), "net grads": (0.0, ""), "params / lr": (0.0, ""),
+           "gaussian grads max": (0.0, "")}
+
+    def put(k, gap, where):
+        if not gap <= out[k][0]:
+            out[k] = (gap, where)
+
+    lrs = gaussian_group_lrs(before.step, cfg)
+    for f in type(got.gp)._fields:
+        ga = (getattr(got.g_mu, f) - 0.9 * getattr(before.g_mu, f)).double() / 0.1
+        gb = (getattr(want.g_mu, f) - 0.9 * getattr(before.g_mu, f)).double() / 0.1
+        scale, n = float(gb.abs().max()), float(gb.norm())
+        put("gaussian grads", float((ga - gb).norm()) / n if n > 0 else 0.0, f)
+        put("gaussian grads max", float((ga - gb).abs().max()) / scale if scale > 0 else 0.0, f)
+        put("params / lr", float((getattr(got.gp, f) - getattr(want.gp, f)).abs().max())
+            / float(getattr(lrs, f)), f)
+    nlrs = net_lrs(before.step.float(), cfg)
+    for name in type(got.nets)._fields:
+        oa, ob, o0 = (getattr(x.net_opt, name) for x in (got, want, before))
+        for i, (ma, mb, m0) in enumerate(zip(oa.mu, ob.mu, o0.mu)):
+            ga, gb = (ma - 0.9 * m0).double() / 0.1, (mb - 0.9 * m0).double() / 0.1
+            n = float(gb.norm())
+            put("net grads", float((ga - gb).norm()) / n if n > 0 else 0.0, f"{name}[{i}]")
+        for i, (pa, pb) in enumerate(zip(getattr(got.nets, name).parameters(),
+                                         getattr(want.nets, name).parameters())):
+            put("params / lr", float((pa - pb).detach().abs().max()) / float(getattr(nlrs, name)),
+                f"{name}[{i}]")
+    return out
+
+
+RESUME_LIMITS = {"gaussian grads": TOL_SMALL_GP, "net grads": TOL_SMALL_NET, "params / lr": 2.0}
+
+
+def resume_check(torch, dev, failures, out, rows):
+    """A fresh Trainer from the DRIVER_SAVE checkpoint runs DRIVER_SAVE + 1,
+    twice (two fresh resumes: the card's run-to-run spread), each held to
+    the uninterrupted run's checkpoint and logged metrics."""
+    from dgmesh_torch.config import Config
+    from dgmesh_torch.data.scene import Scene
+    from dgmesh_torch.train.checkpoint import load_checkpoint
+    from dgmesh_torch.train.loop import Trainer
+    cfg = Config.load(os.path.join(out, "cfg_args.json"))
+    scene = Scene(cfg, shuffle=True, seed=6666)
+    it = DRIVER_SAVE + 1
+    before = load_checkpoint(cfg, out, DRIVER_SAVE, device=dev)
+    want = load_checkpoint(cfg, out, it, device=dev)
+    logged = next(r for r in rows if int(r["iter"]) == it)
+    runs = []
+    for _ in range(2):
+        with contextlib.redirect_stdout(io.StringIO()):
+            tr = Trainer(cfg, scene, state=load_checkpoint(cfg, out, DRIVER_SAVE, device=dev),
+                         seed=6666, device=dev)
+            m = {k: float(v) for k, v in tr.run_iteration(it).items()}
+        runs.append((tr.state, m))
+    keys = [k for k in ("loss", "img_loss", "mask_loss", "mesh_img_loss", "laplacian_loss",
+                        "cycle_loss", "img_psnr", "mesh_psnr") if k in logged]
+    for j, (st, m) in enumerate(runs):
+        d_loss = max(abs(m[k] - logged[k]) / max(abs(logged[k]), 1e-12) for k in keys)
+        d_mesh = max(abs(m[k] - logged[k]) / max(logged[k], 1.0)
+                     for k in ("mesh_n_verts", "mesh_n_faces"))
+        gaps = resume_gaps(torch, cfg, st, want, before)
+        ok = (int(st.step) == int(want.step) and int(st.g_count) == int(want.g_count)
+              and d_loss <= TOL_RESUME_LOSS and d_mesh <= TOL_RESUME_MESH
+              and all(gaps[k][0] <= v for k, v in RESUME_LIMITS.items()))
+        log(f"# driver resume {j + 1}: iteration {it} from the checkpoint at {DRIVER_SAVE} "
+            f"against the uninterrupted run's: loss terms {d_loss:.3g} relative (tol "
+            f"{TOL_RESUME_LOSS}); V/F {d_mesh:.3g} relative (tol {TOL_RESUME_MESH}; V "
+            f"{int(m['mesh_n_verts'])}/{int(logged['mesh_n_verts'])}, F "
+            f"{int(m['mesh_n_faces'])}/{int(logged['mesh_n_faces'])}); "
+            + ", ".join(f"{k} {v[0]:.3g} (tol {RESUME_LIMITS.get(k, 'none')}, worst {v[1]})"
+                        for k, v in gaps.items()) + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"driver: resumed iteration {it} ({j + 1}) differs")
+    gaps = resume_gaps(torch, cfg, runs[0][0], runs[1][0], before)
+    d = max(abs(runs[0][1][k] - runs[1][1][k]) / max(abs(runs[1][1][k]), 1e-12) for k in keys)
+    log(f"# driver resume: the two resumes against each other (the card's run-to-run "
+        f"spread): loss terms {d:.3g} relative, "
+        + ", ".join(f"{k} {v[0]:.3g} ({v[1]})" for k, v in gaps.items()))
+
+
+def driver_phase(torch, dev, failures, summary, counters):
+    """7 (module docstring)."""
+    from dgmesh_torch.cli import render_test as cli_render
+    from dgmesh_torch.data.synthetic_mesh import generate_mesh_dataset
+    os.makedirs(DRIVER_DIR, exist_ok=True)
+    data = os.path.join(DRIVER_DIR, "data")
+    t0 = time.perf_counter()
+    generate_mesh_dataset(data, n_frames=DRIVER_FRAMES, width=IMG, height=IMG,
+                          n_test=DRIVER_TEST, subdiv=DRIVER_SUBDIV, device=dev)
+    torch.cuda.synchronize()
+    log(f"# driver dataset: {DRIVER_FRAMES} + {DRIVER_TEST} frames at {IMG}², icosphere "
+        f"subdiv {DRIVER_SUBDIV}, by generate_mesh_dataset on the card: "
+        f"{time.perf_counter() - t0:.2f} s")
+    runs = {}
+    for label, extra in (("f32", {}), ("fused", {"mlp_bf16": True, "mlp_fused": True})):
+        runs[label] = driver_run(torch, dev, failures, data, label, counters, extra)
+        times = iteration_times(runs[label][1])
+        log(f"# timing/driver {label}: ms per iteration (host clock, log_every 1): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in times.items())
+            + f"; phase 5's bare train_step ({N_GAUSS} Gaussians, 800², "
+            f"{'fused' if label == 'fused' else 'float32'}) "
+            f"{summary['fused' if label == 'fused' else 'f32'][0]:.2f}")
+    out, rows, _ = runs["f32"]
+    if rows:
+        resume_check(torch, dev, failures, out, rows)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    with open(os.path.join(DRIVER_DIR, "render_test.log"), "w") as f, \
+            contextlib.redirect_stdout(f):
+        results = cli_render.main(["-m", out], device=DEVICE)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    renders = sorted(os.listdir(os.path.join(out, "test_renders")))
+    ok = (all(math.isfinite(v) for v in results.values()) and launches["composite_tiles"] > 0
+          and launches["shade_tiles"] > 0 and len(renders) == 3 * DRIVER_TEST)
+    log(f"# driver render_test: {time.perf_counter() - t0:.2f} s; {results}; launches "
+        f"{launches}; files {renders} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("driver: cli.render_test")
+
+
+def converging_phase(torch, dev, failures):
+    """7b: tests/test_mesh_phase_learns.py's regime (its dataset, config and
+    schedule) trained by the port's Trainer on the card, with its four
+    properties."""
+    from dgmesh_torch.config import Config
+    from dgmesh_torch.data.scene import Scene
+    from dgmesh_torch.data.synthetic_mesh import generate_mesh_dataset
+    from dgmesh_torch.train.loop import Trainer
+    from dgmesh_torch.train.state import DENSITY_THRES_BOUND
+    data = os.path.join(DRIVER_DIR, "converge_data")
+    generate_mesh_dataset(data, n_frames=6, width=64, height=64, n_test=1, subdiv=3,
+                          n_eval_meshes=0, max_per_tile=1024, device=dev)
+    cfg = converging_cfg(Config, data)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, Scene(cfg, shuffle=True), device=dev)
+    # deterministic scatters: the outcome is the code's, not the atomic
+    # order's (the criterion compares two single-view rows at each end,
+    # which sit ±2 dB apart; PERF.md §6)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with open(os.path.join(DRIVER_DIR, "converge.log"), "w") as f, \
+                contextlib.redirect_stdout(f), warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            history = trainer.train(iterations=cfg.optimization.iterations, log_every=20)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mesh_rows = [m for m in history if "mesh_psnr" in m]
+    pre = [m for m in history if "mesh_psnr" not in m]
+    first = float(np.mean([m["mesh_psnr"] for m in mesh_rows[:2]]))
+    last = float(np.mean([m["mesh_psnr"] for m in mesh_rows[-2:]]))
+    gs_before = max(m["img_psnr"] for m in pre[-3:])
+    gs_after = float(np.mean([m["img_psnr"] for m in mesh_rows[-2:]]))
+    thr = float(trainer.state.gp.density_thres)
+    checks = {
+        "mesh_psnr rises": len(mesh_rows) >= 5 and last > first + 1.0,
+        "GS not destroyed": gs_after > gs_before - 3.0,
+        "density_thres not pinned": abs(thr) < DENSITY_THRES_BOUND - 0.01,
+        "mesh has geometry": (mesh_rows[-1].get("mesh_n_verts", 0) > 100
+                              and all(m.get("mesh_overflow", 0) == 0 for m in mesh_rows)),
+    }
+    log(f"# converging regime: {cfg.optimization.iterations} iterations at 64², grid "
+        f"{cfg.model.grid_res}, {wall:.2f} s ({1e3 * wall / cfg.optimization.iterations:.2f} "
+        f"ms/iteration with logging); mesh_psnr by row "
+        f"{[round(m['mesh_psnr'], 2) for m in mesh_rows]}, {first:.2f} → {last:.2f}; raster "
+        f"overflow at the last row {int(mesh_rows[-1].get('raster_overflow', 0))}; img_psnr "
+        f"{gs_before:.2f} → {gs_after:.2f}; density_thres {thr:.4f}; V "
+        f"{int(mesh_rows[-1].get('mesh_n_verts', 0)) if mesh_rows else 0}; "
+        + ", ".join(f"{k} {'ok' if v else 'FAIL'}" for k, v in checks.items()))
+    for k, v in checks.items():
+        if not v:
+            failures.append(f"converging regime: {k}")
+
+
+def converging_cfg(Config, data):
+    """tests/test_mesh_phase_learns.py's config, on ``data``."""
+    cfg = Config()
+    cfg.model.source_path = data
+    cfg.model.data_type = "finetune-nerf"
+    cfg.model.is_blender = True
+    cfg.model.white_background = False
+    cfg.model.grid_res = 24
+    cfg.model.sh_degree = 1
+    cfg.model.gaussian_ratio = 1.2
+    o = cfg.optimization
+    o.iterations = CONVERGE_ITERS
+    o.warm_up, o.dpsr_iter, o.normal_warm_up, o.normal_net_warmup = 30, 220, 40, 60
+    o.anchor_iter = 10_000
+    o.densify_from_iter, o.densify_until_iter, o.densification_interval = 30, 150, 50
+    o.opacity_reset_interval = 100_000
+    o.dpsr_sig = 2.0
+    o.mask_loss_weight = 1.0
+    t = cfg.tpu
+    t.max_gaussians = 2048
+    t.max_verts, t.max_faces = 16384, 32768
+    t.max_gaussians_per_tile, t.max_dup = 128, 1 << 15
+    t.max_faces_per_tile, t.max_face_dup = 512, 1 << 17
+    return cfg
 
 
 def load_cfg(bench_values: bool = True):

@@ -33,7 +33,7 @@ def positional_encoding(x: torch.Tensor, num_freqs: int,
     freqs = 2.0 ** torch.arange(num_freqs, dtype=x.dtype, device=x.device)
     xb = x[..., None, :] * freqs[:, None]             # (..., L, d)
     enc = torch.cat([torch.sin(xb), torch.cos(xb)], dim=-1)
-    enc = enc.reshape(*x.shape[:-1], -1)
+    enc = enc.reshape(*x.shape[:-1], 2 * num_freqs * x.shape[-1])   # also for 0 rows
     if include_input:
         enc = torch.cat([x, enc], dim=-1)
     return enc

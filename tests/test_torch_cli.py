@@ -122,3 +122,19 @@ def test_log_line_carries_jax_markers():
     assert "[tile-K ovf s=4 r=0 dup=1]" in line
     assert log_line(1, dict(loss=1.0, iters_per_sec=1.0)) == \
         "[1] loss=1.0000 psnr=0.00 alive=0 it/s=1.00"
+
+
+def test_test_pass_renders_an_empty_mesh(trained):
+    """Before the mesh phase the field can be flat and the mesh empty (zero
+    normals): the test pass still renders every view, the mesh image
+    the background, as JAX's padded render does (a zero-row net input
+    once failed in the positional encoding)."""
+    from dgmesh_torch.eval.testing import render_frame, run_testing
+    from dgmesh_torch.train.step import make_batch
+    tr = trained["trainer"]
+    tr_empty = type(tr)(tr.cfg, tr.scene, device="cpu")     # a fresh state: zero normals
+    cam = tr.scene.test_cameras[0]
+    out = render_frame(tr_empty.ctx, tr_empty.state, make_batch(cam, 0.25, tr.bg, "cpu"), 1)
+    assert int(out["n_faces"]) == 0 and not out["mesh_image"].any() and not out["mask"].any()
+    res = run_testing(tr.cfg, tr_empty, tr.scene)
+    assert all(v == v for v in res.values()) and "mesh_psnr" in res
