@@ -255,7 +255,11 @@ DRIVER_SCHEDULE = dict(iterations=240, warm_up=30, densify_from_iter=20, densify
                        opacity_reset_interval=100_000, gaussian_ratio=1.5,
                        init_density_threshold=0.05)
 DRIVER_SAVE = 212           # resumed from; the uninterrupted run also saves DRIVER_SAVE + 1
-DRIVER_ITERS = {"densify": 40, "normal init": 200, "anchor": 230}
+_S = DRIVER_SCHEDULE           # the schedule's first densify, normal-init and anchor iterations
+DRIVER_ITERS = {"densify": _S["densification_interval"]
+                * (_S["densify_from_iter"] // _S["densification_interval"] + 1),
+                "normal init": _S["dpsr_iter"],
+                "anchor": _S["anchor_interval"] * (_S["anchor_iter"] // _S["anchor_interval"] + 1)}
 # A resumed iteration against the uninterrupted run's on the card: the
 # card's scatter sums (index_add_, autograd's scatters, DPSR) run in another
 # order run to run (PERF.md §6 (f)).  Loss terms relative; V and F

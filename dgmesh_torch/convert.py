@@ -93,27 +93,10 @@ def nets_from_flax(cfg: Config, nets, device: DeviceLike = None) -> NetParams:
     return NetParams(*[n.to(dev) for n in out])
 
 
-def _adam_state(opt):
-    """The ScaleByAdamState in ``opt``: itself, or, for an optax chain
-    (a tuple, or the map keyed "0", "1", ... that flax's serialisation
-    makes of it), its one element with ``count``, ``mu`` and ``nu``."""
-    if isinstance(opt, Mapping) and "count" not in opt:
-        opt = [opt[k] for k in sorted(opt, key=int)]
-    if isinstance(opt, (list, tuple)) and not hasattr(opt, "_fields"):
-        found = [o for o in opt if (isinstance(o, Mapping) and "count" in o)
-                 or hasattr(o, "count") and hasattr(o, "mu")]
-        if len(found) != 1:
-            raise ValueError("expected one scale_by_adam state in the net's optax chain")
-        opt = found[0]
-    return opt
-
-
 def net_adam_from_optax(net: mlp._TimeConditioned, opt, device: DeviceLike = None) -> NetAdam:
     """optax's ScaleByAdamState (``count``, ``mu``, ``nu``; numpy leaves) of
-    one net, alone or in a chain → the port's NetAdam, moments in
-    ``net.parameters()`` order."""
+    one net → the port's NetAdam, moments in ``net.parameters()`` order."""
     dev = resolve_device(device)
-    opt = _adam_state(opt)
 
     def tensors(tree):
         return tuple(torch.tensor(np.ascontiguousarray(x), dtype=torch.float32, device=dev)

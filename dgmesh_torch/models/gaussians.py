@@ -195,7 +195,8 @@ def load_ply(path: str, capacity: int,
         data = np.frombuffer(f.read(n * len(props) * 4), dtype="<f4").reshape(n, len(props))
     col = {p: i for i, p in enumerate(props)}
     M = capacity
-    assert n <= M, f"PLY has {n} points > capacity {M}"
+    if n > M:
+        raise ValueError(f"{path}: {n} points exceed the capacity {M}")
     n_rest = sum(1 for p in props if p.startswith("f_rest_")) // 3
     f32 = dict(dtype=torch.float32, device=dev)
 

@@ -99,6 +99,29 @@ def test_train_cli_resumes_from_its_checkpoint(trained, tmp_path):
     assert [r["iter"] for r in rows] == [ITERS + 1]
 
 
+def test_resumed_iteration_is_the_uninterrupted_one_bit_for_bit(trained):
+    """A fresh Trainer from the run's checkpoint at 5 runs iteration 6 (a
+    mesh iteration) and gives the state the uninterrupted run saved at 6,
+    bit for bit: the checkpoint holds everything an iteration reads, and
+    the iteration's random stream depends on (seed, iteration) only."""
+    from dgmesh_torch.data.scene import Scene
+    from dgmesh_torch.train.checkpoint import load_checkpoint
+    from dgmesh_torch.train.loop import Trainer
+    cfg = Config.load(os.path.join(trained["out"], "cfg_args.json"))
+    tr = Trainer(cfg, Scene(cfg, shuffle=True, seed=6666), seed=6666, device="cpu",
+                 state=load_checkpoint(cfg, trained["out"], 5, device="cpu"))
+    tr.run_iteration(ITERS)
+    want = load_checkpoint(cfg, trained["out"], ITERS, device="cpu")
+    for tree in ("gp", "gs", "g_mu", "g_nu"):
+        for a, b in zip(getattr(tr.state, tree), getattr(want, tree)):
+            assert torch.equal(a, b), tree
+    for a, b in zip(tr.state.nets, want.nets):
+        assert all(torch.equal(x, y) for x, y in zip(a.parameters(), b.parameters()))
+    for a, b in zip(tr.state.net_opt, want.net_opt):
+        assert torch.equal(a.count, b.count)
+        assert all(torch.equal(x, y) for x, y in zip(a.mu + a.nu, b.mu + b.nu))
+
+
 def test_clis_need_a_gpu_unless_asked_for_the_cpu(trained, monkeypatch):
     """Without --device (or the device argument) both CLIs run on cuda and
     raise where there is none; --export_meshes is not ported yet."""

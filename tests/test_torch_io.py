@@ -312,3 +312,13 @@ def test_scene_refuses_what_is_not_ported(datasets):
     _, tc = _configs(tdir, "DTU")
     with pytest.raises(NotImplementedError, match="DTU"):
         TScene.Scene(tc)
+
+
+def test_random_init_cloud_matches_jax():
+    """The random init cloud (uniform in a cube of side 2·extent, random
+    colours) from the same numpy generator: JAX's exactly."""
+    got = TG.random_init_cloud(np.random.default_rng(4), n=500, extent=1.3)
+    want = JG.random_init_cloud(np.random.default_rng(4), n=500, extent=1.3)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+        assert a.dtype == np.float32

@@ -130,8 +130,8 @@ def _jax_grads(before, after, tree, name=None):
     if name is None:
         return {f: (np.asarray(getattr(after.g_mu, f)) - 0.9 * np.asarray(getattr(before.g_mu, f)))
                 / 0.1 for f in GaussianParams._fields}
-    mb = convert.flax_leaves(tree, convert._adam_state(getattr(before.net_opt, name)).mu)
-    ma = convert.flax_leaves(tree, convert._adam_state(getattr(after.net_opt, name)).mu)
+    mb = convert.flax_leaves(tree, getattr(before.net_opt, name).mu)
+    ma = convert.flax_leaves(tree, getattr(after.net_opt, name).mu)
     return [(a - 0.9 * b) / 0.1 for a, b in zip(ma, mb)]
 
 
@@ -164,8 +164,7 @@ def _hold_state(got, before, after, cfg, step_tol):
             sure = np.abs(gj) > 0.1 * np.abs(gj).max()
             np.testing.assert_allclose(p[sure], w[sure], rtol=0, atol=max(step_tol, 1e-4 * lr),
                                        err_msg=name)
-        assert int(getattr(got.net_opt, name).count) == int(
-            convert._adam_state(getattr(after.net_opt, name)).count)
+        assert int(getattr(got.net_opt, name).count) == int(getattr(after.net_opt, name).count)
 
 
 def test_consecutive_iterations_match_jax(run):
