@@ -89,14 +89,28 @@ def test_render_test_cli_reads_the_run_back(trained):
 
 def test_train_cli_resumes_from_its_checkpoint(trained, tmp_path):
     """--start_checkpoint: a new run from the first run's folder starts at
-    its last step and trains on to --quit_after."""
+    its last step and trains on to --quit_after; with --profile_iters 1 its
+    first iteration runs under torch.profiler (a Chrome trace written)."""
     out = str(tmp_path / "resumed")
     argv = ["--config", trained["yml"], "-s", trained["data"], "-m", out,
-            "--start_checkpoint", trained["out"], "--quit_after", str(ITERS + 1)]
+            "--start_checkpoint", trained["out"], "--quit_after", str(ITERS + 2),
+            "--profile_iters", "1"]
     trainer, _ = cli_train.main(argv, device="cpu")
-    assert int(trainer.state.step) == ITERS + 1
+    assert int(trainer.state.step) == ITERS + 2
     rows = [json.loads(line) for line in Path(out, "train_log.jsonl").read_text().splitlines()]
-    assert [r["iter"] for r in rows] == [ITERS + 1]
+    assert [r["iter"] for r in rows] == [ITERS + 1, ITERS + 2]
+    trace = json.loads(Path(out, "profile", "trace.json").read_text())
+    assert len(trace["traceEvents"]) > 100
+
+
+def test_debug_images(trained, tmp_path):
+    """save_debug_images (--log_images): the GS render, and in the mesh
+    phase the mesh image, the mask and the mesh (reference
+    train.py:323-386)."""
+    trained["trainer"].save_debug_images(ITERS, str(tmp_path))
+    assert sorted(p.name for p in (tmp_path / "logs").iterdir()) == [
+        f"mask_{ITERS:06d}.png", f"mesh_{ITERS:06d}.png", f"render_{ITERS:06d}.png"]
+    assert (tmp_path / "logs_geo" / f"mesh_{ITERS:06d}.ply").exists()
 
 
 def test_resumed_iteration_is_the_uninterrupted_one_bit_for_bit(trained):

@@ -56,7 +56,7 @@ def trainer_configs(data, **opt):
         c = C()
         c.model.source_path, c.model.data_type = data, "finetune-nerf"
         c.model.is_blender, c.model.grid_res, c.model.sh_degree = True, 32, 1
-        c.model.gaussian_ratio = 1.2
+        c.model.gaussian_ratio, c.model.eval = 1.2, True
         o = c.optimization
         o.iterations, o.warm_up, o.dpsr_sig = 100, 3, 2.0
         o.dpsr_iter = o.densify_from_iter = o.densify_until_iter = 100

@@ -67,21 +67,25 @@ def mesh_run(tmp_path_factory):
                        state=convert.state_from_jax(tc, before, device="cpu"), seed=SEED,
                        device="cpu")
     tm = {k: float(v) for k, v in tt.run_iteration(IT, draws=draws).items()}
-    return dict(before=before, after=after, jm=jm, tm=tm, tt=tt, tc=tc)
+    return dict(before=before, after=after, jm=jm, tm=tm, tt=tt, tc=tc, jt=jt, jc=jc)
 
 
 def test_mesh_iteration_metrics_match_jax(mesh_run):
     """Every loss term and PSNR rel 1e-5 (test_torch_train.py's limit); the
-    mesh's size and every capacity counter exactly; no overflow, no
-    non-finite gradient."""
+    mesh's size and every other capacity counter exactly; no mesh overflow,
+    no non-finite gradient.  The raster's per-tile overflow (entries past
+    K) within 1e-3: this messy first mesh puts ~5,600 past the cap, and its
+    vertices differ from JAX's by ~1e-6 (DPSR's sums), so a face whose
+    screen box ends on a tile edge can bin into one tile more or fewer."""
     jm, tm = mesh_run["jm"], mesh_run["tm"]
     assert set(tm) == set(jm)
     for k in ("loss", "cycle_loss", "mask_loss", "mesh_img_loss", "laplacian_loss", "img_loss",
               "img_psnr", "mesh_psnr", "psr_min", "psr_max", "normal_norm"):
         assert abs(tm[k] - jm[k]) <= 1e-5 * abs(jm[k]), k
     for k in ("mesh_n_verts", "mesh_n_faces", "mesh_overflow", "splat_overflow",
-              "splat_dup_overflow", "raster_overflow", "nonfinite_grad_leaves"):
+              "splat_dup_overflow", "nonfinite_grad_leaves"):
         assert tm[k] == jm[k], k
+    assert abs(tm["raster_overflow"] - jm["raster_overflow"]) <= 1e-3 * jm["raster_overflow"]
     assert jm["mesh_n_verts"] > 500 and jm["mesh_overflow"] == 0
 
 
@@ -129,3 +133,19 @@ def test_mesh_iteration_nets_match_jax(mesh_run):
             assert np.abs(p - w).max() <= 2.0 * lr * 1.001 + 1e-7, name
             sure = np.abs(gj) > 0.1 * np.abs(gj).max()
             np.testing.assert_allclose(p[sure], w[sure], rtol=0, atol=1e-6, err_msg=name)
+
+
+def test_test_pass_matches_jax(mesh_run, tmp_path):
+    """run_testing on the state after the iteration, over the test view:
+    the GS and mesh PSNR and SSIM rel 1e-4 of JAX's run_testing (no LPIPS
+    weights here, so JAX reports none either; MS-SSIM needs 176 px and
+    these views are 64); the view's images and mesh written."""
+    from dgmesh_torch.eval.testing import run_testing as t_run
+    from dgmesh_tpu.eval.testing import run_testing as j_run
+    want = j_run(mesh_run["jc"], mesh_run["jt"], mesh_run["jt"].scene)
+    got = t_run(mesh_run["tc"], mesh_run["tt"], mesh_run["tt"].scene, save_dir=str(tmp_path))
+    assert set(got) == set(want) == {"psnr", "ssim", "mesh_psnr", "mesh_ssim", "fps"}
+    for k in ("psnr", "ssim", "mesh_psnr", "mesh_ssim"):
+        assert abs(got[k] - want[k]) <= 1e-4 * abs(want[k]), k
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["mesh_000.ply", "mesh_000.png",
+                                                          "render_000.png"]
