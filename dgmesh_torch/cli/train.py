@@ -9,8 +9,9 @@ YAML taking precedence over the command line), its fixed seed (:888-891),
 the cfg dump (:919-934), checkpoints at --save_iterations and at the end,
 and a final test pass.  ``--profile_iters N`` profiles the first N
 iterations with torch.profiler (a Chrome trace under OUT/profile and the
-top operators printed).  ``--export_meshes`` (the dynamic mesh sequence)
-comes with the eval module and raises until then.
+top operators printed).  ``--export_meshes N`` writes the dynamic mesh
+sequence after the test pass: N meshes at uniform times under OUT/meshes,
+which ``cli.mesh_evaluation`` holds to the GT meshes.
 """
 
 from __future__ import annotations
@@ -43,7 +44,8 @@ def parse(argv=None):
                         help="image and mesh dumps to logs/ and logs_geo/ at log_every "
                              "(reference train.py:323-386)")
     parser.add_argument("--export_meshes", type=int, default=0,
-                        help="not ported yet: the N-frame dynamic mesh export")
+                        help="export the mesh at N uniform times to OUT/meshes after "
+                             "training (reference train.py:389-423)")
     add_config_args(parser)
     args = parser.parse_args(argv)
     return args, config_from_args(args, args.config)
@@ -67,14 +69,12 @@ def main(argv=None, device: Optional[str] = None):
     """Train from the command line ``argv``; ``device`` overrides --device."""
     from ..data.scene import Scene
     from ..device import resolve_device
-    from ..eval.testing import run_testing
+    from ..eval.testing import export_dynamic_meshes, run_testing
     from ..train.checkpoint import load_checkpoint, save_checkpoint
     from ..train.loop import Trainer
 
     args, cfg = parse(argv)
     dev = resolve_device(device or args.device)
-    if args.export_meshes > 0:
-        raise NotImplementedError("--export_meshes: the dynamic mesh export is not ported yet")
     random.seed(args.seed)
     np.random.seed(args.seed % (2 ** 31))
     torch.manual_seed(args.seed)
@@ -123,6 +123,9 @@ def main(argv=None, device: Optional[str] = None):
             for k, v in results.items():
                 f.write(f"{k}: {v}\n")
         print("Test results:", results, flush=True)
+    if args.export_meshes > 0:         # reference train.py:389-423
+        export_dynamic_meshes(cfg, trainer, scene, os.path.join(cfg.model.model_path, "meshes"),
+                              n_frames=args.export_meshes)
     return trainer, results
 
 

@@ -174,7 +174,11 @@ def read_png(path: str) -> np.ndarray:
     """An 8-bit, non-interlaced greyscale, RGB or RGBA PNG → uint8 (H,W) or
     (H,W,C)."""
     with open(path, "rb") as f:
-        blob = f.read()
+        return decode_png(f.read(), path)
+
+
+def decode_png(blob: bytes, path: str = "<bytes>") -> np.ndarray:
+    """``read_png`` of a PNG file's bytes; ``path`` names it in errors."""
     if blob[:8] != _PNG_SIG:
         raise ValueError(f"{path}: not a PNG file")
     pos, idat, hdr = 8, [], None

@@ -1,17 +1,22 @@
-"""The port's train and render_test CLIs on the CPU, on a generated dataset.
+"""The port's CLIs on the CPU, on a generated dataset.
 
 ``cli.train.main`` with ``device="cpu"`` trains 6 iterations at 64² (grid
 32, 512 Gaussian slots): warm-up, a densify iteration, the normal init at
 iteration 4 and mesh iterations; it writes the config, the log, the
-checkpoints and the test results.  ``cli.render_test`` reads them back.
-The port's trainer itself is held to JAX's in test_torch_trainer.py.
+checkpoints, the test results and (``--export_meshes 3``) the mesh
+sequence.  ``cli.render_test`` and ``cli.render_trajectory`` read the run
+back; ``cli.mesh_evaluation`` holds the exported meshes to the dataset's
+three GT meshes, against JAX's CLI on the same files.  The port's trainer
+itself is held to JAX's in test_torch_trainer.py.
 """
 
+import importlib.util
 import json
 import os
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 import yaml
@@ -19,7 +24,9 @@ import yaml
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
+from dgmesh_torch.cli import mesh_evaluation as cli_meval  # noqa: E402
 from dgmesh_torch.cli import render_test as cli_render  # noqa: E402
+from dgmesh_torch.cli import render_trajectory as cli_traj  # noqa: E402
 from dgmesh_torch.cli import train as cli_train  # noqa: E402
 from dgmesh_torch.config import Config  # noqa: E402
 from dgmesh_torch.data.synthetic_mesh import generate_mesh_dataset  # noqa: E402
@@ -28,6 +35,7 @@ from dgmesh_torch.train.loop import log_line  # noqa: E402
 torch.set_num_threads(1)
 
 ITERS = 6
+EVAL_FRAMES = 3
 CONFIG = dict(data_type="finetune-nerf", is_blender=True, white_background=False, eval=True,
               grid_res=32, sh_degree=1, gaussian_ratio=1.2, iterations=ITERS, warm_up=1,
               densify_from_iter=1, densify_until_iter=3, densification_interval=2,
@@ -42,11 +50,12 @@ def trained(tmp_path_factory):
     root = tmp_path_factory.mktemp("cli")
     data, out = str(root / "data"), str(root / "out")
     generate_mesh_dataset(data, n_frames=4, width=64, height=64, n_test=1, subdiv=3,
-                          device="cpu")
+                          n_eval_meshes=EVAL_FRAMES, device="cpu")
     yml = root / "tiny.yaml"
     yml.write_text(yaml.safe_dump(CONFIG))
     argv = ["--config", str(yml), "-s", data, "-m", out, "--save_iterations", "5"]
-    trainer, results = cli_train.main(argv, device="cpu")
+    trainer, results = cli_train.main(argv + ["--export_meshes", str(EVAL_FRAMES)],
+                                      device="cpu")
     return dict(root=root, data=data, out=out, yml=str(yml), argv=argv, trainer=trainer,
                 results=results)
 
@@ -84,7 +93,8 @@ def test_render_test_cli_reads_the_run_back(trained):
         if k != "fps":
             assert got[k] == v, k
     files = sorted(os.listdir(Path(trained["out"]) / "test_renders"))
-    assert files == ["mesh_000.ply", "mesh_000.png", "render_000.png"]
+    gif = ["test.gif"] if importlib.util.find_spec("imageio") else []
+    assert files == ["mesh_000.ply", "mesh_000.png", "render_000.png"] + gif
 
 
 def test_train_cli_resumes_from_its_checkpoint(trained, tmp_path):
@@ -136,16 +146,22 @@ def test_resumed_iteration_is_the_uninterrupted_one_bit_for_bit(trained):
         assert all(torch.equal(x, y) for x, y in zip(a.mu + a.nu, b.mu + b.nu))
 
 
-def test_clis_need_a_gpu_unless_asked_for_the_cpu(trained, monkeypatch):
-    """Without --device (or the device argument) both CLIs run on cuda and
-    raise where there is none; --export_meshes is not ported yet."""
+def test_clis_need_a_gpu_unless_asked_for_the_cpu(trained, monkeypatch, tmp_path):
+    """Without --device (or the device argument) every CLI runs on cuda and
+    raises where there is none; --export_meshes is ported (the fixture's
+    run exported its meshes)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli_train.main(trained["argv"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli_render.main(["-m", trained["out"]])
-    with pytest.raises(NotImplementedError, match="export"):
-        cli_train.main(trained["argv"] + ["--export_meshes", "3"], device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli_traj.main(["-m", trained["out"], "--n_views", "1", "--out", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli_meval.main(["--gt_dir", os.path.join(trained["data"], "gt_eval"), "--pred_dir",
+                        os.path.join(trained["out"], "meshes"), "--out",
+                        str(tmp_path / "eval.txt")])
+    assert len(os.listdir(Path(trained["out"]) / "meshes")) == EVAL_FRAMES
 
 
 def test_log_line_carries_jax_markers():
@@ -175,3 +191,116 @@ def test_test_pass_renders_an_empty_mesh(trained):
     assert int(out["n_faces"]) == 0 and not out["mesh_image"].any() and not out["mask"].any()
     res = run_testing(tr.cfg, tr_empty, tr.scene)
     assert all(v == v for v in res.values()) and "mesh_psnr" in res
+
+
+# --- module 4: the mesh export, the trajectory and the mesh evaluation --------
+
+
+def test_train_cli_exports_the_mesh_sequence(trained):
+    """--export_meshes 3 reaches export_dynamic_meshes: mesh_00000..2.ply
+    under OUT/meshes, each the final state's mesh at t = 0, 0.5, 1 (the
+    same counts as a direct export from the run's trainer)."""
+    from dgmesh_torch.eval.testing import export_dynamic_meshes
+    from dgmesh_torch.utils_io import read_mesh_ply
+    meshes = Path(trained["out"]) / "meshes"
+    assert sorted(os.listdir(meshes)) == [f"mesh_{i:05d}.ply" for i in range(EVAL_FRAMES)]
+    tr = trained["trainer"]
+    frames = export_dynamic_meshes(tr.cfg, tr, tr.scene, str(trained["root"] / "again"),
+                                   EVAL_FRAMES)
+    for i, fr in enumerate(frames):
+        v, f = read_mesh_ply(str(meshes / f"mesh_{i:05d}.ply"))
+        assert (len(v), len(f)) == (fr["n_verts"], fr["n_faces"]) and len(f) > 0
+        assert fr["mesh_overflow"] == 0 and np.isfinite(v).all()
+
+
+def test_render_trajectory_panels_are_the_renders(trained, tmp_path):
+    """render_trajectory --n_views 2 writes (H, 2W, 3) panels, each the
+    port's render_frame mesh image | render_mesh_shape of that orbit view
+    after the PNG's 8-bit rounding, and the GIF where imageio is
+    installed."""
+    from dgmesh_torch.data.scene import Scene
+    from dgmesh_torch.eval.testing import render_frame
+    from dgmesh_torch.ops import mesh_raster as MR
+    from dgmesh_torch.train.checkpoint import load_checkpoint
+    from dgmesh_torch.train.loop import Trainer
+    from dgmesh_torch.train.step import make_batch
+    from dgmesh_torch.utils_io import read_png
+    panels = cli_traj.main(["-m", trained["out"], "--n_views", "2", "--out", str(tmp_path)],
+                           device="cpu")
+    gif = ["trajectory.gif"] if importlib.util.find_spec("imageio") else []
+    assert sorted(os.listdir(tmp_path)) == ["frame_000.png", "frame_001.png"] + gif
+    cfg = Config.load(os.path.join(trained["out"], "cfg_args.json"))
+    scene = Scene(cfg, shuffle=False)
+    tr = Trainer(cfg, scene, state=load_checkpoint(cfg, trained["out"], -1, device="cpu"),
+                 device="cpu")
+    for i, cam in enumerate(cli_traj.trajectory_cameras(scene.train_cameras[0], 2, 3.0, 0.3)):
+        b = make_batch(cam, scene.time_interval, tr.bg, "cpu")
+        out = render_frame(tr.ctx, tr.state, b, cfg.model.sh_degree)
+        fv = torch.arange(out["faces"].shape[0]) < out["n_faces"]
+        shape = MR.render_mesh_shape(out["verts"], out["faces"], fv, b.mesh_pose, b.mesh_proj,
+                                     cam.camera_center, tr.ctx.mr_cfg)
+        want = np.concatenate([out["mesh_image"].permute(1, 2, 0).numpy(),
+                               shape["rgb"].numpy()], axis=1)
+        want = (np.clip(want, 0, 1) * 255).astype(np.uint8)
+        assert want.shape == (64, 128, 3) and panels[i].shape == (64, 128, 3)
+        assert (shape["mask"] > 0).any()
+        np.testing.assert_array_equal(read_png(str(tmp_path / f"frame_{i:03d}.png")), want)
+
+
+def test_gifs_are_skipped_without_imageio(trained, tmp_path, monkeypatch, capsys):
+    """Where imageio does not import (as on the card), render_test and
+    render_trajectory write their PNGs, no GIF, and say so (the test
+    renders' GIF is otherwise written where imageio imports)."""
+    monkeypatch.setitem(sys.modules, "imageio", None)
+    monkeypatch.setitem(sys.modules, "imageio.v2", None)
+    cli_traj.main(["-m", trained["out"], "--n_views", "1", "--out", str(tmp_path / "t")],
+                  device="cpu")
+    cli_render.main(["-m", trained["out"], "--out", str(tmp_path / "r")], device="cpu")
+    said = capsys.readouterr().out
+    assert "gif export skipped" in said and "video export skipped" in said
+    assert os.listdir(tmp_path / "t") == ["frame_000.png"]
+    assert "test.gif" not in os.listdir(tmp_path / "r")
+
+
+def _eval_numbers(path):
+    """eval_results.txt → [(cd, emd) per frame], (mean cd, mean emd)."""
+    lines = Path(path).read_text().splitlines()
+    frames = [(float(ln.split()[3]), float(ln.split()[5])) for ln in lines[:-2]]
+    return frames, (float(lines[-2].split()[-1]), float(lines[-1].split()[-1]))
+
+
+def test_mesh_evaluation_matches_jax(trained, tmp_path, monkeypatch):
+    """The exported meshes against the dataset's GT meshes with JAX's recipe
+    (--transforms, the default --method) at --emd_samples 256: the same
+    eval_results.txt lines as JAX's CLI on the same files, CD within the
+    kNN expansion's abs 1e-6 and EMD within 1e-5 relative, each plus the
+    text's 6-decimal rounding (5e-7)."""
+    import dgmesh_tpu.cli as jcli
+    from dgmesh_tpu.cli import mesh_evaluation as jax_meval
+    monkeypatch.setattr(jcli, "apply_platform_override", lambda: None)   # no compile cache
+    argv = ["--gt_dir", os.path.join(trained["data"], "gt_eval"), "--pred_dir",
+            os.path.join(trained["out"], "meshes"), "--transforms",
+            os.path.join(trained["data"], "transforms_train.json"), "--emd_samples", "256"]
+    jax_meval.main(argv + ["--out", str(tmp_path / "jax.txt")])
+    pairs = cli_meval.main(argv + ["--out", str(tmp_path / "port.txt")], device="cpu")
+    (jf, jm), (tf, tm) = _eval_numbers(tmp_path / "jax.txt"), _eval_numbers(tmp_path / "port.txt")
+    assert len(tf) == len(jf) == len(pairs) == EVAL_FRAMES
+    for (jcd, jemd), (tcd, temd) in zip(jf + [jm], tf + [tm]):
+        assert abs(tcd - jcd) <= 1e-6 + 1e-6, (tcd, jcd)
+        assert abs(temd - jemd) <= 1e-5 * jemd + 1e-6, (temd, jemd)
+        assert np.isfinite([tcd, temd]).all() and temd > 0
+
+
+def test_mesh_evaluation_of_the_gt_against_itself(trained, tmp_path):
+    """The GT meshes written as PLY and evaluated against themselves with
+    --method none and no --transforms: CD below 1e-6 (the float32 rounding
+    of the distance expansion at radius ~0.5)."""
+    from dgmesh_torch.utils_io import read_obj, write_mesh_ply
+    gt = os.path.join(trained["data"], "gt_eval")
+    for name in sorted(os.listdir(gt)):
+        v, f = read_obj(os.path.join(gt, name))
+        write_mesh_ply(str(tmp_path / "pred" / name.replace(".obj", ".ply")), v, f)
+    pairs = cli_meval.main(["--gt_dir", gt, "--pred_dir", str(tmp_path / "pred"), "--method",
+                            "none", "--emd_samples", "64", "--out", str(tmp_path / "e.txt")],
+                           device="cpu")
+    assert len(pairs) == EVAL_FRAMES and all(cd < 1e-6 for cd, _ in pairs)

@@ -73,11 +73,14 @@ def _port_files():
 
 
 def test_import_scan_covers_the_driver():
-    """The scan reads the CLIs and the data readers."""
+    """The scan reads the CLIs, the data readers and the eval modules."""
     names = {str(p.relative_to(ROOT)) for p in _port_files()}
     assert {"dgmesh_torch/cli/train.py", "dgmesh_torch/cli/render_test.py",
+            "dgmesh_torch/cli/render_trajectory.py", "dgmesh_torch/cli/mesh_evaluation.py",
             "dgmesh_torch/data/readers.py", "dgmesh_torch/data/scene.py",
-            "dgmesh_torch/train/checkpoint.py"} <= names
+            "dgmesh_torch/train/checkpoint.py", "dgmesh_torch/ops/chamfer.py",
+            "dgmesh_torch/eval/point_metrics.py", "dgmesh_torch/eval/lpips_torch.py",
+            "dgmesh_torch/eval/testing.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -113,6 +116,8 @@ def test_port_renders_on_cpu_without_jax():
         from dgmesh_torch.ops import knn, occupancy  # noqa: F401  (the structural ops)
         from dgmesh_torch.train import checkpoint, densify, loop  # noqa: F401
         from dgmesh_torch.cli import render_test, train  # noqa: F401  (the CLIs)
+        from dgmesh_torch.cli import mesh_evaluation, render_trajectory  # noqa: F401
+        from dgmesh_torch.eval import lpips_torch, point_metrics  # noqa: F401
         from dgmesh_torch.data import readers, scene, synthetic_mesh  # noqa: F401
         cfg = Config()
         cfg.model.is_blender, cfg.model.grid_res, cfg.model.sh_degree = True, 24, 1
@@ -134,6 +139,7 @@ def test_port_renders_on_cpu_without_jax():
         assert int(out["n_faces"]) > 0 and bool(torch.isfinite(out["render"]).all())
         assert "jax" not in sys.modules and "dgmesh_tpu" not in sys.modules
         assert "msgpack" not in sys.modules and "PIL" not in sys.modules
+        assert not [m for m in ("matplotlib", "imageio", "lpips") if m in sys.modules]
         print("ok")
     """)
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
