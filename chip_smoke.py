@@ -83,10 +83,12 @@ Phases; any failure exits non-zero and prints no result:
                 training step again in the fused configuration, from
                 SMALL_SEEDS_FUSED states; normal init, anchor_step and
                 densify/prune with the same CPU-made draws on both (discrete
-                outputs equal, floats within TOL_STRUCT);
+                outputs equal, floats within TOL_STRUCT); render_mesh_shape
+                of the small view's mesh (face_id equal, TOL_SHAPE_RENDER);
   7. driver   — the port's trainer, data and CLIs (module 3) at full width:
                 generate_mesh_dataset at 800² (DRIVER_FRAMES training and
-                DRIVER_TEST test frames, an icosphere of subdiv 5), then
+                DRIVER_TEST test frames, an icosphere of subdiv 5, and
+                DRIVER_EVAL_FRAMES GT meshes for phase 7e), then
                 cli.train.main on a copy of configs/synthetic-quality-288.yaml
                 whose schedule keys are DRIVER_SCHEDULE (every width, cap and
                 K as the YAML has them): warm-up, a densify iteration, normal
@@ -101,6 +103,23 @@ Phases; any failure exits non-zero and prints no result:
                 the next iteration, held to the uninterrupted run's (its
                 checkpoint and logged metrics) within TOL_RESUME_*; then
                 cli.render_test on the final checkpoint (kernels 1 and 3);
+     7e: evaluation (module 4) on the fused run's final checkpoint,
+                loaded as render_test loads it: export_dynamic_meshes of
+                DRIVER_EVAL_FRAMES frames (each mesh_overflow 0 and finite,
+                its parts timed apart); cli.mesh_evaluation with JAX's
+                recipe (tools/run_quality.sh: --transforms, the default
+                --method, 8192 EMD samples), every CD and EMD finite, its
+                chamfer, sampling and EMD timed, and frame 0 on the card
+                against the CPU (the EMD at EVAL_CHECK_SAMPLES);
+                cli.render_trajectory with TRAJ_VIEWS views at 800², the
+                launch counters zeroed just before and read just after
+                (kernel 1 once a view, kernel 3 twice: the render and the
+                shape render), then view 0's panel timed with kernel 3 held
+                to its twin on the shape render's rows; run_testing with
+                LPIPS on random AlexNet and VGG weights (written under
+                build/, found through DGMESH_LPIPS_DIR for this phase only),
+                the four columns finite, each net timed at 800² and held
+                card vs CPU on a 256² crop;
      7b: the converging regime of tests/test_mesh_phase_learns.py
                 (420 iterations at 64², grid 24) trained by the port's
                 Trainer, with that test's four properties;
@@ -112,6 +131,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import importlib.util
 import io
 import json
 import math
@@ -255,6 +275,7 @@ DRIVER_SCHEDULE = dict(iterations=240, warm_up=30, densify_from_iter=20, densify
                        opacity_reset_interval=100_000, gaussian_ratio=1.5,
                        init_density_threshold=0.05)
 DRIVER_SAVE = 212           # resumed from; the uninterrupted run also saves DRIVER_SAVE + 1
+DRIVER_EVAL_FRAMES = 10     # the dataset's GT meshes; phase 7e exports as many frames
 _S = DRIVER_SCHEDULE           # the schedule's first densify, normal-init and anchor iterations
 DRIVER_ITERS = {"densify": _S["densification_interval"]
                 * (_S["densify_from_iter"] // _S["densification_interval"] + 1),
@@ -272,6 +293,23 @@ DRIVER_ITERS = {"densify": _S["densification_interval"]
 TOL_RESUME_LOSS = 1e-4
 TOL_RESUME_MESH = 1e-3
 CONVERGE_ITERS = 420        # phase 7b: tests/test_mesh_phase_learns.py's regime
+# phase 7e (eval): JAX's quality recipe (tools/run_quality.sh) on the fused
+# run's final checkpoint.  Card vs CPU on frame 0: the chamfer within
+# TOL_EVAL_CD_REL (the distance expansion's sums in another order, averaged
+# over ~10k and ~600k points) and the EMD, at EVAL_CHECK_SAMPLES so that
+# the CPU takes seconds, within TOL_EVAL_EMD_REL (logsumexp sums in another
+# order over 600 iterations; 1.7e-7 between the CPU and JAX at 128
+# points); LPIPS on a LPIPS_CROP² crop within tests/test_lpips_torch_
+# agreement.py's 1e-4; the shape render at phase 6's size within the CPU
+# test's TOL_SHAPE_RENDER, face_id equal
+EVAL_EMD_SAMPLES = 8192
+EVAL_CHECK_SAMPLES = 1024
+TRAJ_VIEWS = 4
+LPIPS_CROP = 256
+TOL_EVAL_CD_REL = 1e-5
+TOL_EVAL_EMD_REL = 1e-4
+TOL_LPIPS_REL = 1e-4
+TOL_SHAPE_RENDER = 1e-5
 
 STRUCT_EXTENT = 2.75
 REFERENCE_OCC_RES = 256   # the reference's normal-init grid (VERDICT r5 #8), timed only
@@ -1503,6 +1541,8 @@ def main() -> int:
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"small view {i}: card and CPU disagree")
+        if i == 0:
+            small_shape_check(torch, MR, ctx_g, ctx_c, oc, bg_, bc_, dev, failures)
 
     # the training step on the card and on the CPU at the small size, from
     # SMALL_SEEDS states; then the same in the fused configuration, from
@@ -1518,10 +1558,14 @@ def main() -> int:
 
     # 7. the driver: the port's trainer, data and CLIs at full width --------
     t0 = time.perf_counter()
-    driver_phase(torch, dev, failures, summary, (SK.composite_tiles, SK.composite_bwd,
-                                                 MK.shade_tiles, MK.shade_bwd,
-                                                 MF.trunk_fwd, MF.trunk_bwd))
+    counters = (SK.composite_tiles, SK.composite_bwd, MK.shade_tiles, MK.shade_bwd,
+                MF.trunk_fwd, MF.trunk_bwd)
+    run_fused, data = driver_phase(torch, dev, failures, summary, counters)
     log(f"# phase 7 (driver): {time.perf_counter() - t0:.2f} s")
+    # 7e. evaluation (module 4) on the fused run's final checkpoint ---------
+    t0 = time.perf_counter()
+    eval_phase(torch, dev, failures, counters, run_fused, data)
+    log(f"# phase 7e (eval): {time.perf_counter() - t0:.2f} s")
     # 7b. the converging regime of tests/test_mesh_phase_learns.py ---------
     t0 = time.perf_counter()
     converging_phase(torch, dev, failures)
@@ -1536,6 +1580,28 @@ def main() -> int:
                                              "count": torch.cuda.device_count()}}),
           flush=True)
     return 0
+
+
+def small_shape_check(torch, MR, ctx_g, ctx_c, oc, bg_, bc_, dev, failures):
+    """render_mesh_shape of the CPU render's mesh on the card and on the
+    CPU, from the same camera: face_id and mask equal, rgb, normal and
+    position within TOL_SHAPE_RENDER."""
+    fv = torch.arange(oc["faces"].shape[0]) < oc["n_faces"]
+    centre = bc_.cam.campos.numpy()
+    want = MR.render_mesh_shape(oc["verts"], oc["faces"], fv, bc_.mesh_pose, bc_.mesh_proj,
+                                centre, ctx_c.mr_cfg)
+    got = MR.render_mesh_shape(oc["verts"].to(dev), oc["faces"].to(dev), fv.to(dev),
+                               bg_.mesh_pose, bg_.mesh_proj, centre, ctx_g.mr_cfg)
+    exact = all(bool(torch.equal(got[k].cpu(), want[k])) for k in ("face_id", "mask"))
+    errs = {k: float((got[k].cpu() - want[k]).abs().max()) for k in ("rgb", "normal", "position")}
+    ok = exact and max(errs.values()) <= TOL_SHAPE_RENDER and bool(want["mask"].any())
+    log(f"# small view 0 shape render: card vs CPU face_id and mask "
+        f"{'equal' if exact else 'DIFFERENT'}; max abs diff "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f" (tol {TOL_SHAPE_RENDER}); coverage {float(want['mask'].mean()):.3f} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("small view 0: render_mesh_shape card and CPU disagree")
 
 
 def small_train_check(torch, step, small, dev, failures, tol_gp, tol_head, tol_net, label,
@@ -2201,7 +2267,8 @@ def driver_phase(torch, dev, failures, summary, counters):
     data = os.path.join(DRIVER_DIR, "data")
     t0 = time.perf_counter()
     generate_mesh_dataset(data, n_frames=DRIVER_FRAMES, width=IMG, height=IMG,
-                          n_test=DRIVER_TEST, subdiv=DRIVER_SUBDIV, device=dev)
+                          n_test=DRIVER_TEST, subdiv=DRIVER_SUBDIV,
+                          n_eval_meshes=DRIVER_EVAL_FRAMES, device=dev)
     torch.cuda.synchronize()
     log(f"# driver dataset: {DRIVER_FRAMES} + {DRIVER_TEST} frames at {IMG}², icosphere "
         f"subdiv {DRIVER_SUBDIV}, by generate_mesh_dataset on the card: "
@@ -2233,6 +2300,208 @@ def driver_phase(torch, dev, failures, summary, counters):
         f"{launches}; files {renders} {'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append("driver: cli.render_test")
+    return runs["fused"][0], data
+
+
+def eval_phase(torch, dev, failures, counters, run_dir, data):
+    """7e (module docstring)."""
+    from dgmesh_torch.cli import mesh_evaluation as meval
+    from dgmesh_torch.cli import render_trajectory as cli_traj
+    from dgmesh_torch.config import Config
+    from dgmesh_torch.data.scene import Scene
+    from dgmesh_torch.eval import lpips_torch, testing
+    from dgmesh_torch.ops import mesh_raster as MR
+    from dgmesh_torch.ops import mesh_raster_kernels as MK
+    from dgmesh_torch.train.checkpoint import load_checkpoint
+    from dgmesh_torch.train.loop import Trainer
+    from dgmesh_torch.train.step import make_batch
+    from dgmesh_torch.utils_io import read_mesh_ply
+
+    def zero():
+        for c in counters:
+            c.launches = 0
+
+    def launches():
+        return {c.__name__: c.launches for c in counters}
+
+    # the checkpoint as render_test loads it
+    t0 = time.perf_counter()
+    cfg = Config.load(os.path.join(run_dir, "cfg_args.json"))
+    scene = Scene(cfg, shuffle=False)
+    trainer = Trainer(cfg, scene, state=load_checkpoint(cfg, run_dir, -1, device=dev),
+                      device=dev)
+    torch.cuda.synchronize()
+    log(f"# eval: the fused run's final checkpoint loaded in {time.perf_counter() - t0:.2f} s")
+
+    # 1. the dynamic mesh export, its parts timed apart
+    n = DRIVER_EVAL_FRAMES
+    meshes = os.path.join(run_dir, "meshes")
+    frames = []
+    zero()
+    with open(os.path.join(DRIVER_DIR, "eval_export.log"), "w") as f, \
+            contextlib.redirect_stdout(f):
+        parts, total, _ = call_by_stage(
+            torch, [(testing, "_deform_all", "deform nets"),
+                    (testing, "extract_mesh", "DPSR + marching tets"),
+                    (testing, "_mesh_colors", "colour nets"),
+                    (testing, "write_mesh_ply", "PLY write")],
+            lambda: frames.extend(testing.export_dynamic_meshes(cfg, trainer, scene, meshes, n)),
+            1, what="export_dynamic_meshes", per_call={k: n for k in (
+                "deform nets", "DPSR + marching tets", "colour nets", "PLY write")})
+    got = launches()
+    finite = []
+    for i in range(len(frames)):
+        v, _ = read_mesh_ply(os.path.join(meshes, f"mesh_{i:05d}.ply"))
+        finite.append(bool(np.isfinite(v).all()) and len(v) > 0)
+    ok = (len(frames) == n and all(fr["mesh_overflow"] == 0 for fr in frames) and all(finite))
+    log(f"# timing/eval export: {n} frames in {total:.2f} ms, {total / n:.2f} ms a frame: "
+        + ", ".join(f"{k} {v / n:.2f}" for k, v in parts.items())
+        + f" ms a frame; V {[fr['n_verts'] for fr in frames]}; F "
+        f"{[fr['n_faces'] for fr in frames]}; mesh_overflow "
+        f"{[fr['mesh_overflow'] for fr in frames]}; finite {all(finite)}; launches {got} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("eval: export_dynamic_meshes (overflow, empty or non-finite mesh)")
+
+    # 2. cli.mesh_evaluation with JAX's recipe, its parts timed apart
+    gt_dir = os.path.join(data, "gt_eval")
+    transforms = os.path.join(data, "transforms_train.json")
+    argv = ["--gt_dir", gt_dir, "--pred_dir", meshes, "--transforms", transforms,
+            "--emd_samples", str(EVAL_EMD_SAMPLES), "--out",
+            os.path.join(DRIVER_DIR, "eval_results.txt")]
+    pairs = []
+    torch.cuda.reset_peak_memory_stats()
+    with open(os.path.join(DRIVER_DIR, "eval_meval.log"), "w") as f, \
+            contextlib.redirect_stdout(f):
+        parts, total, _ = call_by_stage(
+            torch, [(meval, "chamfer", "chamfer"), (meval, "sample_surface_np", "sampling"),
+                    (meval, "emd_sinkhorn", "EMD")],
+            lambda: pairs.extend(meval.main(argv, device=DEVICE)), 1,
+            what="cli.mesh_evaluation", per_call={"chamfer": n, "sampling": 2 * n, "EMD": n})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ok = len(pairs) == n and all(math.isfinite(x) for p in pairs for x in p)
+    log(f"# eval mesh_evaluation (--transforms, --method dgmesh, --emd_samples "
+        f"{EVAL_EMD_SAMPLES}): CD {[round(p[0], 6) for p in pairs]}; EMD "
+        f"{[round(p[1], 6) for p in pairs]} {'ok' if ok else 'FAIL'}")
+    log(f"# timing/eval mesh_evaluation: {total / 1e3:.2f} s for {n} frames, "
+        f"{total / n / 1e3:.3f} s a frame: "
+        + ", ".join(f"{k} {v / n:.2f}" for k, v in parts.items())
+        + f" ms a frame; peak memory {peak:.3f} GiB")
+    if not ok:
+        failures.append("eval: cli.mesh_evaluation (non-finite CD or EMD)")
+    # frame 0 on the card and on the CPU
+    gts = sorted(x for x in os.listdir(gt_dir) if x.endswith(".obj"))
+    gv, gf, pv, pf = meval.load_pair(os.path.join(gt_dir, gts[0]),
+                                     os.path.join(meshes, "mesh_00000.ply"),
+                                     meval.ROTATIONS["dgmesh"], meval.camera_origin(transforms))
+    gs = meval.sample_surface_np(gv, gf, EVAL_CHECK_SAMPLES, 0)
+    ps = meval.sample_surface_np(pv, pf, EVAL_CHECK_SAMPLES, 1)
+    res, secs = {}, {}
+    for where in (dev, "cpu"):
+        t0 = time.perf_counter()
+
+        def on(x):
+            return torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float32, device=where)
+
+        res[str(where)] = (float(meval.chamfer(on(gv), on(pv))[0]) / 2.0,
+                           float(meval.emd_sinkhorn(on(gs), on(ps))))
+        secs[str(where)] = time.perf_counter() - t0
+    (cd_g, emd_g), (cd_c, emd_c) = res[str(dev)], res["cpu"]
+    d_cd, d_emd = abs(cd_g - cd_c) / abs(cd_c), abs(emd_g - emd_c) / abs(emd_c)
+    ok = d_cd <= TOL_EVAL_CD_REL and d_emd <= TOL_EVAL_EMD_REL
+    log(f"# eval frame 0, card vs CPU: CD {cd_g:.9g} / {cd_c:.9g} rel {d_cd:.3g} (tol "
+        f"{TOL_EVAL_CD_REL}; {len(gv)} GT against {len(pv)} predicted vertices); EMD at "
+        f"{EVAL_CHECK_SAMPLES} samples {emd_g:.9g} / {emd_c:.9g} rel {d_emd:.3g} (tol "
+        f"{TOL_EVAL_EMD_REL}); the card's CD is the CLI's {cd_g == pairs[0][0]}; "
+        f"{secs[str(dev)]:.2f} s / {secs['cpu']:.2f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("eval: card and CPU disagree on frame 0's CD or EMD")
+
+    # 3. cli.render_trajectory: kernel 1 once and kernel 3 twice a view
+    traj = os.path.join(DRIVER_DIR, "trajectory")
+    zero()
+    t0 = time.perf_counter()
+    with open(os.path.join(DRIVER_DIR, "render_trajectory.log"), "w") as f, \
+            contextlib.redirect_stdout(f):
+        panels = cli_traj.main(["-m", run_dir, "--n_views", str(TRAJ_VIEWS), "--out", traj],
+                               device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = launches()
+    want = {c.__name__: 0 for c in counters}
+    want.update(composite_tiles=TRAJ_VIEWS, shade_tiles=2 * TRAJ_VIEWS)
+    files = sorted(os.listdir(traj))
+    ok = (got == want and len(panels) == TRAJ_VIEWS
+          and all(p.shape == (IMG, 2 * IMG, 3) and np.isfinite(p).all() for p in panels)
+          and files == [f"frame_{i:03d}.png" for i in range(TRAJ_VIEWS)]
+          + (["trajectory.gif"] if importlib.util.find_spec("imageio") else []))
+    log(f"# eval render_trajectory --n_views {TRAJ_VIEWS} at {IMG}²: {wall:.2f} s with the "
+        f"checkpoint load; launches {got} (want {want}; the load launches none); files "
+        f"{files} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("eval: cli.render_trajectory (launches, panels or files)")
+    # view 0's panel timed, kernel 3 held to its twin on the shape render's rows
+    cams = cli_traj.trajectory_cameras(scene.train_cameras[0], TRAJ_VIEWS, 3.0, 0.3)
+    b0 = make_batch(cams[0], scene.time_interval, trainer.bg, dev)
+    keep = {}
+    stages, total, _ = call_by_stage(
+        torch, [(testing, "render_frame", "render_frame"),
+                (MR, "render_mesh_shape", "render_mesh_shape"), (MK, "shade_tiles", "kernel 3")],
+        lambda: cli_traj.render_panel(trainer, b0, cams[0].camera_center), REPEATS,
+        what="render_panel", per_call={"kernel 3": 2}, keep=keep)
+    log(f"# timing/eval trajectory view: {total:.2f} ms (median of {REPEATS}): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()) + " ms")
+    mc = trainer.ctx.mr_cfg
+    check_shade(torch, MK, keep["kernel 3"][1][0], (mc.tiles_x, mc.tile_h, mc.tile_w), mc.sigma,
+                "trajectory view 0, the shape render: shade_tiles", {"shade_tiles": []},
+                failures)
+
+    # 4. run_testing with LPIPS on random weights, for this phase only
+    lp = os.path.join(DRIVER_DIR, "lpips")
+    os.makedirs(lp, exist_ok=True)
+    for net in ("alex", "vgg"):
+        lpips_torch.random_weights(os.path.join(lp, f"lpips_{net}.npz"), net)
+    saved = os.environ.get("DGMESH_LPIPS_DIR")
+    os.environ["DGMESH_LPIPS_DIR"] = lp
+    try:
+        t0 = time.perf_counter()
+        results = testing.run_testing(cfg, trainer, scene)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        cols = [f"{p}lpips_{net}" for net in ("alex", "vgg") for p in ("", "mesh_")]
+        ok = all(k in results and math.isfinite(results[k]) for k in cols)
+        nv = len(scene.test_cameras)
+        log(f"# eval run_testing with LPIPS: {results}; {nv / wall:.2f} views/s with the "
+            f"metrics (fps {results['fps']:.2f}: the renders alone) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("eval: run_testing's LPIPS columns missing or not finite")
+        b = make_batch(scene.test_cameras[0], scene.time_interval, trainer.bg, dev)
+        img = testing.render_frame(trainer.ctx, trainer.state, b,
+                                   cfg.model.sh_degree)["render"].clamp(0, 1)
+        y0 = (IMG - LPIPS_CROP) // 2
+        crop = (slice(None), slice(y0, y0 + LPIPS_CROP), slice(y0, y0 + LPIPS_CROP))
+        for net in ("alex", "vgg"):
+            times = []
+            for r in range(1 + REPEATS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lpips_torch.rgb_lpips(img, b.gt_image, net)
+                if r:
+                    times.append((time.perf_counter() - t0) * 1e3)
+            g = lpips_torch.rgb_lpips(img[crop], b.gt_image[crop], net)
+            c = lpips_torch.rgb_lpips(img[crop].cpu(), b.gt_image[crop].cpu(), net)
+            d = abs(g - c) / abs(c)
+            ok = d <= TOL_LPIPS_REL
+            log(f"# timing/eval LPIPS {net}: {statistics.median(times):.2f} ms an image at "
+                f"{IMG}² (median of {REPEATS}); card vs CPU on a {LPIPS_CROP}² crop "
+                f"{g:.7g} / {c:.7g} rel {d:.3g} (tol {TOL_LPIPS_REL}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"eval: LPIPS {net} card and CPU disagree")
+    finally:
+        if saved is None:
+            os.environ.pop("DGMESH_LPIPS_DIR", None)
+        else:
+            os.environ["DGMESH_LPIPS_DIR"] = saved
 
 
 def converging_phase(torch, dev, failures):

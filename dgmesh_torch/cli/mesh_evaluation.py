@@ -65,6 +65,25 @@ def sample_surface_np(verts, faces, n, seed=0):
     return (b[:, :, None] * t).sum(1).astype(np.float32)
 
 
+def camera_origin(transforms_path: str) -> np.ndarray:
+    """The first frame's camera position in the OpenCV frame, from a
+    transforms_train.json: the GT meshes' shift (reference :136-142)."""
+    with open(transforms_path) as f:
+        meta = json.load(f)
+    c2w = np.asarray(meta["frames"][0]["transform_matrix"], np.float32)
+    return BLENDER2OPENCV @ c2w[:3, 3]
+
+
+def load_pair(gt_path, pred_path, rotate, cam_origin=None):
+    """The GT mesh shifted by ``cam_origin`` and the predicted one rotated
+    into its frame: (gt verts, gt faces, pred verts, pred faces)."""
+    gv, gf = load_mesh_any(gt_path)
+    pv, pf = load_mesh_any(pred_path)
+    if cam_origin is not None:
+        gv = gv - cam_origin[None].astype(np.float32)
+    return gv, gf, (rotate @ pv.T).T, pf
+
+
 def eval_pair(gt_path, pred_path, rotate, cam_origin=None, emd_samples=8192,
               device: Optional[torch.device] = None):
     """reference eval_distance :31-95: CD on the vertices (the sum of both
@@ -73,11 +92,7 @@ def eval_pair(gt_path, pred_path, rotate, cam_origin=None, emd_samples=8192,
     CPU).  Returns (cd, emd) as floats."""
     from ..device import resolve_device
     dev = resolve_device(device)
-    gv, gf = load_mesh_any(gt_path)
-    pv, pf = load_mesh_any(pred_path)
-    if cam_origin is not None:
-        gv = gv - cam_origin[None].astype(np.float32)
-    pv = (rotate @ pv.T).T
+    gv, gf, pv, pf = load_pair(gt_path, pred_path, rotate, cam_origin)
 
     def t(x):
         return torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float32, device=dev)
@@ -108,12 +123,7 @@ def main(argv=None, device: Optional[str] = None):
     args = parser.parse_args(argv)
     dev = resolve_device(device or args.device)
 
-    cam_origin = None
-    if args.transforms:
-        with open(args.transforms) as f:
-            meta = json.load(f)
-        c2w = np.asarray(meta["frames"][0]["transform_matrix"], np.float32)
-        cam_origin = BLENDER2OPENCV @ c2w[:3, 3]
+    cam_origin = camera_origin(args.transforms) if args.transforms else None
 
     gts = sorted(f for f in os.listdir(args.gt_dir) if f.endswith(".obj"))
     preds = sorted(f for f in os.listdir(args.pred_dir) if f.endswith(".ply"))
