@@ -109,8 +109,10 @@ Phases; any failure exits non-zero and prints no result:
                 its parts timed apart); cli.mesh_evaluation with JAX's
                 recipe (tools/run_quality.sh: --transforms, the default
                 --method, 8192 EMD samples), every CD and EMD finite, its
-                chamfer, sampling and EMD timed, and frame 0 on the card
-                against the CPU (the EMD at EVAL_CHECK_SAMPLES);
+                chamfer, sampling and EMD timed, once more in the dataset's
+                own frame (--method none, no --transforms: the recipe's
+                alignment suits the reference's captures), and frame 0 on
+                the card against the CPU (the EMD at EVAL_CHECK_SAMPLES);
                 cli.render_trajectory with TRAJ_VIEWS views at 800², the
                 launch counters zeroed just before and read just after
                 (kernel 1 once a view, kernel 3 twice: the render and the
@@ -294,16 +296,18 @@ TOL_RESUME_LOSS = 1e-4
 TOL_RESUME_MESH = 1e-3
 CONVERGE_ITERS = 420        # phase 7b: tests/test_mesh_phase_learns.py's regime
 # phase 7e (eval): JAX's quality recipe (tools/run_quality.sh) on the fused
-# run's final checkpoint.  Card vs CPU on frame 0: the chamfer within
+# run's final checkpoint.  Card vs CPU on frame 0, at sizes the CPU takes
+# in seconds (the whole frame's chamfer took it 33 s): the chamfer of the
+# GT against every EVAL_CHECK_STRIDE-th predicted vertex within
 # TOL_EVAL_CD_REL (the distance expansion's sums in another order, averaged
-# over ~10k and ~600k points) and the EMD, at EVAL_CHECK_SAMPLES so that
-# the CPU takes seconds, within TOL_EVAL_EMD_REL (logsumexp sums in another
-# order over 600 iterations; 1.7e-7 between the CPU and JAX at 128
-# points); LPIPS on a LPIPS_CROP² crop within tests/test_lpips_torch_
-# agreement.py's 1e-4; the shape render at phase 6's size within the CPU
-# test's TOL_SHAPE_RENDER, face_id equal
+# over ~10k and ~75k points) and the EMD at EVAL_CHECK_SAMPLES within
+# TOL_EVAL_EMD_REL (logsumexp sums in another order over 600 iterations;
+# 1.7e-7 between the CPU and JAX at 128 points); LPIPS on a LPIPS_CROP²
+# crop within tests/test_lpips_torch_agreement.py's 1e-4; the shape render
+# at phase 6's size within the CPU test's TOL_SHAPE_RENDER, face_id equal
 EVAL_EMD_SAMPLES = 8192
 EVAL_CHECK_SAMPLES = 1024
+EVAL_CHECK_STRIDE = 8       # the CPU's chamfer of frame 0 on every 8th predicted vertex
 TRAJ_VIEWS = 4
 LPIPS_CROP = 256
 TOL_EVAL_CD_REL = 1e-5
@@ -2389,33 +2393,64 @@ def eval_phase(torch, dev, failures, counters, run_dir, data):
         + f" ms a frame; peak memory {peak:.3f} GiB")
     if not ok:
         failures.append("eval: cli.mesh_evaluation (non-finite CD or EMD)")
+    # the recipe's rotation and camera-origin shift suit the reference's
+    # captures, not the generated data: the meshes in the dataset's own frame
+    with open(os.path.join(DRIVER_DIR, "eval_meval_aligned.log"), "w") as f, \
+            contextlib.redirect_stdout(f):
+        aligned = meval.main(["--gt_dir", gt_dir, "--pred_dir", meshes, "--method", "none",
+                              "--emd_samples", str(EVAL_EMD_SAMPLES), "--out", os.path.join(DRIVER_DIR, "eval_results_aligned.txt")],
+                             device=DEVICE)
+    ok = len(aligned) == n and all(math.isfinite(x) for p in aligned for x in p)
+    log(f"# eval mesh_evaluation in the dataset's frame (--method none, no --transforms): CD "
+        f"{[round(p[0], 6) for p in aligned]}; EMD {[round(p[1], 6) for p in aligned]} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("eval: cli.mesh_evaluation in the dataset's frame (non-finite)")
     # frame 0 on the card and on the CPU
     gts = sorted(x for x in os.listdir(gt_dir) if x.endswith(".obj"))
     gv, gf, pv, pf = meval.load_pair(os.path.join(gt_dir, gts[0]),
                                      os.path.join(meshes, "mesh_00000.ply"),
                                      meval.ROTATIONS["dgmesh"], meval.camera_origin(transforms))
+    def on(x, where):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float32, device=where)
+
+    cd_cli = float(meval.chamfer(on(gv, dev), on(pv, dev))[0]) / 2.0
+    pv_s = pv[::EVAL_CHECK_STRIDE]
     gs = meval.sample_surface_np(gv, gf, EVAL_CHECK_SAMPLES, 0)
     ps = meval.sample_surface_np(pv, pf, EVAL_CHECK_SAMPLES, 1)
     res, secs = {}, {}
     for where in (dev, "cpu"):
         t0 = time.perf_counter()
-
-        def on(x):
-            return torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float32, device=where)
-
-        res[str(where)] = (float(meval.chamfer(on(gv), on(pv))[0]) / 2.0,
-                           float(meval.emd_sinkhorn(on(gs), on(ps))))
+        res[str(where)] = (float(meval.chamfer(on(gv, where), on(pv_s, where))[0]) / 2.0,
+                           float(meval.emd_sinkhorn(on(gs, where), on(ps, where))))
         secs[str(where)] = time.perf_counter() - t0
     (cd_g, emd_g), (cd_c, emd_c) = res[str(dev)], res["cpu"]
     d_cd, d_emd = abs(cd_g - cd_c) / abs(cd_c), abs(emd_g - emd_c) / abs(emd_c)
     ok = d_cd <= TOL_EVAL_CD_REL and d_emd <= TOL_EVAL_EMD_REL
     log(f"# eval frame 0, card vs CPU: CD {cd_g:.9g} / {cd_c:.9g} rel {d_cd:.3g} (tol "
-        f"{TOL_EVAL_CD_REL}; {len(gv)} GT against {len(pv)} predicted vertices); EMD at "
-        f"{EVAL_CHECK_SAMPLES} samples {emd_g:.9g} / {emd_c:.9g} rel {d_emd:.3g} (tol "
-        f"{TOL_EVAL_EMD_REL}); the card's CD is the CLI's {cd_g == pairs[0][0]}; "
-        f"{secs[str(dev)]:.2f} s / {secs['cpu']:.2f} s {'ok' if ok else 'FAIL'}")
+        f"{TOL_EVAL_CD_REL}; {len(gv)} GT against every {EVAL_CHECK_STRIDE}th predicted vertex, "
+        f"{len(pv_s)} of {len(pv)}); EMD at {EVAL_CHECK_SAMPLES} samples {emd_g:.9g} / "
+        f"{emd_c:.9g} rel {d_emd:.3g} (tol {TOL_EVAL_EMD_REL}); {secs[str(dev)]:.2f} s / "
+        f"{secs['cpu']:.2f} s; the card's CD of all {len(pv)} vertices is the CLI's "
+        f"{cd_cli == pairs[0][0]} {'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append("eval: card and CPU disagree on frame 0's CD or EMD")
+    # the EMD alone at the CLI's samples: its time and its own peak memory
+    gs = on(meval.sample_surface_np(gv, gf, EVAL_EMD_SAMPLES, 0), dev)
+    ps = on(meval.sample_surface_np(pv, pf, EVAL_EMD_SAMPLES, 1), dev)
+    times = []
+    for r in range(1 + REPEATS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        meval.emd_sinkhorn(gs, ps)
+        torch.cuda.synchronize()
+        if r:
+            times.append((time.perf_counter() - t0) * 1e3)
+    log(f"# timing/eval EMD at {EVAL_EMD_SAMPLES} samples: {statistics.median(times):.2f} ms "
+        f"(median of {REPEATS}), its peak memory above its inputs "
+        f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} GiB")
 
     # 3. cli.render_trajectory: kernel 1 once and kernel 3 twice a view
     traj = os.path.join(DRIVER_DIR, "trajectory")
