@@ -249,7 +249,9 @@ def config_from_args(args: argparse.Namespace, yaml_path: Optional[str] = None) 
 
     YAML values take precedence over CLI values, matching the reference's
     merge_config (utils/system_utils.py:44-51).  The YAML is flat (key: value),
-    like the reference's configs/**/*.yaml.
+    like the reference's configs/**/*.yaml.  A string given to a float field
+    is read as a float: YAML 1.1 reads ``8e-06`` (no decimal point; the
+    real-data YAMLs' apperance_lr_final) as a string.
     """
     cfg = Config()
     for gname, gcls in _GROUPS.items():
@@ -262,5 +264,8 @@ def config_from_args(args: argparse.Namespace, yaml_path: Optional[str] = None) 
         for k, v in flat.items():
             for gname, gcls in _GROUPS.items():
                 if k in _field_names(gcls):
-                    setattr(getattr(cfg, gname), k, v)
+                    grp = getattr(cfg, gname)
+                    if isinstance(v, str) and isinstance(getattr(grp, k), float):
+                        v = float(v)
+                    setattr(grp, k, v)
     return cfg
