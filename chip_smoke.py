@@ -125,13 +125,39 @@ Phases; any failure exits non-zero and prints no result:
      7b: the converging regime of tests/test_mesh_phase_learns.py
                 (420 iterations at 64², grid 24) trained by the port's
                 Trainer, with that test's four properties;
-  8. result   — one JSON line of per-kernel numbers, then the last line
+  8. capture  — the real-capture data path (module 3's remainder) at the
+                shipped real-data configs' widths: the GT-mesh scene
+                rendered at 540x960 through off-centre pinhole cameras and
+                written in the Nerfies, iPhone and NeuralActor layouts
+                (generate_capture_datasets: DEVA palette masks, SAM
+                greyscale ones); cli.train.main on the Nerfies layout under
+                a copy of configs/nerfies/tail.yaml whose schedule keys are
+                DRIVER_SCHEDULE (is_blender false, white background, grid
+                288, K 768/192, 262,144 / 524,288 / 1,048,576 slots, and
+                its gaussian_ratio and init_density_threshold as the YAML
+                has them), fused nets, the six launch counters zeroed just before and
+                read just after (each must have launched); cli.render_test
+                on the validation frames; the iPhone and NeuralActor layouts
+                read through Scene under configs/iphone/tiger.yaml's and
+                configs/neural-actor/D2_vlad.yaml's data_type with Pillow
+                made unimportable, and one view
+                of each rendered from the run's final state (Scene and the
+                render timed); kernels 1-4 held against their twins on one
+                fused step's rows at K 768/192 (the last tile column
+                partial) and kernels 5-6 on its trunk calls at din 84, each
+                timed; render_frame of a 72x56 off-centre camera on the card
+                and the CPU (TOL_SMALL, faces equal); lanczos_resize of a
+                2704x2028 frame to 1600x1200 on the host, timed.  Gates:
+                the driver's, mesh_overflow 0, every kernel within its
+                tolerance, all six launched;
+  9. result   — one JSON line of per-kernel numbers, then the last line
                 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
 import importlib.util
 import io
@@ -314,6 +340,26 @@ TOL_EVAL_CD_REL = 1e-5
 TOL_EVAL_EMD_REL = 1e-4
 TOL_LPIPS_REL = 1e-4
 TOL_SHAPE_RENDER = 1e-5
+
+# phase 8 (real capture): the GT-mesh scene written in the layouts of the
+# real-capture readers at a portrait 540x960 (a width that is no multiple
+# of 16, the principal point off centre), trained through cli.train under
+# configs/nerfies/tail.yaml's model and capacities (is_blender false, white
+# background, grid 288, K 768/192, 262,144 / 524,288 / 1,048,576 slots)
+# with DRIVER_SCHEDULE, fused nets; the iPhone and NeuralActor layouts read
+# through Scene under their YAMLs' data_type; kernels 1-4 held on the run's
+# rows at K 768/192 and kernels 5-6 at din 84; card vs CPU on a 72x56
+# off-centre camera (TOL_SMALL, faces equal); the LANCZOS resize of a
+# PlenopticVideo frame (2704x2028 to 1600x1200, resolution -1) timed
+CAPTURE_CONFIG = os.path.join(ROOT, "configs", "nerfies", "tail.yaml")
+CAPTURE_YAMLS = {"iPhone": os.path.join(ROOT, "configs", "iphone", "tiger.yaml"),
+                 "NeuralActor": os.path.join(ROOT, "configs", "neural-actor", "D2_vlad.yaml")}
+CAPTURE_DIR = os.path.join(ROOT, "build", "chip_smoke_capture")
+CAPTURE_W, CAPTURE_H = 540, 960
+CAPTURE_TRAIN, CAPTURE_VAL = 8, 2
+CAPTURE_DIN = 84          # real-capture nets: 63 position + 21 time lanes, no timenet
+CAPTURE_SMALL = (72, 56)  # the card-vs-CPU camera: neither side a multiple of 16
+RESIZE_FROM, RESIZE_TO = (2704, 2028), (1600, 1200)
 
 STRUCT_EXTENT = 2.75
 REFERENCE_OCC_RES = 256   # the reference's normal-init grid (VERDICT r5 #8), timed only
@@ -1574,6 +1620,10 @@ def main() -> int:
     t0 = time.perf_counter()
     converging_phase(torch, dev, failures)
     log(f"# phase 7b (converging regime): {time.perf_counter() - t0:.2f} s")
+    # 8. real capture: the real-data configs' widths through the CLIs ------
+    t0 = time.perf_counter()
+    capture_phase(torch, dev, failures, counters, kernels)
+    log(f"# phase 8 (real capture): {time.perf_counter() - t0:.2f} s")
 
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
@@ -2070,12 +2120,12 @@ def profile_train(torch, cfg, dev) -> int:
     return 0
 
 
-def driver_yaml(path: str, **extra) -> str:
-    """A copy of CONFIG with DRIVER_SCHEDULE's keys (and ``extra``) in place
-    of the YAML's: the YAML overrides the command line, so the schedule goes
-    into the copy."""
+def driver_yaml(path: str, src: str = CONFIG, **extra) -> str:
+    """A copy of the YAML ``src`` with DRIVER_SCHEDULE's keys (and
+    ``extra``) in place of the YAML's: the YAML overrides the command line,
+    so the schedule goes into the copy."""
     import yaml
-    with open(CONFIG) as f:
+    with open(src) as f:
         flat = yaml.safe_load(f)
     flat.update(DRIVER_SCHEDULE, **extra)
     with open(path, "w") as f:
@@ -2083,27 +2133,33 @@ def driver_yaml(path: str, **extra) -> str:
     return path
 
 
-def driver_run(torch, dev, failures, data, label, counters, extra):
-    """cli.train.main on the dataset with DRIVER_SCHEDULE (stdout to a log
-    file beside the run), the counters zeroed just before and read just
-    after; the run's gates.  Returns (model path, its log rows, launches)."""
+def driver_run(torch, dev, failures, data, label, counters, extra, src=CONFIG,
+               root=DRIVER_DIR, save=(DRIVER_SAVE, DRIVER_SAVE + 1), what=None):
+    """cli.train.main on the dataset with DRIVER_SCHEDULE in a copy of the
+    YAML ``src`` (stdout to a log file beside the run, under ``root``),
+    checkpoints at ``save`` and the end, the counters zeroed just before and
+    read just after; the run's gates (with fused nets in ``extra``, kernels
+    5 and 6 launched too).  Returns (model path, its log rows, launches)."""
     from dgmesh_torch.cli import train as cli_train
     from dgmesh_torch.train.loop import TrainingHalted
-    out = os.path.join(DRIVER_DIR, f"run_{label}")
+    out = os.path.join(root, f"run_{label}")
     if os.path.isdir(out):
         import shutil
         shutil.rmtree(out)
     os.makedirs(out)
-    yml = driver_yaml(os.path.join(DRIVER_DIR, f"{label}.yaml"), **extra)
-    argv = ["--config", yml, "-s", data, "-m", out, "--save_iterations", str(DRIVER_SAVE),
-            str(DRIVER_SAVE + 1)]
+    # the YAML's own source_path and model_path (a real-data YAML has both)
+    # would override the command line's
+    yml = driver_yaml(os.path.join(root, f"{label}.yaml"), src, **extra, source_path=data,
+                      model_path=out)
+    argv = ["--config", yml, "-s", data, "-m", out, "--save_iterations"] + [
+        str(i) for i in save or (DRIVER_SCHEDULE["iterations"],)]
     for c in counters:
         c.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     results = None
-    with open(os.path.join(DRIVER_DIR, f"{label}.log"), "w") as f, \
+    with open(os.path.join(root, f"{label}.log"), "w") as f, \
             contextlib.redirect_stdout(f):
         try:
             _, results = cli_train.main(argv, device=DEVICE)
@@ -2123,21 +2179,22 @@ def driver_run(torch, dev, failures, data, label, counters, extra):
            if (k == "loss" and not math.isfinite(r[k])) or (k != "loss" and r.get(k, 0) != 0)]
     files = (["cfg_args.json", "train_log.jsonl", "test_results/test_result.txt",
               f"point_cloud/iteration_{n_it}/point_cloud.ply"]
-             + [f"checkpoint/state_{i}.pt" for i in (DRIVER_SAVE, DRIVER_SAVE + 1, n_it)]
+             + [f"checkpoint/state_{i}.pt" for i in (*save, n_it)]
              + [f"{n}/iteration_{n_it}/{n}.pt" for n in ("deform", "deform_normal",
                                                          "deform_back", "deform_back_normal",
                                                          "appearance")])
     missing = [p for p in files if not os.path.exists(os.path.join(out, p))]
     want = [c.__name__ for c in counters
-            if label == "fused" or c.__name__ not in ("trunk_fwd", "trunk_bwd")]
+            if extra.get("mlp_fused") or c.__name__ not in ("trunk_fwd", "trunk_bwd")]
     unlaunched = [k for k in want if launches[k] == 0]
     res_ok = results is not None and all(math.isfinite(v) for v in results.values())
     mesh_rows = [r for r in rows if "mesh_n_verts" in r]
     ok = (len(rows) == n_it and not bad and not missing and not unlaunched and res_ok
           and mesh_rows and min(r["mesh_n_verts"] for r in mesh_rows) > 0)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"# driver {label}: cli.train {n_it} iterations at {IMG}², {DRIVER_FRAMES} training "
-        f"views, {wall:.2f} s, peak memory {peak:.3f} GiB; launches "
+    what = what or f"{IMG}², {DRIVER_FRAMES} training views"
+    log(f"# driver {label}: cli.train {n_it} iterations at {what}, {wall:.2f} s, peak memory "
+        f"{peak:.3f} GiB; launches "
         f"{launches}; logged rows {len(rows)}; problems {bad[:6]}; missing files {missing}; "
         f"test pass {results} {'ok' if ok else 'FAIL'}")
     by_it = {int(r["iter"]): r for r in rows}
@@ -2537,6 +2594,278 @@ def eval_phase(torch, dev, failures, counters, run_dir, data):
             os.environ.pop("DGMESH_LPIPS_DIR", None)
         else:
             os.environ["DGMESH_LPIPS_DIR"] = saved
+
+
+def capture_phase(torch, dev, failures, counters, kernels):
+    """8 (module docstring)."""
+    import argparse
+    from dgmesh_torch.cli import render_test as cli_render
+    from dgmesh_torch.config import Config, config_from_args
+    from dgmesh_torch.data.resize import lanczos_resize
+    from dgmesh_torch.data.scene import Scene
+    from dgmesh_torch.data.synthetic_mesh import generate_capture_datasets
+    from dgmesh_torch.eval.testing import render_frame_with_aux
+    from dgmesh_torch.ops import cuda_build
+    from dgmesh_torch.ops import mesh_raster_kernels as MK
+    from dgmesh_torch.ops import mlp_fused as MF
+    from dgmesh_torch.ops import splat_kernels as SK
+    from dgmesh_torch.train import step
+    from dgmesh_torch.train.checkpoint import load_checkpoint
+    from dgmesh_torch.train.step import StepContext, make_batch
+    card = card_line()
+    os.makedirs(CAPTURE_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    paths = generate_capture_datasets(os.path.join(CAPTURE_DIR, "data"), n_train=CAPTURE_TRAIN,
+                                      n_val=CAPTURE_VAL, width=CAPTURE_W, height=CAPTURE_H,
+                                      device=dev)
+    torch.cuda.synchronize()
+    log(f"# capture dataset: {CAPTURE_TRAIN} + {CAPTURE_VAL} frames at {CAPTURE_W}x{CAPTURE_H} "
+        f"in the {', '.join(paths)} layouts, by generate_capture_datasets on the card: "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # the Nerfies layout through cli.train under tail.yaml's widths, fused nets
+    # tail.yaml's own gaussian_ratio and init_density_threshold: unlike the
+    # 288 YAML's in phase 7, they keep this fit's mesh within the caps
+    extra = {k: v for k, v in DRIVER_SCHEDULE.items()
+             if k not in ("gaussian_ratio", "init_density_threshold")}
+    extra.update(mlp_bf16=True, mlp_fused=True)
+    out, rows, launches = driver_run(
+        torch, dev, failures, paths["Nerfies"], "capture", counters, extra, src=CAPTURE_CONFIG,
+        root=CAPTURE_DIR, save=(), what=f"{CAPTURE_W}x{CAPTURE_H}, {CAPTURE_TRAIN} training "
+        f"views, {os.path.relpath(CAPTURE_CONFIG, ROOT)}")
+    log(f"# timing/capture: ms per iteration (host clock, log_every 1): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in iteration_times(rows).items()) + f"; {card}")
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    with open(os.path.join(CAPTURE_DIR, "render_test.log"), "w") as f, \
+            contextlib.redirect_stdout(f):
+        results = cli_render.main(["-m", out], device=DEVICE)
+    torch.cuda.synchronize()
+    rl = {c.__name__: c.launches for c in counters}
+    renders = sorted(os.listdir(os.path.join(out, "test_renders")))
+    ok = (all(math.isfinite(v) for v in results.values()) and rl["composite_tiles"] > 0
+          and rl["shade_tiles"] > 0 and len(renders) == 3 * CAPTURE_VAL)
+    log(f"# capture render_test: {time.perf_counter() - t0:.2f} s; {results}; launches {rl}; "
+        f"files {renders} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("capture: cli.render_test")
+
+    # the iPhone and NeuralActor layouts through Scene under their YAMLs'
+    # data_type, with Pillow made unimportable (a None entry in sys.modules);
+    # one view of each rendered from the run's final state
+    cfg = Config.load(os.path.join(out, "cfg_args.json"))
+    state = load_checkpoint(cfg, out, device=dev)
+    ctx = StepContext(cfg, CAPTURE_W, CAPTURE_H, device=dev)
+    bg = np.ones(3, np.float32)
+    saved_pil = sys.modules.get("PIL")
+    sys.modules["PIL"] = None
+    try:
+        t0 = time.perf_counter()
+        nscene = Scene(cfg, shuffle=True, seed=6666)
+        load_s = {"Nerfies": time.perf_counter() - t0}
+        scenes = {}
+        for layout, yml in CAPTURE_YAMLS.items():
+            ycfg = config_from_args(argparse.Namespace(), yml)
+            ycfg.model.source_path = paths[layout]
+            t0 = time.perf_counter()
+            scenes[layout] = (ycfg, Scene(ycfg, shuffle=False))
+            load_s[layout] = time.perf_counter() - t0
+    finally:
+        if saved_pil is None:
+            del sys.modules["PIL"]
+        else:
+            sys.modules["PIL"] = saved_pil
+    for layout, (ycfg, scene) in scenes.items():
+        yml = CAPTURE_YAMLS[layout]
+        cam = scene.test_cameras[0]
+        times = []
+        for _ in range(1 + REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            o, aux = render_frame_with_aux(ctx, state, make_batch(cam, 0.01, bg, device=dev),
+                                           cfg.model.sh_degree)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        gt = torch.as_tensor(cam.image, device=dev).permute(2, 0, 1)
+        psnr = float(-10 * torch.log10(((o["render"] - gt) ** 2).mean()))
+        ok = (ycfg.model.data_type == layout and tuple(o["render"].shape) == (3, CAPTURE_H,
+                                                                               CAPTURE_W)
+              and all(bool(torch.isfinite(o[k]).all()) for k in ("render", "mesh_image", "mask"))
+              and int(aux["mesh_overflow"]) == 0 and int(o["n_faces"]) > 0
+              and cam.K[0, 2] != CAPTURE_W / 2)
+        log(f"# capture {layout} ({os.path.relpath(yml, ROOT)}, data_type {ycfg.model.data_type}):"
+            f" Scene {load_s[layout]:.3f} s for {len(scene.train_cameras)} + "
+            f"{len(scene.test_cameras)} views; render of {cam.image_name} "
+            f"{statistics.median(times[1:]):.2f} ms median of {REPEATS} (first "
+            f"{times[0]:.2f}); GS PSNR {psnr:.2f} dB against its frame; V {int(o['n_verts'])} "
+            f"F {int(o['n_faces'])}; mesh overflow {int(aux['mesh_overflow'])}; read with "
+            f"Pillow unimportable {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"capture: the {layout} layout")
+    log(f"# capture Scene load: Nerfies {load_s['Nerfies']:.3f} s ({len(nscene.train_cameras)} + "
+        f"{len(nscene.test_cameras)} views); " + card)
+
+    # kernels 1-4 at K 768/192 and 5-6 at din 84, on one fused mesh-phase
+    # step's rows from the final state (a training view of the layout)
+    errs = {k: [] for k in SOURCES}
+    tbatch = make_batch(nscene.train_cameras[0], nscene.time_interval, bg, device=dev)
+    flags = train_flags(step, cfg.model.sh_degree)
+    targets = [(SK, "composite_bwd", "composite_bwd_kernel"),
+               (MK, "shade_bwd", "shade_bwd_kernel"),
+               (MF, "trunk_bwd", "trunk_bwd_kernel")]
+    calls = {}
+    stages, total, args = call_by_stage(
+        torch, targets, lambda: step.train_step(ctx, state, tbatch, flags), 1,
+        what="train_step", per_call={"trunk_bwd_kernel": TRUNKS}, keep=calls)
+    sc, mc = ctx.splat_cfg, ctx.mr_cfg
+    geo_s, geo_m = (sc.tiles_x, sc.tile_h, sc.tile_w), (mc.tiles_x, mc.tile_h, mc.tile_w)
+    ca, sa = args["composite_bwd_kernel"][0].detach(), args["shade_bwd_kernel"][0].detach()
+    c_res = tuple(x.detach() for x in args["composite_bwd_kernel"][6:8])
+    s_res = args["shade_bwd_kernel"][7:9]
+    cg, cga, sg, sgs = (x.detach() / x.detach().abs().max().clamp_min(1e-30)
+                        for x in (*args["composite_bwd_kernel"][1:3],
+                                  *args["shade_bwd_kernel"][1:3]))
+    K1, K2 = ca.shape[1], sa.shape[1]
+    if (K1, K2) != (cfg.tpu.max_gaussians_per_tile, cfg.tpu.max_faces_per_tile) or \
+            sc.width % sc.tile_w == 0:
+        failures.append(f"capture: kernels at K {K1}/{K2}, width {sc.width}")
+    check_composite(torch, SK, ca, geo_s, "capture: composite_tiles", errs, failures)
+    check_composite_bwd(torch, SK, ca, cg, cga, geo_s, "capture: composite_bwd", errs, failures,
+                        c_res)
+    check_shade(torch, MK, sa, geo_m, mc.sigma, "capture: shade_tiles", errs, failures)
+    check_shade_bwd(torch, MK, sa, sg, sgs, geo_m + (mc.sigma,), "capture: shade_bwd", errs,
+                    failures, s_res)
+    P = sc.tile_h * sc.tile_w
+    c_valid, c_pass, c_live = composite_pairs(torch, SK, ca, sc)
+    s_valid, s_soft, s_rgb = shade_pairs(torch, SK, sa, sg, sgs, mc)
+    rows_k = {  # name: (kernel, twin, bytes, operations), as phases 4 and 5 count them
+        "composite_tiles": (lambda: SK.composite_tiles(ca, *geo_s),
+                            lambda: SK.composite_tiles_ref(ca, *geo_s),
+                            ca.numel() * 4 + ca.shape[0] * P * 4 * 4,
+                            c_valid * COMPOSITE_TEST_OPS + c_pass * COMPOSITE_ACCUM_OPS),
+        "composite_bwd": (lambda: SK.composite_bwd(ca, cg, cga, *geo_s, *c_res),
+                          lambda: SK.composite_bwd_ref(ca, cg, cga, *geo_s, rgb=c_res[0],
+                                                       S=c_res[1]),
+                          (2 * ca.numel() + cg.numel() + cga.numel()
+                           + sum(x.numel() for x in c_res)) * 4,
+                          c_valid * COMPOSITE_TEST_OPS + c_pass * COMPOSITE_BWD_PASS_OPS
+                          + c_live * COMPOSITE_BWD_LIVE_OPS + cga.numel() * COMPOSITE_BWD_PIXEL_OPS),
+        "shade_tiles": (lambda: MK.shade_tiles(sa, *geo_m, mc.sigma),
+                        lambda: MK.shade_tiles_ref(sa, *geo_m, mc.sigma),
+                        sa.numel() * 4 + sa.shape[0] * P * 6 * 4,
+                        int((sa[..., 9] > 0.5).sum()) * P * SHADE_OPS),
+        "shade_bwd": (lambda: MK.shade_bwd(sa, sg, sgs, *geo_m, mc.sigma, *s_res),
+                      lambda: MK.shade_bwd_ref(sa, sg, sgs, *geo_m, mc.sigma),
+                      (2 * sa.numel() + sg.numel() + sgs.numel()
+                       + sum(x.numel() for x in s_res)) * 4,
+                      s_valid * SHADE_OPS + s_soft * SHADE_BWD_SOFT_OPS + s_rgb * SHADE_BWD_RGB_OPS),
+    }
+    occ = cuda_build.library("composite_bwd").composite_bwd_ctas_per_sm
+    occ.argtypes, occ.restype = [ctypes.c_int] * 3, ctypes.c_int
+    ctas = {k: occ(k, sc.tile_h, sc.tile_w) for k in (K1, 384)}
+    log(f"# capture composite_bwd: CTAs an SM by the occupancy calculator at K {K1} "
+        f"{ctas[K1]}, at K 384 (the 288 YAML's) {ctas[384]}")
+    if min(ctas.values()) < 1:
+        failures.append(f"capture: composite_bwd occupancy {ctas}")
+    log(f"# capture rows: composite {ca.shape[0]} tiles x K {K1}, {c_valid // P} valid rows, "
+        f"{c_pass} passing pairs; shade {sa.shape[0]} tiles x K {K2}, {s_valid // P} valid rows "
+        f"(tiles {sc.tiles_x}x{sc.tiles_y} over {sc.width}x{sc.height}: the last column partial)")
+    for name, (fk, fp, nbytes, nops) in rows_k.items():
+        ms, plain_ms = time_cuda(torch, fk, KERNEL_TIMING_LAUNCHES), time_cuda(torch, fp, 2)
+        bound = max(nbytes / PEAK_BYTES, nops / PEAK_F32) * 1e3
+        log(f"# timing/capture {name} (K {K1 if 'composite' in name else K2}): {ms:.4f} "
+            f"ms/launch, twin {plain_ms:.3f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB, "
+            f"{nops / 1e9:.2f} G ops); {card}")
+    del ca, cg, cga, c_res, sa, sg, sgs, s_res, args, rows_k
+    dins = sorted({x.shape[1] for x, *_ in calls["trunk_bwd_kernel"]})
+    for x, wb, bp, g, *_ in calls["trunk_bwd_kernel"]:
+        x, g = x.detach(), g.detach()
+        ok, rep = compare_trunk(torch, MF, x, wb, bp, g / g.abs().max().clamp_min(1e-30))
+        errs["trunk_fwd"].append(rep["out"][2])
+        errs["trunk_bwd"].append(max(rep[k][2] for k in ("dx", "dW", "db")))
+        log(f"# kernels/capture: trunk_fwd/trunk_bwd {tuple(x.shape)}: {trunk_report(rep)} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"capture: trunk kernels vs twins ({tuple(x.shape)})")
+    x, wb, bp, g, *_ = max(calls["trunk_bwd_kernel"], key=lambda c: c[0].shape[0])
+    x, g = x.detach(), g.detach()
+    ws, wt = MF.stage_pack(MF.transpose_pack(wb)), MF.transpose_pack(wb)
+    log(f"# timing/capture trunk ({x.shape[0]},{x.shape[1]}): trunk_fwd "
+        f"{time_cuda(torch, lambda: MF.trunk_fwd(x, wb, bp, ws), KERNEL_TIMING_LAUNCHES):.4f} "
+        f"ms/launch, trunk_bwd "
+        f"{time_cuda(torch, lambda: MF.trunk_bwd(x, wb, bp, g, wt), KERNEL_TIMING_LAUNCHES):.4f}"
+        f" ms/launch; din of the step's trunks {dins}; {card}")
+    if dins != [CAPTURE_DIN]:
+        failures.append(f"capture: trunk din {dins}, not [{CAPTURE_DIN}]")
+    for k in kernels:
+        if errs[k["name"]]:
+            k["max_abs_err"] = max(k["max_abs_err"], max(errs[k["name"]]))
+    unlaunched = [k for k, n in launches.items() if n == 0]
+    log(f"# capture launches (cli.train): {launches}")
+    if unlaunched:
+        failures.append(f"capture: {unlaunched} not launched")
+    del x, wb, bp, g, ws, wt, calls, state
+    torch.cuda.empty_cache()
+
+    # card vs CPU: one off-centre K camera at a size no multiple of 16
+    capture_small_check(torch, dev, failures)
+
+    # the host's LANCZOS resize of one PlenopticVideo frame (resolution -1)
+    frame = np.random.default_rng(0).integers(0, 256, RESIZE_FROM[::-1] + (3,), dtype=np.uint8)
+    secs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        small = lanczos_resize(frame, RESIZE_TO)
+        secs.append(time.perf_counter() - t0)
+    log(f"# timing/capture lanczos_resize {RESIZE_FROM[0]}x{RESIZE_FROM[1]} RGB to "
+        f"{RESIZE_TO[0]}x{RESIZE_TO[1]} on the host: {statistics.median(secs):.3f} s median of 3 "
+        f"({', '.join(f'{v:.3f}' for v in secs)}); {os.cpu_count()} host cores")
+    if small.shape != RESIZE_TO[::-1] + (3,):
+        failures.append("capture: lanczos_resize shape")
+
+
+def capture_small_check(torch, dev, failures):
+    """render_frame of a real-capture state (is_blender false) through an
+    off-centre K camera at CAPTURE_SMALL, on the card and on the CPU: the
+    images within TOL_SMALL, the mesh's counts and faces equal."""
+    from dgmesh_torch.cameras import Camera
+    from dgmesh_torch.config import Config
+    from dgmesh_torch.eval.testing import render_frame_with_aux
+    from dgmesh_torch.train.state import state_to
+    from dgmesh_torch.train.step import StepContext, make_batch
+    W, H = CAPTURE_SMALL
+    small = _small_cfg(Config)
+    small.model.is_blender = False
+    st_c = build_shell_state(torch, small, 256, "cpu")
+    st_g = state_to(st_c, dev)
+    a = 0.3
+    c2w = np.eye(4)
+    c2w[:3, :3] = [[math.cos(a), 0, math.sin(a)], [0, 1, 0], [-math.sin(a), 0, math.cos(a)]]
+    c2w[:3, 3] = c2w[:3, :3] @ [0, 0, 2.5]
+    cv = c2w.copy()
+    cv[:3, 1:3] *= -1
+    w2c = np.linalg.inv(cv)
+    K = np.array([[70.0, 0, 0.56 * W], [0, 66.0, 0.43 * H], [0, 0, 1]], np.float32)
+    cam = Camera(uid=0, R=w2c[:3, :3].T, T=w2c[:3, 3], fovx=2 * math.atan(W / 140),
+                 fovy=2 * math.atan(H / 132), image=None, alpha_mask=None, fid=0.4, width=W,
+                 height=H, K=K, orig_transform=c2w.astype(np.float32))
+    bg = np.zeros(3, np.float32)
+    og, ag = render_frame_with_aux(StepContext(small, W, H, device=dev), st_g,
+                                   make_batch(cam, 0.01, bg, device=dev), small.model.sh_degree)
+    oc, ac = render_frame_with_aux(StepContext(small, W, H, device="cpu"), st_c,
+                                   make_batch(cam, 0.01, bg, device="cpu"), small.model.sh_degree)
+    d_img = max(float((og[k].cpu() - oc[k]).abs().max()) for k in ("render", "mesh_image", "mask"))
+    same = (int(og["n_verts"]) == int(oc["n_verts"]) and int(og["n_faces"]) == int(oc["n_faces"])
+            and torch.equal(og["faces"].cpu(), oc["faces"]))
+    ok = (same and d_img <= TOL_SMALL and int(oc["n_faces"]) > 0
+          and int(ag["mesh_overflow"]) == int(ac["mesh_overflow"]) == 0)
+    log(f"# capture small view {W}x{H}, K principal point ({K[0, 2]:.2f}, {K[1, 2]:.2f}): card vs "
+        f"CPU max image diff {d_img:.3g} (tol {TOL_SMALL}); V {int(og['n_verts'])}/"
+        f"{int(oc['n_verts'])} F {int(og['n_faces'])}/{int(oc['n_faces'])}, faces "
+        f"{'equal' if same else 'DIFFERENT'} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("capture: small off-centre view, card and CPU disagree")
 
 
 def converging_phase(torch, dev, failures):

@@ -6,8 +6,9 @@ the port's copy of dgmesh_tpu/cli/mesh_evaluation.py).
 
 Per-frame Chamfer and EMD between the GT meshes (.obj) and the predicted
 ones (.ply), with the per-method coordinate-frame rotations of the
-reference's utils/pose_utils.py:102-138 and the optional camera-origin
-shift from transforms_train.json (:136-142); writes eval_results.txt.
+reference's utils/pose_utils.py:102-138 (``pose_utils.ROTATIONS``) and the
+optional camera-origin shift from transforms_train.json (:136-142); writes
+eval_results.txt.
 The Chamfer distance runs on the unpadded vertex sets (JAX pads them to
 buckets of 16,384 with a valid mask only to spare its compiler; the
 masked result is the same).
@@ -17,7 +18,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import math
 import os
 from typing import Optional
 
@@ -25,21 +25,7 @@ import numpy as np
 import torch
 
 from ..ops.chamfer import chamfer, emd_sinkhorn
-
-# reference: utils/pose_utils.py :102-138 — eval-time alignment rotations
-_R_X = lambda a: np.array([[1, 0, 0],  # noqa: E731
-                           [0, math.cos(a), -math.sin(a)],
-                           [0, math.sin(a), math.cos(a)]], np.float32)
-ROTATIONS = {
-    "dgmesh": _R_X(math.pi / 2),
-    "ours": _R_X(math.pi / 2),
-    "deformable_gaussian": _R_X(math.pi / 2),
-    "dnerf": _R_X(math.pi / 2),
-    "hexplane": np.eye(3, dtype=np.float32),
-    "tineuvox": np.eye(3, dtype=np.float32),
-    "kplane": np.eye(3, dtype=np.float32),
-    "none": np.eye(3, dtype=np.float32),
-}
+from ..pose_utils import ROTATIONS
 
 BLENDER2OPENCV = np.array([[1, 0, 0], [0, -1, 0], [0, 0, -1]], np.float32)
 

@@ -45,8 +45,10 @@ def gaussians_from_numpy(gp, gs, device: DeviceLike = None):
 
 def _flax_layers(net: mlp._TimeConditioned, tree: Mapping):
     """(nn.Linear, its flax subtree with ``kernel``/``bias``) for every layer
-    of ``net``, by flax's names: the timenet Denses come first, then the
-    trunk, then the heads in the order ``heads`` lists them."""
+    of ``net``, by flax's names: the timenet Denses come first (Blender
+    nets only: without a timenet, as on real captures, the heads start at
+    ``Dense_0``), then the trunk, then the heads in the order ``heads``
+    lists them."""
     tree = tree.get("params", tree)
     dense = (f"Dense_{i}" for i in itertools.count())
     out = []

@@ -340,3 +340,20 @@ extern "C" int composite_bwd_res_launch(const float* attrs, const float* g_rgb,
   return launch(attrs, g_rgb, g_alpha, rgb, S, d_attrs, T, K, tiles_x, tile_h, tile_w,
                 stream);
 }
+
+// How many CTAs of the kernel that launch() picks for K rows and a
+// tile_h x tile_w tile fit on one SM, by the runtime's occupancy calculator
+// (registers, threads and the launch's dynamic shared memory); a CUDA error
+// comes back negated.
+extern "C" int composite_bwd_ctas_per_sm(int K, int tile_h, int tile_w) {
+  const int P = tile_h * tile_w;
+  if (K <= 0 || P <= 0 || P > 1024 || P % 32 != 0) return -(int)cudaErrorInvalidValue;
+  const auto kernel = P <= 256 ? composite_bwd_kernel<256, 4> : composite_bwd_kernel<1024, 1>;
+  const size_t smem = smem_words(K, P) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return -(int)err;
+  int n = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, P, smem);
+  return err == cudaSuccess ? n : -(int)err;
+}

@@ -2,9 +2,12 @@
 
 A copy of ``dgmesh_tpu/utils_io.py`` (the reference exports meshes through
 trimesh/open3d and images through imageio, train.py:323-423), with a PNG
-codec of its own in place of Pillow: ``zlib`` and numpy, 8-bit greyscale,
-RGB and RGBA, not interlaced, every filter type on read.  The writer
-filters each row with "Up" (type 2).
+codec of its own in place of Pillow: ``zlib`` and numpy.  The reader gives
+the array ``np.asarray(PIL.Image.open(p))`` gives for every non-interlaced
+PNG: each colour type and bit depth, every filter type (Pillow's modes
+below).  The writer filters each row with "Up" (type 2) and writes 8-bit
+grey, RGB, RGBA or, given a palette, palette images.  ``read_image`` reads
+a file of another format through Pillow where Pillow imports.
 """
 
 from __future__ import annotations
@@ -102,7 +105,9 @@ def read_mesh_ply(path: str):
 # --- PNG ----------------------------------------------------------------------
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 6: 4}      # colour type → channels: grey, RGB, RGBA
+# colour type → (channels, the bit depths the PNG spec allows)
+_COLOUR_TYPES = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)),
+                 4: (2, (8, 16)), 6: (4, (8, 16))}
 
 
 def _chunk(tag: bytes, data: bytes) -> bytes:
@@ -110,8 +115,10 @@ def _chunk(tag: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
 
-def write_png(path: str, img: np.ndarray):
-    """uint8 (H,W), (H,W,1), (H,W,3) or (H,W,4) → an 8-bit PNG."""
+def write_png(path: str, img: np.ndarray, palette: np.ndarray = None):
+    """uint8 (H,W), (H,W,1), (H,W,3) or (H,W,4) → an 8-bit PNG; with
+    ``palette`` (N,3) uint8, ``img`` (H,W) holds its indices and the file is
+    an 8-bit palette PNG (Pillow reads it as mode P)."""
     a = np.asarray(img)
     if a.dtype != np.uint8:
         raise ValueError(f"write_png takes uint8, got {a.dtype}")
@@ -121,6 +128,13 @@ def write_png(path: str, img: np.ndarray):
     ctype = {1: 0, 3: 2, 4: 6}.get(ch)
     if ctype is None:
         raise ValueError(f"write_png: {ch} channels")
+    extra = b""
+    if palette is not None:
+        pal = np.asarray(palette, np.uint8).reshape(-1, 3)
+        if ch != 1 or not 0 < len(pal) <= 256 or int(a.max(initial=0)) >= len(pal):
+            raise ValueError(f"write_png: palette of {len(pal)} colours for indices of shape "
+                             f"{a.shape} up to {int(a.max(initial=0))}")
+        ctype, extra = 3, _chunk(b"PLTE", pal.tobytes())
     h, w = a.shape[:2]
     rows = np.ascontiguousarray(a).reshape(h, w * ch)
     up = rows.copy()
@@ -130,15 +144,18 @@ def write_png(path: str, img: np.ndarray):
     with open(path, "wb") as f:
         f.write(_PNG_SIG)
         f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0)))
+        f.write(extra)
         f.write(_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)))
         f.write(_chunk(b"IEND", b""))
 
 
 def _unfilter(data: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
-    """Undo the per-row filters (PNG spec §9): None, Sub, Up, Average, Paeth."""
+    """Undo the per-row filters (PNG spec §9): None, Sub, Up, Average, Paeth;
+    ``bpp`` is the filter's byte distance (1 below 8 bits a pixel), which
+    divides ``stride``."""
     out = np.zeros((h, stride), np.uint8)
     prior = np.zeros(stride, np.int32)
-    rows = data.reshape(h, stride + 1)
+    rows = data[:h * (stride + 1)].reshape(h, stride + 1)
     for y in range(h):
         ft, line = int(rows[y, 0]), rows[y, 1:].astype(np.int32)
         if ft == 0:
@@ -171,14 +188,22 @@ def _unfilter(data: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
 
 
 def read_png(path: str) -> np.ndarray:
-    """An 8-bit, non-interlaced greyscale, RGB or RGBA PNG → uint8 (H,W) or
-    (H,W,C)."""
+    """A non-interlaced PNG → the array ``np.asarray(PIL.Image.open(path))``
+    gives (``decode_png``)."""
     with open(path, "rb") as f:
         return decode_png(f.read(), path)
 
 
 def decode_png(blob: bytes, path: str = "<bytes>") -> np.ndarray:
-    """``read_png`` of a PNG file's bytes; ``path`` names it in errors."""
+    """``read_png`` of a PNG file's bytes; ``path`` names it in errors.
+
+    As Pillow's modes give them: grey at 8 bits (L) uint8 (H,W); at 1 bit
+    (mode 1) bool; at 2 and 4 bits (L) uint8 scaled to 0-255 (×85, ×17);
+    at 16 bits (I;16) uint16; a palette image (P, 1 to 8 bits) its indices,
+    uint8 (H,W), the palette and any tRNS left aside; grey + alpha (LA)
+    (H,W,2), RGB (H,W,3) and RGBA (H,W,4) uint8, at 16 bits their high
+    bytes (grey + alpha at 16 bits as RGBA: L, L, L, A).  An interlaced
+    (Adam7) file raises."""
     if blob[:8] != _PNG_SIG:
         raise ValueError(f"{path}: not a PNG file")
     pos, idat, hdr = 8, [], None
@@ -196,14 +221,52 @@ def decode_png(blob: bytes, path: str = "<bytes>") -> np.ndarray:
         elif tag == b"IEND":
             break
     w, h, depth, ctype, _, _, interlace = hdr
-    if depth != 8 or ctype not in _CHANNELS or interlace != 0:
-        raise ValueError(f"{path}: only 8-bit, non-interlaced greyscale, RGB or RGBA PNGs "
-                         f"are read (bit depth {depth}, colour type {ctype}, "
-                         f"interlace {interlace})")
-    ch = _CHANNELS[ctype]
+    if ctype not in _COLOUR_TYPES or depth not in _COLOUR_TYPES[ctype][1]:
+        raise ValueError(f"{path}: not a valid PNG (bit depth {depth}, colour type {ctype})")
+    if interlace != 0:
+        raise ValueError(f"{path}: interlaced (Adam7) PNGs are not read (colour type {ctype}, "
+                         f"bit depth {depth}); save it without interlacing")
+    ch = _COLOUR_TYPES[ctype][0]
+    bits = depth * ch
+    stride = (w * bits + 7) // 8
     data = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    img = _unfilter(data, h, w * ch, ch).reshape(h, w, ch)
+    rows = _unfilter(data, h, stride, max(bits // 8, 1))
+    if depth == 16:
+        if ctype == 0:                              # I;16: the samples as they are
+            return rows.view(">u2").astype(np.uint16).reshape(h, w)
+        img = rows[:, 0::2].reshape(h, w, ch)       # RGB;16B and the like: high bytes
+        if ctype == 4:                              # LA;16B: Pillow gives RGBA (L, L, L, A)
+            img = img[..., [0, 0, 0, 1]]
+    elif depth < 8:
+        per_byte = 8 // depth
+        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)   # the first pixel is high
+        v = ((rows[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(h, stride * per_byte)
+        v = v[:, :w]
+        if ctype == 3:
+            return v
+        return v.astype(bool) if depth == 1 else (v * (255 // ((1 << depth) - 1))).astype(
+            np.uint8)
+    else:
+        img = rows.reshape(h, w, ch)
     return img[..., 0] if ch == 1 else img
+
+
+def read_image(path: str) -> np.ndarray:
+    """An image file as ``np.asarray(PIL.Image.open(path))``: a PNG by the
+    port's own reader; any other format (a JPEG of a Colmap scene, say)
+    through Pillow, which raises naming the file where Pillow is not
+    installed."""
+    with open(path, "rb") as f:
+        blob = f.read()
+    if blob[:8] == _PNG_SIG:
+        return decode_png(blob, path)
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ValueError(f"{path}: not a PNG, and Pillow, which would read it, is not "
+                         f"installed ({e})") from e
+    with Image.open(path) as im:
+        return np.asarray(im)
 
 
 def save_image(path: str, img: np.ndarray):

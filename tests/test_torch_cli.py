@@ -304,3 +304,152 @@ def test_mesh_evaluation_of_the_gt_against_itself(trained, tmp_path):
                             "none", "--emd_samples", "64", "--out", str(tmp_path / "e.txt")],
                            device="cpu")
     assert len(pairs) == EVAL_FRAMES and all(cd < 1e-6 for cd, _ in pairs)
+
+
+# --- module 3's remainder: the real captures and the D-NeRF generator ---------
+
+CAPTURE_CONFIG = dict(CONFIG, data_type="Nerfies", is_blender=False, white_background=True,
+                      iterations=4, dpsr_iter=3, densify_until_iter=2)
+CAPTURE_W, CAPTURE_H = 56, 72      # portrait, not a multiple of the 16-pixel tile wide
+
+
+@pytest.fixture(scope="module")
+def captured(tmp_path_factory):
+    """The GT-mesh scene in the three real-capture layouts (3 training and 1
+    validation frames, 56×72, off-centre K, palette and greyscale masks),
+    and a 4-iteration cli.train run on the Nerfies one."""
+    from dgmesh_torch.data.synthetic_mesh import generate_capture_datasets
+    root = tmp_path_factory.mktemp("capture")
+    paths = generate_capture_datasets(str(root / "data"), n_train=3, n_val=1, width=CAPTURE_W,
+                                      height=CAPTURE_H, subdiv=3, max_per_tile=1024,
+                                      device="cpu")
+    yml = root / "nerfies.yaml"
+    yml.write_text(yaml.safe_dump(CAPTURE_CONFIG))
+    out = str(root / "out")
+    trainer, results = cli_train.main(["--config", str(yml), "-s", paths["Nerfies"], "-m", out],
+                                      device="cpu")
+    return dict(paths=paths, out=out, trainer=trainer, results=results)
+
+
+def test_train_and_render_test_clis_on_a_nerfies_capture(captured):
+    """data_type Nerfies through cli.train: every logged loss finite, the
+    mesh phase reached without overflow, the test pass over the validation
+    frame finite; cli.render_test renders it again (the same metrics on the
+    CPU) and writes its files."""
+    out = Path(captured["out"])
+    rows = [json.loads(line) for line in (out / "train_log.jsonl").read_text().splitlines()]
+    assert [r["iter"] for r in rows] == [2, 4]
+    assert all(np.isfinite(r["loss"]) and r["nonfinite_grad_leaves"] == 0 for r in rows)
+    assert rows[-1]["mesh_n_verts"] > 0 and rows[-1]["mesh_overflow"] == 0
+    tr = captured["trainer"]
+    assert not tr.cfg.model.is_blender and tr.ctx.splat_cfg.width == CAPTURE_W
+    assert all(np.isfinite(v) for v in captured["results"].values())
+    got = cli_render.main(["-m", captured["out"], "--device", "cpu"])
+    for k, v in captured["results"].items():
+        if k != "fps":
+            assert got[k] == v, k
+    files = sorted(os.listdir(out / "test_renders"))
+    assert {"mesh_000.ply", "mesh_000.png", "render_000.png"} <= set(files)
+
+
+def test_capture_layouts_read_back_as_the_same_cameras(captured):
+    """The three layouts through Scene under their configs' data_type: the
+    same cameras (Nerfies' recentred and scaled positions back in the
+    world, K from the full-resolution json halved), frames and masks; the
+    Nerfies layout read by JAX's Scene too, exactly as the port reads it
+    (the port's palette PNGs through Pillow); one view of each rendered
+    from the trained state."""
+    from dgmesh_torch.data.scene import Scene
+    from dgmesh_torch.eval.testing import render_frame
+    from dgmesh_torch.train.step import make_batch
+    from dgmesh_tpu.config import Config as JConfig
+    from dgmesh_tpu.data.scene import Scene as JScene
+    scenes = {}
+    for layout, path in captured["paths"].items():
+        cfg = Config()
+        cfg.model.source_path, cfg.model.data_type = path, layout
+        cfg.model.white_background, cfg.model.eval = True, True
+        np.random.seed(0)
+        scenes[layout] = Scene(cfg, shuffle=False)
+    base = scenes["NeuralActor"]
+    for layout, s in scenes.items():
+        assert len(s.train_cameras) == 3 and len(s.test_cameras) == 1
+        for a, b in zip(s.train_cameras + s.test_cameras, base.train_cameras + base.test_cameras):
+            assert (a.width, a.height) == (CAPTURE_W, CAPTURE_H) and a.fid == b.fid
+            np.testing.assert_allclose(a.R, b.R, rtol=0, atol=1e-12)
+            np.testing.assert_allclose(a.T, b.T, rtol=0, atol=1e-12)
+            np.testing.assert_array_equal(a.K, b.K)
+            np.testing.assert_array_equal(a.image, b.image)
+            np.testing.assert_array_equal(a.alpha_mask, b.alpha_mask)
+            assert a.K[0, 2] != CAPTURE_W / 2 and 0.05 < a.alpha_mask.mean() < 0.9
+    jc = JConfig()
+    jc.model.source_path, jc.model.data_type = captured["paths"]["Nerfies"], "Nerfies"
+    jc.model.white_background, jc.model.eval = True, True
+    np.random.seed(0)
+    js = JScene(jc, shuffle=False)
+    for a, b in zip(scenes["Nerfies"].train_cameras, js.train_cameras):
+        for f in ("R", "T", "K", "image", "alpha_mask", "orig_transform"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f), err_msg=f)
+    np.testing.assert_array_equal(scenes["Nerfies"].point_cloud.points, js.point_cloud.points)
+    tr = captured["trainer"]
+    for layout in ("iPhone", "NeuralActor"):
+        cam = scenes[layout].test_cameras[0]
+        out = render_frame(tr.ctx, tr.state, make_batch(cam, 0.25, tr.bg, "cpu"), 1)
+        assert out["render"].shape == (3, CAPTURE_H, CAPTURE_W)
+        assert bool(torch.isfinite(out["render"]).all()) and int(out["n_faces"]) > 0
+
+
+def test_generate_dataset_matches_jax(tmp_path):
+    """data/synthetic.py's D-NeRF generator against JAX's at 48² (3 + 1
+    frames, 400 Gaussians, the same numpy draws): the transforms and the
+    init cloud byte for byte, each frame within one 8-bit step of JAX's
+    (the two splat renderers' float32 sums round across a quantisation
+    boundary at a few pixels); the port's dataset read back through its
+    Blender reader."""
+    from dgmesh_torch.data import synthetic as TS
+    from dgmesh_torch.data.readers import read_blender_scene
+    from dgmesh_tpu.data import synthetic as JS
+    from PIL import Image
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "port")
+    kw = dict(n_frames=3, width=48, height=48, n_gaussians=400, n_test=1, seed=2)
+    JS.generate_dataset(jdir, **kw)
+    TS.generate_dataset(tdir, device="cpu", **kw)
+    for name in ("transforms_train.json", "transforms_test.json", "points3d.ply"):
+        assert Path(tdir, name).read_bytes() == Path(jdir, name).read_bytes(), name
+    worst, moved = 0, 0
+    for split, n in (("train", 3), ("test", 1)):
+        for i in range(n):
+            want = np.asarray(Image.open(Path(jdir, split, f"r_{i:03d}.png"))).astype(int)
+            got = np.asarray(Image.open(Path(tdir, split, f"r_{i:03d}.png"))).astype(int)
+            assert got.shape == want.shape == (48, 48, 4) and (want[..., 3] > 0).mean() > 0.1
+            worst = max(worst, int(np.abs(got - want).max()))
+            moved += int((got != want).any(-1).sum())
+    assert worst <= 1 and moved <= 0.01 * 48 * 48 * 4
+    info = read_blender_scene(tdir, white_background=False)
+    assert len(info.train_cameras) == 3 and len(info.test_cameras) == 1
+    assert [c.fid for c in info.train_cameras] == [0.0, 0.5, 1.0]
+    assert info.point_cloud.points.shape == (1600, 3)
+
+
+def test_pose_utils_match_jax():
+    """The port's pose_utils (what mesh_evaluation takes its rotations from)
+    against JAX's: pose_spherical, the Rodrigues pair, render_wander_path
+    and the rotations, exactly."""
+    from dgmesh_torch import pose_utils as TP
+    from dgmesh_torch.cameras import camera_from_c2w_blender
+    from dgmesh_tpu import pose_utils as JP
+    from dgmesh_tpu.cli import mesh_evaluation as jax_meval
+    for args in ((30.0, -20.0, 4.0), (-170.0, 85.0, 2.5)):
+        np.testing.assert_array_equal(TP.pose_spherical(*args), JP.pose_spherical(*args))
+    r = np.array([0.3, -0.2, 0.9])
+    np.testing.assert_array_equal(TP.rodrigues_rot_to_mat(r), JP.rodrigues_rot_to_mat(r))
+    R = TP.rodrigues_rot_to_mat(r)
+    np.testing.assert_array_equal(TP.rodrigues_mat_to_rot(R), JP.rodrigues_mat_to_rot(R))
+    np.testing.assert_allclose(TP.rodrigues_mat_to_rot(R), r, rtol=0, atol=1e-12)
+    cam = camera_from_c2w_blender(0, TP.pose_spherical(30.0, -20.0, 4.0), 0.7, 64, 48, 0.0)
+    for a, b in zip(TP.render_wander_path(cam, 5), JP.render_wander_path(cam, 5)):
+        np.testing.assert_array_equal(a, b)
+    assert TP.ROTATIONS.keys() == jax_meval.ROTATIONS.keys()
+    for k, v in jax_meval.ROTATIONS.items():
+        np.testing.assert_array_equal(TP.ROTATIONS[k], v)
+    assert cli_meval.ROTATIONS is TP.ROTATIONS

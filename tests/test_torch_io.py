@@ -137,10 +137,18 @@ def test_save_image_matches_jax_save_image(tmp_path):
 
 
 def test_png_reader_refuses_what_it_does_not_read(tmp_path):
-    p = tmp_path / "p.png"
-    Image.fromarray(np.zeros((4, 4), np.uint8)).convert("P").save(p)
-    with pytest.raises(ValueError, match="colour type"):
+    """An interlaced (Adam7) PNG and a file that is no PNG raise, naming the
+    file (every other colour type and depth is read:
+    test_torch_readers.py)."""
+    from torch_capture_fixtures import build_png
+    p = tmp_path / "i.png"
+    p.write_bytes(build_png(np.zeros((4, 4, 3), np.uint8), 8, 2, interlace=1))
+    with pytest.raises(ValueError, match="i.png: interlaced"):
         TIO.read_png(str(p))
+    q = tmp_path / "j.png"
+    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(q, format="JPEG")
+    with pytest.raises(ValueError, match="j.png: not a PNG"):
+        TIO.read_png(str(q))
 
 
 # --- PLY ------------------------------------------------------------------------
@@ -299,18 +307,26 @@ def test_scene_matches_jax(datasets, data_type):
             np.testing.assert_array_equal(x, y)
 
 
-def test_scene_refuses_what_is_not_ported(datasets):
+def test_scene_refuses_what_is_not_ported(datasets, tmp_path, monkeypatch):
+    """The port has no JPEG decoder of its own: a dataset with a JPEG frame
+    reads through Pillow where it imports (JAX's Scene exactly), and raises
+    naming the file where it does not."""
+    import shutil
     _, tdir = datasets
-    _, tc = _configs(tdir, "finetune-nerf")
-    tc.model.resolution = 2
-    with pytest.raises(NotImplementedError, match="LANCZOS"):
-        TScene.Scene(tc)
-    _, tc = _configs(tdir, "finetune-nerf")
-    tc.model.downsample = 2.0
-    with pytest.raises(NotImplementedError, match="LANCZOS"):
-        TScene.Scene(tc)
-    _, tc = _configs(tdir, "DTU")
-    with pytest.raises(NotImplementedError, match="DTU"):
+    d = str(tmp_path / "jpeg")
+    shutil.copytree(tdir, d)
+    Image.open(os.path.join(d, "train", "r_000.png")).convert("RGB").save(
+        os.path.join(d, "train", "r_000.jpg"), quality=95)
+    os.remove(os.path.join(d, "train", "r_000.png"))
+    meta = json.loads(Path(d, "transforms_train.json").read_text())
+    meta["frames"][0]["file_path"] = "train/r_000.jpg"
+    Path(d, "transforms_train.json").write_text(json.dumps(meta))
+    jc, tc = _configs(d, "finetune-nerf")
+    js, ts = JScene.Scene(jc, shuffle=False), TScene.Scene(tc, shuffle=False)
+    np.testing.assert_array_equal(ts.train_cameras[0].image, js.train_cameras[0].image)
+    assert ts.train_cameras[0].alpha_mask is None
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    with pytest.raises(ValueError, match="r_000.jpg: not a PNG, and Pillow"):
         TScene.Scene(tc)
 
 

@@ -62,6 +62,74 @@ def test_render_frame_without_mesh_matches_jax():
     np.testing.assert_allclose(got["render"].numpy(), want["render"], rtol=0, atol=1e-4)
 
 
+# --- an off-centre camera of a real capture -----------------------------------
+
+OFF_W, OFF_H = 72, 56        # neither a multiple of the 16-pixel tile
+
+
+def _off_centre_cameras():
+    """The same camera for both packages: an OpenCV pose at distance 2.5
+    turned 0.3 rad about y, K with fx ≠ fy and the principal point at (0.56
+    W, 0.43 H), as a Nerfies or NeuralActor reader builds it."""
+    from dgmesh_torch.cameras import Camera as TCamera
+    from dgmesh_torch.cameras import focal2fov
+    from dgmesh_tpu.cameras import Camera as JCamera
+    a = 0.3
+    c2w = np.eye(4)
+    c2w[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+    c2w[:3, 3] = c2w[:3, :3] @ [0, 0, 2.5]
+    c2w_cv = c2w.copy()
+    c2w_cv[:3, 1:3] *= -1
+    w2c = np.linalg.inv(c2w_cv)
+    K = np.array([[70.0, 0, 0.56 * OFF_W], [0, 66.0, 0.43 * OFF_H], [0, 0, 1]], np.float32)
+    rng = np.random.default_rng(4)
+    kw = dict(uid=0, R=w2c[:3, :3].T, T=w2c[:3, 3], fovx=focal2fov(70.0, OFF_W),
+              fovy=focal2fov(66.0, OFF_H), image=rng.random((OFF_H, OFF_W, 3)).astype(np.float32),
+              alpha_mask=np.ones((OFF_H, OFF_W, 1), np.float32), fid=0.4, width=OFF_W,
+              height=OFF_H, K=K, orig_transform=c2w.astype(np.float32))
+    return TCamera(**kw), JCamera(**kw)
+
+
+@pytest.fixture(scope="module")
+def rendered_off_centre():
+    """render_frame of the real-capture nets (is_blender False) through the
+    off-centre camera, by each package."""
+    from dgmesh_torch.eval.testing import render_frame
+    from dgmesh_torch.train.step import StepContext, make_batch
+    from dgmesh_tpu.train.loop import make_batch as jax_make_batch
+    from dgmesh_tpu.train.step import StepContext as JStepContext
+    cfg, img, _, state, _ = jax_fixture(head_std=1e-3, seed=9, is_blender=False, **ROOMY)
+    tcam, jcam = _off_centre_cameras()
+    bg = np.zeros(3, np.float32)
+    jctx = JStepContext(cfg, OFF_W, OFF_H)
+    want = to_numpy(jax.jit(lambda st, b: jax_render_frame(jctx, st, b, 1, True))(
+        state, jax_make_batch(jcam, 0.05, bg)))
+    tcfg, _, tstate, _ = port_fixture(cfg, img, state)
+    got = render_frame(StepContext(tcfg, OFF_W, OFF_H, device="cpu"), tstate,
+                       make_batch(tcam, 0.05, bg, device="cpu"), 1, True)
+    return {k: v.numpy() for k, v in got.items()}, want
+
+
+def test_off_centre_camera_render_matches_jax(rendered_off_centre):
+    """A 72×56 frame (a partial last tile column and row) through K with its
+    principal point off centre: the GS image, mesh image and mask at the
+    tolerance of test_render_frame_images_match_jax, faces exactly, verts
+    and colours abs 1e-5; the object sits off the image centre, as K puts
+    it."""
+    got, want = rendered_off_centre
+    for k in ("render", "mesh_image", "mask"):
+        assert got[k].shape[-2:] == want[k].shape[-2:] == (OFF_H, OFF_W), k
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-4, err_msg=k)
+    assert int(got["n_faces"]) == int(want["n_faces"]) > 100
+    np.testing.assert_array_equal(got["faces"], want["faces"])
+    np.testing.assert_allclose(got["verts"], want["verts"], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got["vtx_color"], want["vtx_color"], rtol=0, atol=1e-5)
+    m = want["mask"]
+    assert 0.02 < m.mean() < 0.9 and m[:, -1].sum() == 0
+    ys, xs = np.nonzero(m > 0.5)
+    assert abs(xs.mean() - OFF_W / 2) > 1 or abs(ys.mean() - OFF_H / 2) > 1
+
+
 # --- the import rule ---------------------------------------------------------
 
 FORBIDDEN = ("jax", "flax", "optax", "msgpack", "dgmesh_tpu")
@@ -118,7 +186,9 @@ def test_port_renders_on_cpu_without_jax():
         from dgmesh_torch.cli import render_test, train  # noqa: F401  (the CLIs)
         from dgmesh_torch.cli import mesh_evaluation, render_trajectory  # noqa: F401
         from dgmesh_torch.eval import lpips_torch, point_metrics  # noqa: F401
-        from dgmesh_torch.data import readers, scene, synthetic_mesh  # noqa: F401
+        from dgmesh_torch.data import colmap, readers, resize, scene  # noqa: F401
+        from dgmesh_torch.data import synthetic, synthetic_mesh  # noqa: F401
+        from dgmesh_torch import pose_utils  # noqa: F401
         cfg = Config()
         cfg.model.is_blender, cfg.model.grid_res, cfg.model.sh_degree = True, 24, 1
         cfg.optimization.dpsr_sig = 2.0

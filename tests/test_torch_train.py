@@ -301,15 +301,16 @@ def noisy():
     _, tctx, tstate, _ = port_fixture(cfg, img, state)
     tbatch = port_batch(batch)
 
-    def port(draws=None, gen=None):
+    def port(draws=None, gen=None, st=tstate):
         patch = (mock.patch.object(TStep, "_normal_draws", lambda g: torch.tensor(draws))
                  if draws is not None else contextlib.nullcontext())
         with torch.no_grad(), patch:
-            _, taux = TStep.loss_and_aux(tctx, tstate.gp, tstate.nets, torch.zeros((M, 2)),
-                                         tstate.gs, tbatch, tstate.step.float(), TNOISE, gen)
+            _, taux = TStep.loss_and_aux(tctx, st.gp, st.nets, torch.zeros((M, 2)),
+                                         st.gs, tbatch, st.step.float(), TNOISE, gen)
         return {k: float(v) for k, v in taux["losses"].items()}
 
-    return dict(want={k: float(v) for k, v in aux["losses"].items()}, draws=draws, port=port)
+    return dict(want={k: float(v) for k, v in aux["losses"].items()}, draws=draws, port=port,
+                state=state, tcfg=tctx.cfg, tstate=tstate)
 
 
 def test_time_noise_matches_jax(noisy):
@@ -327,6 +328,37 @@ def test_time_noise_matches_jax(noisy):
     assert abs(flat["cycle_loss"] - want["cycle_loss"]) > 1e-3 * want["cycle_loss"]
     swapped = noisy["port"](noisy["draws"][::-1])
     assert abs(swapped["cycle_loss"] - want["cycle_loss"]) > 1e-3 * want["cycle_loss"]
+
+
+def test_resume_from_a_non_blender_jax_msgpack(noisy, tmp_path):
+    """The real-capture state (no timenet, so flax numbers each deform net's
+    heads from Dense_0) written by JAX's save_checkpoint as flax's
+    state_N.msgpack and read by the port's load_checkpoint: every leaf, net
+    parameter, Adam moment and count exactly as convert.state_from_jax gives
+    them from JAX's arrays, and the heads where JAX has them; the loss
+    terms from the loaded state, fed JAX's draws, match JAX's rel 1e-5."""
+    from dgmesh_torch.train import checkpoint as TCk
+    from dgmesh_tpu.train import checkpoint as JCk
+    JCk.save_checkpoint(noisy["state"], str(tmp_path), 1200)
+    st = TCk.load_checkpoint(noisy["tcfg"], str(tmp_path), device="cpu")
+    want = noisy["tstate"]
+    for tree in ("gp", "gs", "g_mu", "g_nu"):
+        for a, b in zip(getattr(st, tree), getattr(want, tree)):
+            assert torch.equal(a, b), tree
+    for name in TState.NetParams._fields:
+        net = getattr(st.nets, name)
+        assert not net.is_blender and not hasattr(net, "timenet0")
+        for a, b in zip(net.parameters(), getattr(want.nets, name).parameters()):
+            assert torch.equal(a, b), name
+        oa, ob = getattr(st.net_opt, name), getattr(want.net_opt, name)
+        assert int(oa.count) == int(ob.count)
+        assert all(torch.equal(a, b) for a, b in zip(oa.mu + oa.nu, ob.mu + ob.nu))
+    head = to_numpy(noisy["state"].nets.deform)["params"]["Dense_0"]["kernel"]
+    np.testing.assert_array_equal(st.nets.deform.head_xyz.weight.detach().numpy(), head.T)
+    assert int(st.step) == 1200
+    got = noisy["port"](noisy["draws"], st=st)
+    for k, w in noisy["want"].items():
+        assert abs(got[k] - w) <= 1e-5 * abs(w), k
 
 
 def test_time_noise_follows_the_generator(noisy):
