@@ -5,6 +5,7 @@
 
     python3 chip_smoke.py --kernels-only   # phases 1-3, then stop (no result)
     python3 chip_smoke.py --profile        # profile a float32 and a fused step
+    python3 chip_smoke.py --multi-device-only   # phases 1, 2, 3t, 9 and 10, then stop
 
 Phases; any failure exits non-zero and prints no result:
   1. card     — the card's name and power limit (nvidia-smi);
@@ -29,6 +30,9 @@ Phases; any failure exits non-zero and prints no result:
                 each launched twice there for identical bits and kernel
                 6's two passes timed apart, then at the shapes their
                 tiling makes special (MLP_EDGE_SHAPES);
+     3t: kernels 1-4 on the tiles [T/2, T) alone, launched with tile0 =
+                T/2 (a rank's block of tiles): the same bits as those tiles
+                of the whole launch, and each against its twin given tile0;
   4. render   — configs/synthetic-quality-288.yaml with bench.py's shell
                 state (100k Gaussians, radius 0.45, seed 0) and seeded random
                 nets: render_frame for 4 orbit views at 800², grid 288, with
@@ -150,7 +154,24 @@ Phases; any failure exits non-zero and prints no result:
                 2704x2028 frame to 1600x1200 on the host, timed.  Gates:
                 the driver's, mesh_overflow 0, every kernel within its
                 tolerance, all six launched;
-  9. result   — one JSON line of per-kernel numbers, then the last line
+  9. multi    — the multi-device step (dgmesh_torch/parallel) on bench.py's
+                full-width state, fused nets: the kernels built here first,
+                then SHARD_RANKS ranks on this one card (gloo with CUDA
+                tensors; a collective gloo refuses them for goes through the
+                host, counted), each running train_step on its part of the
+                state: one step with every rank's launch counters zeroed
+                just before and read just after (kernels 1-6 each launched
+                on every rank), SHARD_STEPS timed, one more with each
+                collective timed; the gathered loss, mesh size, gradients
+                and new state held to the unsharded step on the card (loss
+                terms within TOL_SHARD_LOSS, V, F and the overflow counters
+                equal, gradients and parameters within SHARD_LIMITS); then
+                the same with one rank under NCCL, the backend of a machine
+                with a card a rank;
+ 10. 6-DoF    — the is_6dof deformation head: render and training steps on
+                the card and on the CPU at the small size, and one fused
+                full-width step (kernels 1-6 launched, finite);
+ 11. result   — one JSON line of per-kernel numbers, then the last line
                 {"ok": true, "device": {...}}.
 """
 
@@ -175,6 +196,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DRIVER_DIR = os.path.join(ROOT, "build", "chip_smoke_driver")   # phases 7 and 7b's files
+MULTI_DIR = os.path.join(ROOT, "build", "chip_smoke_multi")     # phase 9's profiles
 CONFIG = os.path.join(ROOT, "configs", "synthetic-quality-288.yaml")
 
 # H100 SXM published peaks (NVIDIA data sheet): float32 outside the tensor
@@ -222,6 +244,7 @@ REPLACES = {"composite_tiles": "dgmesh_tpu/ops/splat_pallas.py:34",
 DEVICE = "cuda"
 KERNELS_ONLY = "--kernels-only" in sys.argv[1:]   # build and check, then stop
 PROFILE = "--profile" in sys.argv[1:]             # profile one training step, then stop
+MULTI_ONLY = "--multi-device-only" in sys.argv[1:]   # phases 1, 2, 3t, 9 and 10, then stop
 IMG = 800             # 800x800 views, 16x16 tiles: T = 2500
 N_GAUSS = 100_000     # live Gaussians in the config's 131,072 slots
 N_VIEWS = 4
@@ -1152,8 +1175,25 @@ def main() -> int:
                                              2, 12), device=dev)
     check_shade(torch, MK, a12, (2, 12, 12), mc.sigma, "edge: shade_tiles 12x12 tiles", errs,
                 failures)
-    # kernels 5 and 6 (the fused trunk) at the step's row counts, din 93
+    # 3t. kernels 1-4 on a rank's block of tiles (tile0 = T/2)
+    check_tile0(torch, SK, MK, a1, g1, g2, geo_s, a3, g3, g4, geo_m, mc.sigma, errs, failures)
     from dgmesh_torch.ops import mlp_fused as MF
+    if MULTI_ONLY:
+        counters = (SK.composite_tiles, SK.composite_bwd, MK.shade_tiles, MK.shade_bwd,
+                    MF.trunk_fwd, MF.trunk_bwd)
+        del a1, a2, a3, g1, g2, g3, g4
+        t0 = time.perf_counter()
+        multi_device_phase(torch, dev, failures)
+        log(f"# phase 9 (multi-device): {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        six_dof_phase(torch, dev, failures, counters)
+        log(f"# phase 10 (6-DoF): {time.perf_counter() - t0:.2f} s")
+        if failures:
+            print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
+            return 1
+        log("# --multi-device-only: stopping after phases 9 and 10; no result line")
+        return 0
+    # kernels 5 and 6 (the fused trunk) at the step's row counts, din 93
     errs["trunk_fwd"], errs["trunk_bwd"] = [], []
     _, wb, bp = random_trunk(torch, MLP_DIN, dev, seed=0)
     for n in MLP_ROWS:
@@ -1624,6 +1664,14 @@ def main() -> int:
     t0 = time.perf_counter()
     capture_phase(torch, dev, failures, counters, kernels)
     log(f"# phase 8 (real capture): {time.perf_counter() - t0:.2f} s")
+    # 9. the multi-device step (module 6) ---------------------------------
+    t0 = time.perf_counter()
+    multi_device_phase(torch, dev, failures)
+    log(f"# phase 9 (multi-device): {time.perf_counter() - t0:.2f} s")
+    # 10. the 6-DoF head (module 5) --------------------------------------
+    t0 = time.perf_counter()
+    six_dof_phase(torch, dev, failures, counters)
+    log(f"# phase 10 (6-DoF): {time.perf_counter() - t0:.2f} s")
 
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
@@ -1659,10 +1707,11 @@ def small_shape_check(torch, MR, ctx_g, ctx_c, oc, bg_, bc_, dev, failures):
 
 
 def small_train_check(torch, step, small, dev, failures, tol_gp, tol_head, tol_net, label,
-                      seeds):
+                      seeds, prepare=None):
     """The training step on the card and on the CPU (the plain twins) at the
-    small size, from each of ``seeds`` states, held to the loss,
-    Gaussian-gradient, appearance-head and net-leaf tolerances."""
+    small size, from each of ``seeds`` states (each given to ``prepare``
+    first, where given), held to the loss, Gaussian-gradient,
+    appearance-head and net-leaf tolerances."""
     from dgmesh_torch.train.state import state_to
     from dgmesh_torch.train.step import StepContext
 
@@ -1681,6 +1730,8 @@ def small_train_check(torch, step, small, dev, failures, tol_gp, tol_head, tol_n
     worst = dict(loss=0.0, gp=0.0, head=0.0, net=0.0)
     for seed in range(seeds):
         st_c = build_shell_state(torch, small, 256, "cpu", seed=seed)
+        if prepare is not None:
+            prepare(st_c)
         st_g = state_to(st_c, dev)
         res = {}
         for where, c, st, b in (("card", ctx_g, st_g, bench_batch(64, 64, dev)),
@@ -2947,6 +2998,340 @@ def converging_cfg(Config, data):
     t.max_gaussians_per_tile, t.max_dup = 128, 1 << 15
     t.max_faces_per_tile, t.max_face_dup = 512, 1 << 17
     return cfg
+
+
+# phase 9 (the multi-device step): ranks on the one card, steps each, and
+# the limits against the unsharded step on the same card.  The two differ
+# by sums in other orders (the scatters, the DPSR's transforms, kernel 6's
+# weight sums over other rows) and, through the ~1e-6 moves of the mesh
+# vertices that follow, by a bf16 rounding of a trunk input that may tip a
+# ReLU: the sources of the card-vs-CPU fused check's differences, so its
+# limits; parameters within 2 lr (Adam's first step, as the resume check)
+SHARD_RANKS = 2
+SHARD_STEPS = 3
+# the capacity counters that follow sub-ulp moves of the mesh vertices
+# (the backface cull and the tile rects of a face on an edge): the card's
+# own scatter sums move them run to run, and the sharded DPSR's transforms
+# in another order; held to this relative gap, the others exactly
+SHARD_SOFT_COUNTERS = {"raster_overflow": 1e-4}
+TOL_SHARD_RANKS = 1e-6   # a float metric on two ranks: replicated sums with atomics
+SHARD_LEGS = ((SHARD_RANKS, "gloo"), (1, "nccl"))   # (ranks on the card, backend)
+TOL_SHARD_LOSS = 1e-4
+SHARD_LIMITS = {"gaussian grads": TOL_SMALL_GP_FUSED, "net grads": TOL_SMALL_NET_FUSED,
+                "params / lr": 2.0 * 1.001}   # 2 lr and its float32 rounding
+# phase 10: the screw heads' (w, v Denses) initial weights times this, so a
+# random state moves its points by ~1e-3 rad, not ~1 (flax's default init
+# on a 256-wide trunk output)
+SCREW_SCALE = 1e-3
+
+
+def batch_to(batch, device):
+    """A Batch (its camera arrays too) on ``device``."""
+    return type(batch)(*[type(x)(*[y.to(device) for y in x]) if isinstance(x, tuple)
+                         else x.to(device) for x in batch])
+
+
+def shard_rank(mesh, cfg, img, state, batch, flags, steps, profile=False):
+    """One rank of phase 9: its part of ``state`` (whole, on the CPU) on its
+    card, one step with the launch counters zeroed just before and read just
+    after, ``steps`` timed steps, one more with every collective timed.
+    Returns its counters and times, the gathered new state, the metrics and
+    the gradients (the replicated leaves' summed over the ranks, the row
+    leaves' gathered)."""
+    import torch
+    sys.path.insert(0, ROOT)
+    from dgmesh_torch.models.gaussians import GaussianParams
+    from dgmesh_torch.ops import cuda_build
+    from dgmesh_torch.ops import mesh_raster_kernels as MK
+    from dgmesh_torch.ops import mlp_fused as MF
+    from dgmesh_torch.ops import splat_kernels as SK
+    from dgmesh_torch.parallel import sharding as SH
+    from dgmesh_torch.train import step
+
+    dev = mesh.device
+    on_card = dev.type == "cuda"
+    if on_card:
+        cuda_build.build()   # loads the libraries the parent built: no nvcc here
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    ctx = step.StepContext(cfg, img, img, device=dev, device_mesh=mesh)
+    part = SH.shard_state(state, mesh)
+    batch = batch_to(batch, dev)
+    counters = (SK.composite_tiles, SK.composite_bwd, MK.shade_tiles, MK.shade_bwd,
+                MF.trunk_fwd, MF.trunk_bwd)
+    sync()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    for c in counters:
+        c.launches = 0
+    copies0 = mesh.host_copies
+    new, metrics = step.train_step(ctx, part, batch, flags)
+    sync()
+    launches = {c.__name__: c.launches for c in counters}
+    host_copies = mesh.host_copies - copies0
+    times = []
+    for _ in range(steps):
+        sync()
+        t0 = time.perf_counter()
+        step.train_step(ctx, part, batch, flags)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    mesh.timing, mesh.collective_ms, mesh.collective_calls = True, 0.0, 0
+    t0 = time.perf_counter()
+    step.train_step(ctx, part, batch, flags)
+    sync()
+    timed = (time.perf_counter() - t0) * 1e3
+    coll = (mesh.collective_ms, mesh.collective_calls)
+    mesh.timing = False
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else 0.0
+    tables = None
+    if profile:      # every rank steps: the step's collectives need them all
+        acts = [torch.profiler.ProfilerActivity.CPU] + (
+            [torch.profiler.ProfilerActivity.CUDA] if on_card else [])
+        with torch.profiler.profile(activities=acts) as prof:
+            step.train_step(ctx, part, batch, flags)
+            sync()
+        ka = prof.key_averages()
+        tables = [ka.table(sort_by=k, row_limit=14) for k in (
+            ("self_cuda_time_total" if on_card else "self_cpu_time_total"),
+            "self_cpu_time_total")]
+        tables.append(f"device busy {sum(e.self_device_time_total for e in ka) / 1e3:.2f} ms, "
+                      f"host {sum(e.self_cpu_time_total for e in ka) / 1e3:.2f} ms (self sums)")
+        tables = tables if mesh.rank == 0 else None
+    _, _, grads = step.loss_and_grads(ctx, part, batch, flags)
+    grads, _ = step.sanitize(grads, mesh)
+    g_gp = GaussianParams(*[SH.all_gather(g, mesh) if f != "density_thres" else g
+                            for f, g in zip(GaussianParams._fields, grads.gp)])
+    return dict(launches=launches, host_copies=host_copies, host_staged=sorted(mesh.host_staged),
+                times=times, timed_step=timed, collectives=coll, peak=peak,
+                metrics={k: float(v) for k, v in metrics.items()},
+                new=SH.gather_state(new, mesh), g_gp=g_gp, g_nets=grads.nets,
+                backend=mesh.backend, profile=tables)
+
+
+def multi_device_phase(torch, dev, failures):
+    """Phase 9: the sharded step against the unsharded one on this card."""
+    from dgmesh_torch.parallel import sharding as SH
+    from dgmesh_torch.train import step
+    from dgmesh_torch.train.state import state_to
+
+    fcfg = load_cfg()
+    fcfg.tpu.mlp_bf16 = fcfg.tpu.mlp_fused = True
+    W = IMG
+    ctx = step.StepContext(fcfg, W, W, device=dev)
+    state = build_shell_state(torch, fcfg, N_GAUSS, dev)
+    batch = bench_batch(W, W, dev)
+    flags = train_flags(step, fcfg.model.sh_degree)
+    step.train_step(ctx, state, batch, flags)                  # warm-up
+    times = []
+    for _ in range(SHARD_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want_new, want = step.train_step(ctx, state, batch, flags)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    log(f"# phase 9: the unsharded fused step on this card: {statistics.median(times):.2f} ms "
+        f"median of {SHARD_STEPS} ({', '.join(f'{x:.2f}' for x in times)}); V "
+        f"{int(want['mesh_n_verts'])} F {int(want['mesh_n_faces'])}")
+    _, _, wgrads = step.loss_and_grads(ctx, state, batch, flags)
+    wgrads, _ = step.sanitize(wgrads)
+    # the card's own spread: the unsharded step's gradients once more
+    _, _, again = step.loss_and_grads(ctx, state, batch, flags)
+    again, _ = step.sanitize(again)
+    spread_gp = max(float((a - b).norm()) / max(float(b.norm()), 1e-30)
+                    for a, b in zip(again.gp, wgrads.gp))
+    spread_net = max(float((a - b).norm()) / max(float(b.norm()), 1e-30)
+                     for na, nb in zip(again.nets, wgrads.nets) for a, b in zip(na, nb))
+    log(f"# phase 9: the unsharded step's gradients twice on this card: Gaussian leaves "
+        f"norm rel {spread_gp:.3g}, net leaves {spread_net:.3g} (the scatters' order)")
+    del again
+    before = state_to(state, "cpu")
+    want_new = state_to(want_new, "cpu")
+    want = {k: float(v) for k, v in want.items()}
+    wg = [g.cpu() for g in wgrads.gp], [[g.cpu() for g in n] for n in wgrads.nets]
+    del wgrads
+    cpu_batch = batch_to(batch, "cpu")
+    where = "cpu" if dev.type == "cpu" else f"cuda:{dev.index or 0}"
+    for n, backend in SHARD_LEGS:
+        t0 = time.perf_counter()
+        out = SH.spawn(shard_rank, n, backend, where,
+                       args=(fcfg, W, before, cpu_batch, flags, SHARD_STEPS, True))
+        wall = time.perf_counter() - t0
+        label = f"{n} rank{'s' if n > 1 else ''} on one card, {backend}"
+        for r, o in enumerate(out):
+            missing = [k for k, v in o["launches"].items() if v < 1]
+            log(f"# phase 9 ({label}) rank {r}: launches {o['launches']}; step ms "
+                f"{', '.join(f'{x:.2f}' for x in o['times'])} (median "
+                f"{statistics.median(o['times']):.2f}); with each collective timed "
+                f"{o['timed_step']:.2f} ms, of it {o['collectives'][0]:.2f} ms in "
+                f"{o['collectives'][1]} collectives; host-staged collectives "
+                f"{o['host_staged'] or 'none'}, {o['host_copies']} tensors through the host "
+                f"a step; peak {o['peak']:.3f} GiB")
+            if missing:
+                failures.append(f"phase 9 ({label}) rank {r}: {missing} not launched")
+            gap = max(abs(v - out[0]["metrics"][k]) / max(abs(out[0]["metrics"][k]), 1e-20)
+                      for k, v in o["metrics"].items())
+            counts = all(o["metrics"][k] == out[0]["metrics"][k] for k in (
+                "mesh_n_verts", "mesh_n_faces", "mesh_overflow", "splat_overflow",
+                "raster_overflow", "n_alive", "nonfinite_grad_leaves"))
+            if r:
+                log(f"# phase 9 ({label}) rank {r} against rank 0: metrics rel {gap:.3g} (tol "
+                    f"{TOL_SHARD_RANKS}), counters {'equal' if counts else 'DIFFERENT'}")
+            if gap > TOL_SHARD_RANKS or not counts:
+                failures.append(f"phase 9 ({label}): rank {r}'s metrics differ from rank 0's")
+        got = out[0]
+        if got["profile"]:
+            path = os.path.join(MULTI_DIR, f"phase9_profile_{backend}{n}.txt")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            with open(path, "w") as f:
+                f.write("\n\n".join(got["profile"]))
+            log(f"# phase 9 ({label}) rank 0, one profiled step: {got['profile'][-1]}; the "
+                f"top operators in {os.path.relpath(path, ROOT)}")
+        m = got["metrics"]
+        d_loss = max(abs(m[k] - want[k]) / max(abs(want[k]), 1e-20) for k in (
+            "loss", "cycle_loss", "mask_loss", "mesh_img_loss", "laplacian_loss", "img_loss"))
+        exact = {k: (int(m[k]), int(want[k])) for k in (
+            "mesh_n_verts", "mesh_n_faces", "mesh_overflow", "splat_overflow",
+            "splat_dup_overflow", "n_alive", "nonfinite_grad_leaves")}
+        soft = {k: (int(m[k]), int(want[k])) for k in SHARD_SOFT_COUNTERS}
+        gaps = resume_gaps(torch, fcfg, got["new"], want_new, before)
+        g_gp = max(float((a - b).norm()) / max(float(b.norm()), 1e-30)
+                   for a, b in zip(got["g_gp"], wg[0]))
+        g_net = max(float((a - b).norm()) / max(float(b.norm()), 1e-30)
+                    for na, nb in zip(got["g_nets"], wg[1]) for a, b in zip(na, nb))
+        ok = (d_loss <= TOL_SHARD_LOSS and all(a == b for a, b in exact.values())
+              and all(abs(a - b) <= SHARD_SOFT_COUNTERS[k] * max(b, 1)
+                      for k, (a, b) in soft.items())
+              and g_gp <= SHARD_LIMITS["gaussian grads"] and g_net <= SHARD_LIMITS["net grads"]
+              and all(gaps[k][0] <= SHARD_LIMITS[k] for k in SHARD_LIMITS)
+              and not any(k for k in ("mesh_overflow", "nonfinite_grad_leaves") if m[k]))
+        log(f"# phase 9 ({label}) vs the unsharded step: loss terms rel {d_loss:.3g} (tol "
+            f"{TOL_SHARD_LOSS}); " + ", ".join(f"{k} {a}/{b}" for k, (a, b) in exact.items())
+            + ", " + ", ".join(f"{k} {a}/{b} (rel tol {SHARD_SOFT_COUNTERS[k]})"
+                               for k, (a, b) in soft.items())
+            + f"; gradients (loss_and_grads) Gaussian leaves norm rel {g_gp:.3g}, net leaves "
+            f"{g_net:.3g}; new state: " + ", ".join(
+                f"{k} {v:.3g} ({w}, tol {SHARD_LIMITS.get(k, 'reported')})"
+                for k, (v, w) in gaps.items())
+            + f"; {wall:.1f} s with the ranks' start {'ok' if ok else 'FAIL'}")
+        log(f"# timing phase 9 ({label}): {statistics.median(got['times']):.2f} ms per "
+            f"sharded step, {got['collectives'][0]:.2f} ms of collectives (each timed alone); "
+            f"unsharded {statistics.median(times):.2f} ms; {card_line()}")
+        if not ok:
+            failures.append(f"phase 9 ({label}): the sharded step disagrees with the unsharded one")
+
+
+def scale_screw_heads(torch, nets):
+    with torch.no_grad():
+        for net in (nets.deform, nets.deform_back):
+            for head in (net.head_w, net.head_v):
+                head.weight.mul_(SCREW_SCALE)
+
+
+def six_dof_phase(torch, dev, failures, counters):
+    """Phase 10: the 6-DoF head at the small size, card vs CPU, and one
+    fused full-width step."""
+    from dgmesh_torch.config import Config
+    from dgmesh_torch.eval.testing import render_frame_with_aux
+    from dgmesh_torch.train import step
+    from dgmesh_torch.train.state import state_to
+    from dgmesh_torch.train.step import StepContext
+
+    small = _small_cfg(Config)
+    small.model.is_6dof = True
+    st_c = build_shell_state(torch, small, 256, "cpu")
+    scale_screw_heads(torch, st_c.nets)
+    st_g = state_to(st_c, dev)
+    ctx_g, ctx_c = StepContext(small, 64, 64, device=dev), StepContext(small, 64, 64, device="cpu")
+    bg_, bc_ = view_batches(64, 64, 1, dev)[0], view_batches(64, 64, 1, "cpu")[0]
+    og, _ = render_frame_with_aux(ctx_g, st_g, bg_, small.model.sh_degree)
+    oc, _ = render_frame_with_aux(ctx_c, st_c, bc_, small.model.sh_degree)
+    d_img = max(float((og[k].cpu() - oc[k]).abs().max()) for k in ("render", "mesh_image", "mask"))
+    same = int(og["n_verts"]) == int(oc["n_verts"]) > 0
+    log(f"# 6-DoF small view: card vs CPU max image diff {d_img:.3g} (tol {TOL_SMALL}); V "
+        f"{int(og['n_verts'])}/{int(oc['n_verts'])} {'ok' if same and d_img <= TOL_SMALL else 'FAIL'}")
+    if not (same and d_img <= TOL_SMALL):
+        failures.append("6-DoF small view: card and CPU disagree")
+    # the training step on both, held as phase 6 holds the float32 step
+    small_train_check(torch, step, small, dev, failures, TOL_SMALL_GP, TOL_SMALL_HEAD,
+                      TOL_SMALL_NET, " 6-DoF", 2,
+                      prepare=lambda st: scale_screw_heads(torch, st.nets))
+    # one fused full-width step
+    fcfg = load_cfg()
+    fcfg.tpu.mlp_bf16 = fcfg.tpu.mlp_fused = True
+    fcfg.model.is_6dof = True
+    ctx = StepContext(fcfg, IMG, IMG, device=dev)
+    state = build_shell_state(torch, fcfg, N_GAUSS, dev)
+    scale_screw_heads(torch, state.nets)
+    batch = bench_batch(IMG, IMG, dev)
+    flags = train_flags(step, fcfg.model.sh_degree)
+    step.train_step(ctx, state, batch, flags)
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    _, m = step.train_step(ctx, state, batch, flags)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {c.__name__: c.launches for c in counters}
+    bad = step_problems(torch, m) + [k for k, v in launches.items() if v < 1]
+    log(f"# 6-DoF fused full-width step: {ms:.2f} ms; V {int(m['mesh_n_verts'])} F "
+        f"{int(m['mesh_n_faces'])}; loss {float(m['loss']):.6g}; launches {launches} "
+        f"{'ok' if not bad else 'FAIL: ' + ', '.join(map(str, bad))}")
+    if bad:
+        failures.append("6-DoF fused full-width step: " + ", ".join(map(str, bad)))
+
+
+def check_tile0(torch, SK, MK, ca, cg, cga, geo_s, sa, sg, sgs, geo_m, sigma, errs,
+                failures):
+    """Phase 3t: kernels 1-4 on the tiles [T/2, T) alone with tile0 = T/2
+    against those tiles of the whole launch (the same bits) and against
+    their twins given tile0 (the tolerances of phase 3)."""
+    def tail(x, h):
+        return x[h:].contiguous()
+
+    h = ca.shape[0] // 2
+    full = SK.composite_tiles(ca, *geo_s, residuals=True)
+    half = SK.composite_tiles(tail(ca, h), *geo_s, residuals=True, tile0=h)
+    twin = SK.composite_tiles_ref(tail(ca, h), *geo_s, residuals=True, tile0=h)
+    same = {"composite_tiles": all(same_bits(torch, x[h:], y) for x, y in zip(full, half))}
+    e1 = max_err(half[:2], twin[:2])
+    ok = {"composite_tiles": e1 <= TOL_COMPOSITE}
+    d_full = SK.composite_bwd(ca, cg, cga, *geo_s, full[0], full[2])
+    d_half = SK.composite_bwd(tail(ca, h), tail(cg, h), tail(cga, h), *geo_s, half[0], half[2],
+                              tile0=h)
+    same["composite_bwd"] = same_bits(torch, d_full[h:], d_half)
+    e2, ok["composite_bwd"], _ = compare_bwd(
+        torch, d_half, SK.composite_bwd_ref(tail(ca, h), tail(cg, h), tail(cga, h), *geo_s,
+                                            rgb=half[0], S=half[2], tile0=h),
+        COMPOSITE_GROUPS, ZERO_LANES["composite"], tail(ca, h)[..., 9] < 0.5)
+    h = sa.shape[0] // 2
+    full = MK.shade_tiles(sa, *geo_m, sigma, residuals=True)
+    half = MK.shade_tiles(tail(sa, h), *geo_m, sigma, residuals=True, tile0=h)
+    twin = MK.shade_tiles_ref(tail(sa, h), *geo_m, sigma, residuals=True, tile0=h)
+    same["shade_tiles"] = all(same_bits(torch, x[h:], y) for x, y in zip(full, half))
+    e3 = max_err((half[0], half[2]), (twin[0], twin[2]))
+    ok["shade_tiles"] = (e3 <= TOL_SHADE and bool(torch.equal(half[1], twin[1]))
+                         and bool(torch.equal(half[3], twin[3])))
+    d_full = MK.shade_bwd(sa, sg, sgs, *geo_m, sigma, *full[4:])
+    d_half = MK.shade_bwd(tail(sa, h), tail(sg, h), tail(sgs, h), *geo_m, sigma, *half[4:],
+                          tile0=h)
+    same["shade_bwd"] = same_bits(torch, d_full[h:], d_half)
+    e4, ok["shade_bwd"], _ = compare_bwd(
+        torch, d_half, MK.shade_bwd_ref(tail(sa, h), tail(sg, h), tail(sgs, h), *geo_m, sigma,
+                                        tile0=h),
+        SHADE_GROUPS, ZERO_LANES["shade"], tail(sa, h)[..., 9] < 0.5)
+    for name, e in zip(("composite_tiles", "composite_bwd", "shade_tiles", "shade_bwd"),
+                       (e1, e2, e3, e4)):
+        errs[name].append(e)
+        log(f"# kernels/tile0: {name} on tiles [{h if 'shade' in name else ca.shape[0] // 2}, "
+            f"T) with tile0 = T/2: {'the same bits as' if same[name] else 'NOT'} the whole "
+            f"launch's; vs the twin given tile0 {e:.3g} {'ok' if ok[name] else 'FAIL'}")
+        if not (same[name] and ok[name]):
+            failures.append(f"{name} with tile0 (phase 3t)")
 
 
 def load_cfg(bench_values: bool = True):

@@ -48,7 +48,7 @@ def _flax_layers(net: mlp._TimeConditioned, tree: Mapping):
     of ``net``, by flax's names: the timenet Denses come first (Blender
     nets only: without a timenet, as on real captures, the heads start at
     ``Dense_0``), then the trunk, then the heads in the order ``heads``
-    lists them."""
+    lists them (the 6-DoF head's w and v Denses where d_xyz's would be)."""
     tree = tree.get("params", tree)
     dense = (f"Dense_{i}" for i in itertools.count())
     out = []
@@ -58,7 +58,8 @@ def _flax_layers(net: mlp._TimeConditioned, tree: Mapping):
     out += [(layer, {"kernel": trunk[f"w{i}"], "bias": trunk[f"b{i}"]})
             for i, layer in enumerate(net.trunk.layers)]
     if isinstance(net, mlp.DeformNetwork):
-        heads = [net.head_xyz, net.head_rot, net.head_scale]
+        first = [net.head_w, net.head_v] if net.is_6dof else [net.head_xyz]
+        heads = first + [net.head_rot, net.head_scale]
         if net.with_normal:
             heads.append(net.head_normal)
     elif isinstance(net, mlp.DeformNetworkNormalSep):

@@ -156,7 +156,7 @@ template <int MAX_THREADS>
 __global__ void __launch_bounds__(MAX_THREADS)
 composite_kernel(const float* __restrict__ attrs, float* __restrict__ rgb_out,
                  float* __restrict__ alpha_out, float* __restrict__ s_out,
-                 int K, int tiles_x, int tile_h, int tile_w, bool blocked) {
+                 int K, int tiles_x, int tile_h, int tile_w, int tile0, bool blocked) {
   extern __shared__ float4 smem[];
   Row* rows = reinterpret_cast<Row*>(smem);              // [blockDim]
   int* vrow = reinterpret_cast<int*>(rows + blockDim.x);  // [K] valid rows, K order
@@ -179,7 +179,7 @@ composite_kernel(const float* __restrict__ attrs, float* __restrict__ rgb_out,
     x = g % tile_w;
     y = g / tile_w;
   }
-  const int ox = (tile % tiles_x) * tile_w, oy = (tile / tiles_x) * tile_h;
+  const int ox = ((tile0 + tile) % tiles_x) * tile_w, oy = ((tile0 + tile) / tiles_x) * tile_h;
   const float px = (float)(ox + x);
   const float py = (float)(oy + y);
   // the warp's block: the bounding box of its lanes' pixels
@@ -256,13 +256,18 @@ composite_kernel(const float* __restrict__ attrs, float* __restrict__ rgb_out,
 
 }  // namespace
 
+// Every launcher takes tile0: block b of the launch is tile tile0 + b of the
+// image (its pixel origin), while it reads and writes row b of the arrays.
+// A rank of the multi-device step composites its own block of tiles this way.
+extern "C" int takes_tile0() { return 1; }
+
 // attrs (T,K,16) → rgb (T,P,3), alpha (T,P) and, where S is not null, each
 // pixel's log-transmittance S (T,P); all float32, contiguous, on the device,
 // attrs 16-byte aligned.  Launches on `stream`; returns cudaGetLastError()
 // of the launch.
 extern "C" int composite_tiles_launch(const float* attrs, float* rgb, float* alpha,
                                       float* S, int T, int K, int tiles_x, int tile_h,
-                                      int tile_w, void* stream) {
+                                      int tile_w, int tile0, void* stream) {
   const int P = tile_h * tile_w;
   if (T <= 0 || K <= 0) return 0;
   if (P <= 0 || P > 1024) return (int)cudaErrorInvalidValue;
@@ -277,6 +282,6 @@ extern "C" int composite_tiles_launch(const float* attrs, float* rgb, float* alp
     if (err != cudaSuccess) return (int)err;
   }
   kernel<<<T, threads, smem, (cudaStream_t)stream>>>(attrs, rgb, alpha, S, K, tiles_x, tile_h,
-                                                     tile_w, blocked);
+                                                     tile_w, tile0, blocked);
   return (int)cudaGetLastError();
 }

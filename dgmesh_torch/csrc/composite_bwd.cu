@@ -89,7 +89,7 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
 composite_bwd_kernel(const float* __restrict__ attrs, const float* __restrict__ g_rgb,
                      const float* __restrict__ g_alpha, const float* __restrict__ rgb_in,
                      const float* __restrict__ s_in, float* __restrict__ d_attrs,
-                     int K, int tiles_x, int tile_h, int tile_w) {
+                     int K, int tiles_x, int tile_h, int tile_w, int tile0) {
   extern __shared__ float smem[];
   const int P = tile_h * tile_w;
   float4* gpix = reinterpret_cast<float4*>(smem);     // [P] g_rgb, 0
@@ -103,7 +103,7 @@ composite_bwd_kernel(const float* __restrict__ attrs, const float* __restrict__ 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nwarps = blockDim.x >> 5;
   const int tile = blockIdx.x;
-  const int ox = (tile % tiles_x) * tile_w, oy = (tile / tiles_x) * tile_h;
+  const int ox = ((tile0 + tile) % tiles_x) * tile_w, oy = ((tile0 + tile) / tiles_x) * tile_h;
   const float* a = attrs + (size_t)tile * K * LANES;
   float4* d4 = reinterpret_cast<float4*>(d_attrs + (size_t)tile * K * LANES);
 
@@ -289,7 +289,7 @@ composite_bwd_kernel(const float* __restrict__ attrs, const float* __restrict__ 
 template <int MAX_THREADS, int MIN_BLOCKS>
 int run(const float* attrs, const float* g_rgb, const float* g_alpha, const float* rgb,
         const float* S, float* d_attrs, int T, int K, int tiles_x, int tile_h, int tile_w,
-        void* stream) {
+        int tile0, void* stream) {
   const auto kernel = composite_bwd_kernel<MAX_THREADS, MIN_BLOCKS>;
   const size_t smem = smem_words(K, tile_h * tile_w) * sizeof(float);
   if (smem > 48 * 1024) {
@@ -298,7 +298,7 @@ int run(const float* attrs, const float* g_rgb, const float* g_alpha, const floa
     if (err != cudaSuccess) return (int)err;
   }
   kernel<<<T, tile_h * tile_w, smem, (cudaStream_t)stream>>>(
-      attrs, g_rgb, g_alpha, rgb, S, d_attrs, K, tiles_x, tile_h, tile_w);
+      attrs, g_rgb, g_alpha, rgb, S, d_attrs, K, tiles_x, tile_h, tile_w, tile0);
   return (int)cudaGetLastError();
 }
 
@@ -307,17 +307,22 @@ int run(const float* attrs, const float* g_rgb, const float* g_alpha, const floa
 // SM; larger tiles get one CTA of up to 1024 threads
 int launch(const float* attrs, const float* g_rgb, const float* g_alpha, const float* rgb,
            const float* S, float* d_attrs, int T, int K, int tiles_x, int tile_h,
-           int tile_w, void* stream) {
+           int tile_w, int tile0, void* stream) {
   const int P = tile_h * tile_w;
   if (T <= 0 || K <= 0) return 0;
   if (P <= 0 || P > 1024 || P % 32 != 0) return (int)cudaErrorInvalidValue;
   return P <= 256 ? run<256, 4>(attrs, g_rgb, g_alpha, rgb, S, d_attrs, T, K, tiles_x,
-                                tile_h, tile_w, stream)
+                                tile_h, tile_w, tile0, stream)
                   : run<1024, 1>(attrs, g_rgb, g_alpha, rgb, S, d_attrs, T, K, tiles_x,
-                                 tile_h, tile_w, stream);
+                                 tile_h, tile_w, tile0, stream);
 }
 
 }  // namespace
+
+// Every launcher takes tile0: block b of the launch is tile tile0 + b of the
+// image (its pixel origin), while it reads and writes row b of the arrays.
+// A rank of the multi-device step composites its own block of tiles this way.
+extern "C" int takes_tile0() { return 1; }
 
 // attrs (T,K,16), g_rgb (T,P,3), g_alpha (T,P) → d_attrs (T,K,16); all
 // float32, contiguous, on the device; P = tile_h*tile_w a multiple of 32, at
@@ -325,9 +330,9 @@ int launch(const float* attrs, const float* g_rgb, const float* g_alpha, const f
 extern "C" int composite_bwd_launch(const float* attrs, const float* g_rgb,
                                     const float* g_alpha, float* d_attrs, int T,
                                     int K, int tiles_x, int tile_h, int tile_w,
-                                    void* stream) {
+                                    int tile0, void* stream) {
   return launch(attrs, g_rgb, g_alpha, nullptr, nullptr, d_attrs, T, K, tiles_x, tile_h,
-                tile_w, stream);
+                tile_w, tile0, stream);
 }
 
 // The same, given the forward kernel's rgb (T,P,3) and residual S (T,P),
@@ -336,9 +341,10 @@ extern "C" int composite_bwd_launch(const float* attrs, const float* g_rgb,
 extern "C" int composite_bwd_res_launch(const float* attrs, const float* g_rgb,
                                         const float* g_alpha, const float* rgb,
                                         const float* S, float* d_attrs, int T, int K,
-                                        int tiles_x, int tile_h, int tile_w, void* stream) {
+                                        int tiles_x, int tile_h, int tile_w, int tile0,
+                                        void* stream) {
   return launch(attrs, g_rgb, g_alpha, rgb, S, d_attrs, T, K, tiles_x, tile_h, tile_w,
-                stream);
+                tile0, stream);
 }
 
 // How many CTAs of the kernel that launch() picks for K rows and a

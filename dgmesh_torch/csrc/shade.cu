@@ -124,7 +124,7 @@ shade_kernel(const float* __restrict__ attrs, float* __restrict__ rgb_out,
              float* __restrict__ hard_out, float* __restrict__ soft_out,
              float* __restrict__ fid_out, int* __restrict__ win_out,
              float* __restrict__ m_out, int K, int tiles_x, int tile_h, int tile_w,
-             float sigma, float inv_sigma, bool blocked) {
+             int tile0, float sigma, float inv_sigma, bool blocked) {
   extern __shared__ float4 smem[];
   Row* rows = reinterpret_cast<Row*>(smem);                 // [blockDim]
   float* sgn = reinterpret_cast<float*>(rows + blockDim.x); // [blockDim] sign of as
@@ -148,8 +148,8 @@ shade_kernel(const float* __restrict__ attrs, float* __restrict__ rgb_out,
     x = g % tile_w;
     y = g / tile_w;
   }
-  const float px = (float)((tile % tiles_x) * tile_w + x) + 0.5f;
-  const float py = (float)((tile / tiles_x) * tile_h + y) + 0.5f;
+  const float px = (float)(((tile0 + tile) % tiles_x) * tile_w + x) + 0.5f;
+  const float py = (float)(((tile0 + tile) / tiles_x) * tile_h + y) + 0.5f;
 
   // compaction: the valid rows in K order
   int nv = 0;
@@ -278,6 +278,11 @@ shade_kernel(const float* __restrict__ attrs, float* __restrict__ rgb_out,
 
 }  // namespace
 
+// Every launcher takes tile0: block b of the launch is tile tile0 + b of the
+// image (its pixel origin), while it reads and writes row b of the arrays.
+// A rank of the multi-device step composites its own block of tiles this way.
+extern "C" int takes_tile0() { return 1; }
+
 // attrs (T,K,24) → rgb (T,P,3), hard, soft, fid (T,P) float32 and, where
 // win and M are not null, the residuals win (T,P) int32 and M (T,P)
 // float32; contiguous, on the device, attrs 16-byte aligned.  Launches on
@@ -285,7 +290,7 @@ shade_kernel(const float* __restrict__ attrs, float* __restrict__ rgb_out,
 extern "C" int shade_tiles_launch(const float* attrs, float* rgb, float* hard,
                                   float* soft, float* fid, int* win, float* M,
                                   int T, int K,
-                                  int tiles_x, int tile_h, int tile_w,
+                                  int tiles_x, int tile_h, int tile_w, int tile0,
                                   float sigma, void* stream) {
   const int P = tile_h * tile_w;
   if (T <= 0 || K <= 0) return 0;
@@ -307,7 +312,7 @@ extern "C" int shade_tiles_launch(const float* attrs, float* rgb, float* hard,
     if (err != cudaSuccess) return (int)err;
   }
   kernel<<<T, threads, smem, (cudaStream_t)stream>>>(attrs, rgb, hard, soft, fid, win, M, K,
-                                                     tiles_x, tile_h, tile_w, sigma,
+                                                     tiles_x, tile_h, tile_w, tile0, sigma,
                                                      pow2 ? 1.f / sigma : 0.f, blocked);
   return (int)cudaGetLastError();
 }

@@ -133,7 +133,7 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
 shade_bwd_kernel(const float* __restrict__ attrs, const float* __restrict__ g_rgb,
                  const float* __restrict__ g_soft, const int* __restrict__ win_in,
                  const float* __restrict__ m_in, float* __restrict__ d_attrs,
-                 int K, int tiles_x, int tile_h, int tile_w, float sigma) {
+                 int K, int tiles_x, int tile_h, int tile_w, int tile0, float sigma) {
   extern __shared__ float smem[];
   const int P = tile_h * tile_w;
   int* vrow = reinterpret_cast<int*>(smem);           // [K] valid rows, K order
@@ -148,7 +148,7 @@ shade_bwd_kernel(const float* __restrict__ attrs, const float* __restrict__ g_rg
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nwarps = blockDim.x >> 5;
   const int tile = blockIdx.x / SPLIT, part = blockIdx.x % SPLIT;
-  const int ox = (tile % tiles_x) * tile_w, oy = (tile / tiles_x) * tile_h;
+  const int ox = ((tile0 + tile) % tiles_x) * tile_w, oy = ((tile0 + tile) / tiles_x) * tile_h;
   const float* a = attrs + (size_t)tile * K * LANES;
   float4* d4 = reinterpret_cast<float4*>(d_attrs + (size_t)tile * K * LANES);
 
@@ -410,7 +410,7 @@ namespace {
 template <int MAX_THREADS, int MIN_BLOCKS>
 int run(const float* attrs, const float* g_rgb, const float* g_soft, const int* win,
         const float* M, float* d_attrs, int T, int K, int tiles_x, int tile_h, int tile_w,
-        float sigma, void* stream) {
+        int tile0, float sigma, void* stream) {
   const auto kernel = shade_bwd_kernel<MAX_THREADS, MIN_BLOCKS>;
   const size_t smem = smem_words(K, tile_h * tile_w) * sizeof(float);
   if (smem > 48 * 1024) {
@@ -419,7 +419,7 @@ int run(const float* attrs, const float* g_rgb, const float* g_soft, const int* 
     if (err != cudaSuccess) return (int)err;
   }
   kernel<<<T * SPLIT, tile_h * tile_w, smem, (cudaStream_t)stream>>>(
-      attrs, g_rgb, g_soft, win, M, d_attrs, K, tiles_x, tile_h, tile_w, sigma);
+      attrs, g_rgb, g_soft, win, M, d_attrs, K, tiles_x, tile_h, tile_w, tile0, sigma);
   return (int)cudaGetLastError();
 }
 
@@ -428,27 +428,32 @@ int run(const float* attrs, const float* g_rgb, const float* g_soft, const int* 
 // 1024 threads
 int launch(const float* attrs, const float* g_rgb, const float* g_soft, const int* win,
            const float* M, float* d_attrs, int T, int K, int tiles_x, int tile_h,
-           int tile_w, float sigma, void* stream) {
+           int tile_w, int tile0, float sigma, void* stream) {
   const int P = tile_h * tile_w;
   if (T <= 0 || K <= 0) return 0;
   if (P <= 0 || P > 1024 || P % 32 != 0) return (int)cudaErrorInvalidValue;
   return P <= 256 ? run<256, 3>(attrs, g_rgb, g_soft, win, M, d_attrs, T, K, tiles_x, tile_h,
-                                tile_w, sigma, stream)
+                                tile_w, tile0, sigma, stream)
                   : run<1024, 1>(attrs, g_rgb, g_soft, win, M, d_attrs, T, K, tiles_x, tile_h,
-                                 tile_w, sigma, stream);
+                                 tile_w, tile0, sigma, stream);
 }
 
 }  // namespace
+
+// Every launcher takes tile0: block b of the launch is tile tile0 + b of the
+// image (its pixel origin), while it reads and writes row b of the arrays.
+// A rank of the multi-device step composites its own block of tiles this way.
+extern "C" int takes_tile0() { return 1; }
 
 // attrs (T,K,24), g_rgb (T,P,3), g_soft (T,P) → d_attrs (T,K,24); all
 // float32, contiguous, on the device; P = tile_h*tile_w a multiple of 32, at
 // most 1024.  Launches on `stream`; returns cudaGetLastError() of the launch.
 extern "C" int shade_bwd_launch(const float* attrs, const float* g_rgb,
                                 const float* g_soft, float* d_attrs, int T, int K,
-                                int tiles_x, int tile_h, int tile_w, float sigma,
-                                void* stream) {
+                                int tiles_x, int tile_h, int tile_w, int tile0,
+                                float sigma, void* stream) {
   return launch(attrs, g_rgb, g_soft, nullptr, nullptr, d_attrs, T, K, tiles_x, tile_h,
-                tile_w, sigma, stream);
+                tile_w, tile0, sigma, stream);
 }
 
 // The same, given the forward kernel's residuals: win (T,P) int32, each
@@ -457,7 +462,8 @@ extern "C" int shade_bwd_launch(const float* attrs, const float* g_rgb,
 extern "C" int shade_bwd_res_launch(const float* attrs, const float* g_rgb,
                                     const float* g_soft, const int* win, const float* M,
                                     float* d_attrs, int T, int K, int tiles_x,
-                                    int tile_h, int tile_w, float sigma, void* stream) {
+                                    int tile_h, int tile_w, int tile0, float sigma,
+                                    void* stream) {
   return launch(attrs, g_rgb, g_soft, win, M, d_attrs, T, K, tiles_x, tile_h, tile_w,
-                sigma, stream);
+                tile0, sigma, stream);
 }

@@ -3,8 +3,7 @@
 Counterpart of dgmesh_tpu/models/mlp.py (reference utils/time_utils.py:
 Embedder :7-55, DeformNetwork :58-204, DeformNetworkNormalSep :207-266,
 AppearanceNetwork :269-323).  Layers are named after their role; convert.py
-maps flax's names (``Dense_0``…, ``MLPTrunk_0``) onto them.  The ``is_6dof``
-screw head is not ported yet and raises.
+maps flax's names (``Dense_0``…, ``MLPTrunk_0``) onto them.
 
 Parameters are float32.  ``mode`` picks the trunk's arithmetic, as the JAX
 nets' ``dtype``/``fuse`` do: ``"f32"``; ``"bf16"`` (operands, products and
@@ -23,6 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.mlp_fused import FusedTrunk, pack_trunk
+from ..ops.rigid import se3_transform_points
 
 MODES = ("f32", "bf16", "fused")
 
@@ -135,18 +135,26 @@ class _TimeConditioned(nn.Module):
 
 
 class DeformNetwork(_TimeConditioned):
-    """Canonical↔deformed offsets: d_xyz, d_rotation, d_scaling[, d_normal]."""
+    """Canonical↔deformed offsets: d_xyz, d_rotation, d_scaling[, d_normal].
+
+    With ``is_6dof`` the position offset comes from a screw motion (the
+    reference's time_utils.py:100-124, dgmesh_tpu/models/mlp.py:150-162):
+    ``head_w`` and ``head_v`` (flax's default Dense init, not zero) give w
+    and v, θ = ‖w‖, and d_xyz is the SE(3)-moved point less the point."""
 
     def __init__(self, depth: int = 8, width: int = 256, multires: int = 10,
                  is_blender: bool = False, with_normal: bool = False,
                  is_6dof: bool = False, zero_init_heads: bool = True,
                  gen: Optional[torch.Generator] = None, device=None):
-        if is_6dof:
-            raise NotImplementedError("the is_6dof screw head is not ported yet")
         super().__init__(is_blender, depth, width, multires, gen, device)
         self.with_normal = with_normal
+        self.is_6dof = is_6dof
         z = zero_init_heads
-        self.head_xyz = Dense(width, 3, zero=z, gen=gen, device=device)
+        if is_6dof:
+            self.head_w = Dense(width, 3, gen=gen, device=device)
+            self.head_v = Dense(width, 3, gen=gen, device=device)
+        else:
+            self.head_xyz = Dense(width, 3, zero=z, gen=gen, device=device)
         self.head_rot = Dense(width, 4, zero=z, gen=gen, device=device)
         self.head_scale = Dense(width, 3, zero=z, gen=gen, device=device)
         if with_normal:
@@ -154,10 +162,21 @@ class DeformNetwork(_TimeConditioned):
 
     def forward(self, xyz, t, mode: str = "f32"):
         h = self.features(xyz, t, mode)
-        out = (self.head_xyz(h), self.head_rot(h), self.head_scale(h))
+        d_xyz = self._screw(xyz, h) if self.is_6dof else self.head_xyz(h)
+        out = (d_xyz, self.head_rot(h), self.head_scale(h))
         if self.with_normal:
             return out + (self.head_normal(h),)
         return out
+
+
+    def _screw(self, xyz, h):
+        w, v = self.head_w(h), self.head_v(h)
+        # θ = sqrt(Σ w²), JAX's norm: at w = 0 (a row whose trunk output is
+        # all zero, so w is the bias) its gradient is NaN, as jax.grad of
+        # jnp.linalg.norm gives; torch.linalg.vector_norm would give 0
+        theta = torch.sqrt((w * w).sum(-1, keepdim=True))
+        screw = torch.cat([w / (theta + 1e-5), v / (theta + 1e-5)], -1)
+        return se3_transform_points(xyz, screw, theta) - xyz
 
 
 class DeformNetworkNormalSep(_TimeConditioned):

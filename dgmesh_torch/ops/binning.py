@@ -93,10 +93,29 @@ def rect_from_bbox(x0, y0, x1, y1, *, tile_w: int, tile_h: int,
     return tx0, ty0, nx, ny
 
 
-def quantize_depth(depth: torch.Tensor, valid: torch.Tensor, bits: int = 30) -> torch.Tensor:
-    """Map float depth to monotone int32 keys over the valid depth range."""
-    dmin = torch.where(valid, depth, float("inf")).min()
-    dmax = torch.where(valid, depth, float("-inf")).max()
+def depth_range(depth: torch.Tensor, valid: torch.Tensor):
+    """Masked (min, max) of depth, the range quantize_depth normalises by; the
+    multi-device path reduces it over the ranks (parallel/sharded_splat.py)."""
+    return (torch.where(valid, depth, float("inf")).min(),
+            torch.where(valid, depth, float("-inf")).max())
+
+
+def merge_depth_rank(depth_key: torch.Tensor, num_tiles: int) -> torch.Tensor:
+    """Per-item depth rank at the resolution ``bin_rects`` sorts by: with the
+    global item id as the tie-break, it orders a tile's items as the packed
+    key does, so per-rank top-K lists merge into the single-device list
+    exactly (dgmesh_tpu/ops/binning.py::merge_depth_rank)."""
+    depth_bits = _depth_bits(num_tiles)
+    dq = (depth_key.long() >> 16).clamp(0, (1 << 14) - 1)
+    return (dq >> (14 - depth_bits)).clamp(0, (1 << depth_bits) - 1)
+
+
+def quantize_depth(depth: torch.Tensor, valid: torch.Tensor, bits: int = 30,
+                   dmin=None, dmax=None) -> torch.Tensor:
+    """Map float depth to monotone int32 keys over the valid depth range, or
+    over ``dmin``/``dmax`` where given (the ranks' common range)."""
+    if dmin is None or dmax is None:
+        dmin, dmax = depth_range(depth, valid)
     drange = torch.clamp_min(dmax - dmin, 1e-6)
     q = (depth - dmin) / drange * float(1 << bits)
     # invalid items (count 0) may hold non-finite or out-of-range depths; they

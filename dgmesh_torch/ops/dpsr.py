@@ -71,9 +71,13 @@ def point_rasterize(points: torch.Tensor, values: torch.Tensor, res) -> torch.Te
     return grid.reshape(*res, C)
 
 
-def div_rasterize(points: torch.Tensor, normals: torch.Tensor, res) -> torch.Tensor:
+def div_rasterize(points: torch.Tensor, normals: torch.Tensor, res,
+                  slabs: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Splat the (negated) divergence of the oriented point set (r0,r1,r2):
-    per corner, Σ_d n_d · res_d · ∂_d of the trilinear hat.
+    per corner, Σ_d n_d · res_d · ∂_d of the trilinear hat.  With ``slabs``
+    = (x0, x1), only the x-slabs x0 … x1 − 1 of the grid, (x1 − x0, r1, r2):
+    the contributions that land there, summed in the same order (a rank of
+    the multi-device DPSR, parallel/sharded_dpsr.py; JAX's ``slab_ids``).
 
     The derivative hat is −res on the low corner and +res on the high one.
     On axes 1 and 2 the high corner's +res is taken only where the fraction
@@ -91,9 +95,14 @@ def div_rasterize(points: torch.Tensor, normals: torch.Tensor, res) -> torch.Ten
     val = (normals[:, None, 0] * dhat[..., 0] * hat[..., 1] * hat[..., 2]
            + normals[:, None, 1] * hat[..., 0] * dhat[..., 1] * hat[..., 2]
            + normals[:, None, 2] * hat[..., 0] * hat[..., 1] * dhat[..., 2])
-    grid = torch.zeros(r0 * r1 * r2, dtype=normals.dtype, device=normals.device)
-    grid.index_add_(0, flat.reshape(-1), val.reshape(-1))
-    return grid.reshape(r0, r1, r2)
+    flat, val = flat.reshape(-1), val.reshape(-1)
+    x0, x1 = (0, r0) if slabs is None else slabs
+    if slabs is not None:
+        keep = torch.nonzero((flat >= x0 * r1 * r2) & (flat < x1 * r1 * r2)).squeeze(1)
+        flat, val = flat[keep] - x0 * r1 * r2, val[keep]
+    grid = torch.zeros((x1 - x0) * r1 * r2, dtype=normals.dtype, device=normals.device)
+    grid.index_add_(0, flat, val)
+    return grid.reshape(x1 - x0, r1, r2)
 
 
 def grid_interp(grid: torch.Tensor, points: torch.Tensor, res) -> torch.Tensor:

@@ -13,7 +13,9 @@ Layout (T,K,24) float32 per tile row: 0-5 screen triangle | 6-8 clip 1/w |
 9 valid | 10-18 corner colours | 19 face id | 20-23 padding.  Outputs rgb
 (T,P,3), hard (T,P), soft (T,P) and fid (T,P), with no background term;
 residuals win (T,P) int32 (the winner's row in its tile, -1 where none) and
-M (T,P) float32 (soft = 1 - exp(M)).
+M (T,P) float32 (soft = 1 - exp(M)).  Row t of the arrays is tile
+``tile0 + t`` of the image (``tile0`` 0 by default), as in
+ops/splat_kernels.py.
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ LANES = 24
 
 
 def shade_tiles_ref(attrs: torch.Tensor, tiles_x: int, tile_h: int, tile_w: int,
-                    sigma: float, chunk: int = 64, residuals: bool = False):
+                    sigma: float, chunk: int = 64, residuals: bool = False,
+                    tile0: int = 0):
     """Plain PyTorch twin of the kernel.
 
     Follows ``_shade_kernel`` (dgmesh_tpu/ops/mesh_raster_pallas.py:40-134)
@@ -49,7 +52,7 @@ def shade_tiles_ref(attrs: torch.Tensor, tiles_x: int, tile_h: int, tile_w: int,
     fid = attrs.new_empty((T, P))
     win_res = torch.empty((T, P), dtype=torch.int32, device=dev)
     m_res = attrs.new_empty((T, P))
-    px_all, py_all = tile_pixels(T, tiles_x, tile_h, tile_w, 0.5, dev)
+    px_all, py_all = tile_pixels(T, tiles_x, tile_h, tile_w, 0.5, dev, tile0)
     for s in range(0, T, chunk):
         a = attrs[s:s + chunk]                                  # (C,K,24)
         px = px_all[s:s + chunk, None, :]                       # (C,1,P)
@@ -102,7 +105,7 @@ def shade_tiles_ref(attrs: torch.Tensor, tiles_x: int, tile_h: int, tile_w: int,
 
 
 def shade_tiles(attrs: torch.Tensor, tiles_x: int, tile_h: int, tile_w: int,
-                sigma: float, residuals: bool = False):
+                sigma: float, residuals: bool = False, tile0: int = 0):
     """attrs (T,K,24) f32 → rgb (T,P,3), hard, soft, fid (T,P), and with
     ``residuals`` the backward's win (T,P) int32 and M (T,P) f32.
 
@@ -110,7 +113,8 @@ def shade_tiles(attrs: torch.Tensor, tiles_x: int, tile_h: int, tile_w: int,
     launch); a CPU tensor takes the plain twin."""
     cuda_build.check_rows(attrs, LANES, "shade_tiles")
     if attrs.device.type == "cpu":
-        return shade_tiles_ref(attrs, tiles_x, tile_h, tile_w, sigma, residuals=residuals)
+        return shade_tiles_ref(attrs, tiles_x, tile_h, tile_w, sigma, residuals=residuals,
+                               tile0=tile0)
     T, K, _ = attrs.shape
     P = tile_h * tile_w
     cuda_build.check_launch(K, P, "shade_tiles", attrs)
@@ -125,14 +129,14 @@ def shade_tiles(attrs: torch.Tensor, tiles_x: int, tile_h: int, tile_w: int,
             torch.empty((T, P), **f32)) if residuals else ())
     lib = cuda_build.library("shade")
     fn = lib.shade_tiles_launch
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(attrs.device).cuda_stream
     with torch.cuda.device(attrs.device):
         err = fn(attrs.data_ptr(), rgb.data_ptr(), hard.data_ptr(), soft.data_ptr(),
                  fid.data_ptr(), *([x.data_ptr() for x in res] if res else [None, None]),
-                 T, K, tiles_x, tile_h, tile_w, float(sigma), stream)
+                 T, K, tiles_x, tile_h, tile_w, tile0, float(sigma), stream)
     cuda_build.check(err, "shade_tiles")
     shade_tiles.launches += 1
     return (rgb, hard, soft, fid) + res
@@ -149,7 +153,7 @@ def _half_split(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def shade_bwd_ref(attrs: torch.Tensor, g_rgb: torch.Tensor, g_soft: torch.Tensor,
                   tiles_x: int, tile_h: int, tile_w: int, sigma: float,
-                  chunk: int = 16, win=None, M=None):
+                  chunk: int = 16, win=None, M=None, tile0: int = 0):
     """Plain PyTorch twin of the backward kernel, after ``_shade_bwd_kernel``
     (dgmesh_tpu/ops/mesh_raster_pallas.py:164-357), chunked over tiles.
 
@@ -170,7 +174,7 @@ def shade_bwd_ref(attrs: torch.Tensor, g_rgb: torch.Tensor, g_soft: torch.Tensor
     one-hot sums spread it over the tile through 0·NaN.)"""
     T, K, _ = attrs.shape
     d_attrs = attrs.new_zeros((T, K, LANES))
-    px_all, py_all = tile_pixels(T, tiles_x, tile_h, tile_w, 0.5, attrs.device)
+    px_all, py_all = tile_pixels(T, tiles_x, tile_h, tile_w, 0.5, attrs.device, tile0)
     for s in range(0, T, chunk):
         a = attrs[s:s + chunk]                                  # (C,K,24)
         px = px_all[s:s + chunk, None, :]                       # (C,1,P)
@@ -294,7 +298,7 @@ def shade_bwd_ref(attrs: torch.Tensor, g_rgb: torch.Tensor, g_soft: torch.Tensor
 
 def shade_bwd(attrs: torch.Tensor, g_rgb: torch.Tensor, g_soft: torch.Tensor,
               tiles_x: int, tile_h: int, tile_w: int, sigma: float,
-              win=None, M=None) -> torch.Tensor:
+              win=None, M=None, tile0: int = 0) -> torch.Tensor:
     """attrs (T,K,24), g_rgb (T,P,3), g_soft (T,P) f32 → d_attrs (T,K,24);
     optionally given the forward's residuals win (T,P) int32 and M (T,P)
     f32 (``shade_tiles(..., residuals=True)``), so the kernel walks no rows
@@ -317,20 +321,20 @@ def shade_bwd(attrs: torch.Tensor, g_rgb: torch.Tensor, g_soft: torch.Tensor,
         raise ValueError("residuals must be win (T,P) int32 and M (T,P) float32")
     if attrs.device.type == "cpu":
         return shade_bwd_ref(attrs, g_rgb, g_soft, tiles_x, tile_h, tile_w, sigma,
-                             win=win, M=M)
+                             win=win, M=M, tile0=tile0)
     res = () if win is None else (win, M)
     cuda_build.check_launch(K, P, "shade_bwd", attrs, g_rgb, g_soft, *res, whole_warps=True)
     d_attrs = torch.empty((T, K, LANES), dtype=torch.float32, device=attrs.device)
     lib = cuda_build.library("shade_bwd")
     fn = lib.shade_bwd_res_launch if res else lib.shade_bwd_launch
-    fn.argtypes = ([ctypes.c_void_p] * (4 + len(res)) + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * (4 + len(res)) + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(attrs.device).cuda_stream
     with torch.cuda.device(attrs.device):
         err = fn(attrs.data_ptr(), g_rgb.data_ptr(), g_soft.data_ptr(),
                  *(x.data_ptr() for x in res), d_attrs.data_ptr(),
-                 T, K, tiles_x, tile_h, tile_w, float(sigma), stream)
+                 T, K, tiles_x, tile_h, tile_w, tile0, float(sigma), stream)
     cuda_build.check(err, "shade_bwd")
     shade_bwd.launches += 1
     return d_attrs
@@ -348,10 +352,13 @@ class ShadeTiles(torch.autograd.Function):
     pixel) are saved for the backward; a render writes none."""
 
     @staticmethod
-    def forward(ctx, attrs, tiles_x: int, tile_h: int, tile_w: int, sigma: float):
+    def forward(ctx, attrs, tiles_x: int, tile_h: int, tile_w: int, sigma: float,
+                tile0: int = 0):
         ctx.geo = (tiles_x, tile_h, tile_w, sigma)
+        ctx.tile0 = tile0
         rgb, hard, soft, fid, *res = shade_tiles(attrs, tiles_x, tile_h, tile_w, sigma,
-                                                 residuals=ctx.needs_input_grad[0])
+                                                 residuals=ctx.needs_input_grad[0],
+                                                 tile0=tile0)
         ctx.save_for_backward(attrs, *res)
         ctx.mark_non_differentiable(hard, fid)
         return rgb, hard, soft, fid
@@ -359,5 +366,6 @@ class ShadeTiles(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_rgb, g_hard, g_soft, g_fid):
         attrs, win, M = ctx.saved_tensors
-        d = shade_bwd(attrs, g_rgb.contiguous(), g_soft.contiguous(), *ctx.geo, win, M)
-        return d, None, None, None, None
+        d = shade_bwd(attrs, g_rgb.contiguous(), g_soft.contiguous(), *ctx.geo, win, M,
+                      tile0=ctx.tile0)
+        return d, None, None, None, None, None

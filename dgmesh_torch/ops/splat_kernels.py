@@ -13,7 +13,9 @@ rgb output instead of walking the rows once more.
 Layout (T,K,16) float32 per tile row: 0,1 mean2d | 2-4 conic | 5 opacity |
 6-8 rgb | 9 valid | 10-15 padding.  Outputs rgb (T,P,3) and alpha (T,P),
 P = tile_h·tile_w, with no background term; residual S (T,P) float32
-(alpha = 1 − e^S).
+(alpha = 1 − e^S).  Row t of the arrays is tile ``tile0 + t`` of the image
+(``tile0`` 0 by default): a rank of the multi-device step composites its
+own block of tiles (parallel/sharded_splat.py).
 """
 
 from __future__ import annotations
@@ -31,9 +33,10 @@ LANES = 16
 
 
 def tile_pixels(T: int, tiles_x: int, tile_h: int, tile_w: int, offset: float,
-                device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Pixel centres (T,P) of every tile, row-major within the tile."""
-    t = torch.arange(T, device=device)
+                device, tile0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pixel centres (T,P) of tiles tile0 … tile0 + T − 1, row-major within
+    the tile."""
+    t = torch.arange(tile0, tile0 + T, device=device)
     p = torch.arange(tile_h * tile_w, device=device)
     px = ((t % tiles_x) * tile_w)[:, None] + (p % tile_w)[None, :]
     py = ((t // tiles_x) * tile_h)[:, None] + (p // tile_w)[None, :]
@@ -41,7 +44,8 @@ def tile_pixels(T: int, tiles_x: int, tile_h: int, tile_w: int, offset: float,
 
 
 def composite_tiles_ref(attrs: torch.Tensor, tiles_x: int, tile_h: int,
-                        tile_w: int, chunk: int = 64, residuals: bool = False):
+                        tile_w: int, chunk: int = 64, residuals: bool = False,
+                        tile0: int = 0):
     """Plain PyTorch twin of the kernel, after ``_composite_ref``
     (dgmesh_tpu/ops/splat_pallas.py:229-261), chunked over tiles.  With
     ``residuals``, S follows rgb and alpha."""
@@ -50,7 +54,7 @@ def composite_tiles_ref(attrs: torch.Tensor, tiles_x: int, tile_h: int,
     rgb = attrs.new_empty((T, P, 3))
     alpha = attrs.new_empty((T, P))
     s_res = attrs.new_empty((T, P))
-    px_all, py_all = tile_pixels(T, tiles_x, tile_h, tile_w, 0.0, attrs.device)
+    px_all, py_all = tile_pixels(T, tiles_x, tile_h, tile_w, 0.0, attrs.device, tile0)
     for s in range(0, T, chunk):
         at = attrs[s:s + chunk]                             # (C,K,16)
         dx = at[..., 0:1] - px_all[s:s + chunk, None, :]    # (C,K,P)
@@ -69,7 +73,7 @@ def composite_tiles_ref(attrs: torch.Tensor, tiles_x: int, tile_h: int,
 
 
 def composite_tiles(attrs: torch.Tensor, tiles_x: int, tile_h: int, tile_w: int,
-                    residuals: bool = False):
+                    residuals: bool = False, tile0: int = 0):
     """attrs (T,K,16) f32 → rgb (T,P,3), alpha (T,P), and with ``residuals``
     the backward's S (T,P) f32.
 
@@ -77,7 +81,8 @@ def composite_tiles(attrs: torch.Tensor, tiles_x: int, tile_h: int, tile_w: int,
     each launch); a CPU tensor takes the plain twin."""
     cuda_build.check_rows(attrs, LANES, "composite_tiles")
     if attrs.device.type == "cpu":
-        return composite_tiles_ref(attrs, tiles_x, tile_h, tile_w, residuals=residuals)
+        return composite_tiles_ref(attrs, tiles_x, tile_h, tile_w, residuals=residuals,
+                                   tile0=tile0)
     T, K, _ = attrs.shape
     P = tile_h * tile_w
     cuda_build.check_launch(K, P, "composite_tiles", attrs)
@@ -90,12 +95,13 @@ def composite_tiles(attrs: torch.Tensor, tiles_x: int, tile_h: int, tile_w: int,
     res = (torch.empty((T, P), **f32),) if residuals else ()
     lib = cuda_build.library("composite")
     fn = lib.composite_tiles_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(attrs.device).cuda_stream
     with torch.cuda.device(attrs.device):
         err = fn(attrs.data_ptr(), rgb.data_ptr(), alpha.data_ptr(),
-                 res[0].data_ptr() if res else None, T, K, tiles_x, tile_h, tile_w, stream)
+                 res[0].data_ptr() if res else None, T, K, tiles_x, tile_h, tile_w, tile0,
+                 stream)
     cuda_build.check(err, "composite_tiles")
     composite_tiles.launches += 1
     return (rgb, alpha) + res
@@ -106,7 +112,7 @@ composite_tiles.launches = 0
 
 def composite_bwd_ref(attrs: torch.Tensor, g_rgb: torch.Tensor, g_alpha: torch.Tensor,
                       tiles_x: int, tile_h: int, tile_w: int, chunk: int = 64,
-                      rgb=None, S=None):
+                      rgb=None, S=None, tile0: int = 0):
     """Plain PyTorch twin of the backward kernel, after ``_composite_bwd_kernel``
     (dgmesh_tpu/ops/splat_pallas.py:116-202), chunked over tiles.
 
@@ -125,7 +131,7 @@ def composite_bwd_ref(attrs: torch.Tensor, g_rgb: torch.Tensor, g_alpha: torch.T
     the result moves by that sum's rounding over (1 − α)."""
     T, K, _ = attrs.shape
     d_attrs = attrs.new_zeros((T, K, LANES))
-    px_all, py_all = tile_pixels(T, tiles_x, tile_h, tile_w, 0.0, attrs.device)
+    px_all, py_all = tile_pixels(T, tiles_x, tile_h, tile_w, 0.0, attrs.device, tile0)
     for s in range(0, T, chunk):
         at = attrs[s:s + chunk]                             # (C,K,16)
         dx = at[..., 0:1] - px_all[s:s + chunk, None, :]    # (C,K,P)
@@ -171,7 +177,8 @@ def composite_bwd_ref(attrs: torch.Tensor, g_rgb: torch.Tensor, g_alpha: torch.T
 
 
 def composite_bwd(attrs: torch.Tensor, g_rgb: torch.Tensor, g_alpha: torch.Tensor,
-                  tiles_x: int, tile_h: int, tile_w: int, rgb=None, S=None) -> torch.Tensor:
+                  tiles_x: int, tile_h: int, tile_w: int, rgb=None, S=None,
+                  tile0: int = 0) -> torch.Tensor:
     """attrs (T,K,16), g_rgb (T,P,3), g_alpha (T,P) f32 → d_attrs (T,K,16);
     optionally given the forward's rgb (T,P,3) and residual S (T,P) f32
     (``composite_tiles(..., residuals=True)``), so the kernel walks the rows
@@ -194,20 +201,20 @@ def composite_bwd(attrs: torch.Tensor, g_rgb: torch.Tensor, g_alpha: torch.Tenso
         raise ValueError("residuals must be rgb (T,P,3) and S (T,P) float32")
     if attrs.device.type == "cpu":
         return composite_bwd_ref(attrs, g_rgb, g_alpha, tiles_x, tile_h, tile_w,
-                                 rgb=rgb, S=S)
+                                 rgb=rgb, S=S, tile0=tile0)
     res = () if rgb is None else (rgb, S)
     cuda_build.check_launch(K, P, "composite_bwd", attrs, g_rgb, g_alpha, *res,
                             whole_warps=True)
     d_attrs = torch.empty((T, K, LANES), dtype=torch.float32, device=attrs.device)
     lib = cuda_build.library("composite_bwd")
     fn = lib.composite_bwd_res_launch if res else lib.composite_bwd_launch
-    fn.argtypes = [ctypes.c_void_p] * (4 + len(res)) + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * (4 + len(res)) + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(attrs.device).cuda_stream
     with torch.cuda.device(attrs.device):
         err = fn(attrs.data_ptr(), g_rgb.data_ptr(), g_alpha.data_ptr(),
                  *(x.data_ptr() for x in res), d_attrs.data_ptr(),
-                 T, K, tiles_x, tile_h, tile_w, stream)
+                 T, K, tiles_x, tile_h, tile_w, tile0, stream)
     cuda_build.check(err, "composite_bwd")
     composite_bwd.launches += 1
     return d_attrs
@@ -224,15 +231,17 @@ class CompositeTiles(torch.autograd.Function):
     saved too, so the backward walks the rows once; a render writes no S."""
 
     @staticmethod
-    def forward(ctx, attrs, tiles_x: int, tile_h: int, tile_w: int):
+    def forward(ctx, attrs, tiles_x: int, tile_h: int, tile_w: int, tile0: int = 0):
         ctx.geo = (tiles_x, tile_h, tile_w)
+        ctx.tile0 = tile0
         rgb, alpha, *res = composite_tiles(attrs, tiles_x, tile_h, tile_w,
-                                           residuals=ctx.needs_input_grad[0])
+                                           residuals=ctx.needs_input_grad[0], tile0=tile0)
         ctx.save_for_backward(attrs, rgb, *res)
         return rgb, alpha
 
     @staticmethod
     def backward(ctx, g_rgb, g_alpha):
         attrs, rgb, S = ctx.saved_tensors
-        d = composite_bwd(attrs, g_rgb.contiguous(), g_alpha.contiguous(), *ctx.geo, rgb, S)
-        return d, None, None, None
+        d = composite_bwd(attrs, g_rgb.contiguous(), g_alpha.contiguous(), *ctx.geo, rgb, S,
+                          tile0=ctx.tile0)
+        return d, None, None, None, None

@@ -12,6 +12,20 @@ bf16 trunk kernels (``mlp_bf16`` and ``mlp_fused``); the render path, the
 anchoring and the normal init apply them in float32 (``StepContext.f32``).
 The structural ops themselves (densify/prune, opacity reset, normal init,
 anchoring) are train/densify.py's, run around the step by train/loop.py.
+
+With ``StepContext(device_mesh=...)`` (a parallel/sharding.py mesh) the step
+runs on one rank of n, the state that rank's part (``shard_state``): the
+splat goes through parallel/sharded_splat.py; the DPSR through
+parallel/sharded_dpsr.py where ``div_mode`` is "splat" and the grid divides
+by n; the marching tets through parallel/sharded_mt.py where the grid
+divides by n; the mesh raster through parallel/sharded_mr.py where the face
+capacity does (JAX's conditions, dgmesh_tpu/train/step.py:181-320).  What
+GSPMD inserts in JAX is explicit here: the cycle-loss means from numerators
+and counts summed over the ranks, the image losses on the gathered images,
+the Laplacian on the stitched mesh, the backward seeded with 1/n (every
+rank computes the whole loss), the nets' and ``density_thres``' gradients
+summed over the ranks before Adam, the non-finite test of a leaf taken over
+all its rows; the Gaussian Adam runs on the rank's own rows.
 """
 
 from __future__ import annotations
@@ -32,6 +46,12 @@ from ..ops import splat
 from ..ops.dpsr import DPSR
 from ..ops.laplacian import laplacian_uniform_tri
 from ..ops.marching_tets import MTConfig, marching_tets
+from ..parallel.sharded_dpsr import dpsr_sharded
+from ..parallel.sharded_mr import render_mesh_sharded
+from ..parallel.sharded_mt import marching_tets_sharded, stitch
+from ..parallel.sharded_splat import render_sharded
+from ..parallel.sharding import (all_gather, pmin, psum, replicated_backward_scale,
+                                 rows_of)
 from ..schedules import linear_noise
 from .state import (NetParams, TrainState, gaussian_adam_update, gaussian_group_lrs,
                     net_adam_update, net_lrs)
@@ -98,14 +118,25 @@ def mlp_mode(cfg: Config) -> str:
 
 class StepContext:
     """Static pieces shared by the step variants: shapes, operators, configs,
-    and ``mlp_mode``, the arithmetic of the training step's nets."""
+    and ``mlp_mode``, the arithmetic of the training step's nets.
 
-    def __init__(self, cfg: Config, width: int, height: int, device: DeviceLike = None):
+    ``device_mesh``: a parallel/sharding.py ``DeviceMesh``; the step then
+    runs as that mesh's rank on its part of the state (module docstring).
+    The padded Gaussian capacity must divide by the number of ranks."""
+
+    def __init__(self, cfg: Config, width: int, height: int, device: DeviceLike = None,
+                 device_mesh=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.mlp_mode = mlp_mode(cfg)
         self._f32_view = None
+        self.device_mesh = device_mesh
         t = cfg.tpu
+        if device_mesh is not None and t.max_gaussians % device_mesh.world:
+            raise ValueError(
+                f"tpu.max_gaussians={t.max_gaussians} is not divisible by the "
+                f"{device_mesh.world}-rank mesh; pick a multiple of {device_mesh.world} "
+                "(the sharded splat splits the padded Gaussian axis)")
         self.splat_cfg = splat.SplatConfig(
             width=width, height=height, tile_h=t.tile_h, tile_w=t.tile_w,
             max_per_tile=t.max_gaussians_per_tile, max_dup=t.max_dup)
@@ -174,23 +205,38 @@ def extract_mesh(ctx: StepContext, gp: G.GaussianParams, gs: G.GaussianStats,
     # (torch.clamp would pass all of it)
     p01 = torch.minimum(torch.maximum(p01, p01.new_tensor(SMALL)), p01.new_tensor(1.0 - SMALL))
     normals = gp.normal + d_normal
-    psr = ctx.dpsr(p01, normals, gs.alive)
+    dm = ctx.device_mesh
+    if dm is None:
+        psr = ctx.dpsr(p01, normals, gs.alive)
+    elif ctx.dpsr.div_mode == "splat" and ctx.dpsr.res[0] % dm.world == 0:
+        psr = dpsr_sharded(dm, ctx.dpsr, p01, normals, gs.alive)
+    else:
+        psr = ctx.dpsr(all_gather(p01, dm), all_gather(normals, dm), all_gather(gs.alive, dm))
     sign = torch.sign(psr[0, 0, 0].detach())
     sign = torch.where(sign == 0, 1.0, sign)
     psr = psr * sign - gp.density_thres
-    m = marching_tets(psr, ctx.mt_cfg)
+    if dm is not None and ctx.mt_cfg.res % dm.world == 0:
+        # the rank's block of the mesh (parallel/sharded_mt.py's layout)
+        m = marching_tets_sharded(dm, psr, ctx.mt_cfg)
+    else:
+        m = marching_tets(psr, ctx.mt_cfg)
     verts_w = (m.verts * 2.0 - 1.0) * gs.gaussian_scale + gs.gaussian_center
     verts_w = torch.where(m.vert_valid[:, None], verts_w, 0.0)
     m = m._replace(verts=verts_w)
     if not with_diag:
         return m
     with torch.no_grad():
-        alive_n = gs.alive.sum().clamp_min(1)
+        alive_n = _sum(gs.alive.sum(), dm).clamp_min(1)
+        norm_sum = torch.where(gs.alive, torch.linalg.norm(normals, dim=-1), 0.0).sum()
         diag = dict(psr_min=psr.min(), psr_max=psr.max(), psr_corner=psr[0, 0, 0].clone(),
-                    normal_norm=torch.where(gs.alive, torch.linalg.norm(normals, dim=-1),
-                                            0.0).sum() / alive_n,
+                    normal_norm=_sum(norm_sum, dm) / alive_n,
                     density_thres=gp.density_thres.clone())
     return m, diag
+
+
+def _sum(x: torch.Tensor, dm) -> torch.Tensor:
+    """x summed over the ranks (x itself on one device)."""
+    return x if dm is None else psum(x, dm)
 
 
 def _mesh_colors(nets, verts_w, vert_valid, fid, mode: str = "f32"):
@@ -242,15 +288,18 @@ def loss_and_aux(ctx: StepContext, gp: G.GaussianParams, nets: NetParams, screen
     noise1, noise2 = _time_noise(ctx, batch, step_f, gen)
 
     mode = ctx.mlp_mode
+    dm = ctx.device_mesh
     d_xyz, d_rot, d_scale, d_normal = _deform_all(nets, gp.xyz, batch.fid, flags.use_normal,
                                                   flags.warm, noise1, mode)
 
     # --- Gaussian splat render (gaussian_renderer/__init__.py:32-119)
     means3d = gp.xyz + d_xyz
-    out = splat.render(means3d, G.get_scaling(gp) + d_scale, G.get_rotation(gp) + d_rot,
-                       G.get_opacity(gp), G.get_features(gp), gs.alive, batch.cam,
-                       batch.bg, ctx.splat_cfg, sh_degree=flags.sh_degree,
-                       screen_offset=screen_offset)
+    render = (splat.render if dm is None
+              else lambda *a, **k: render_sharded(dm, *a, **k))
+    out = render(means3d, G.get_scaling(gp) + d_scale, G.get_rotation(gp) + d_rot,
+                 G.get_opacity(gp), G.get_features(gp), gs.alive, batch.cam,
+                 batch.bg, ctx.splat_cfg, sh_degree=flags.sh_degree,
+                 screen_offset=screen_offset)
     image = out["render"]
     aux["radii"] = out["radii"].detach()
     aux["visibility"] = out["visibility"]
@@ -261,14 +310,15 @@ def loss_and_aux(ctx: StepContext, gp: G.GaussianParams, nets: NetParams, screen
     if not flags.warm:
         M_t = _time_input(batch.fid, noise2, M, gp.xyz)
         d_back, d_rot_back, d_scale_back, _ = nets.deform_back(means3d.detach(), M_t, mode)
-        n_live = gs.alive.sum()
+        n_live = _sum(gs.alive.sum(), dm)
 
         def masked_l1(a, b):
             # |diff| with jnp.abs's gradient, +1 at 0 (JAX's cycle loss;
             # torch.abs gives 0 there): on the first non-warm iteration the
             # zero-initialised heads make every diff exactly 0
             diff = torch.where(gs.alive[:, None], a - b, 0.0)
-            return torch.where(diff >= 0, diff, -diff).sum() / (n_live * a.shape[-1]).clamp_min(1)
+            num = _sum(torch.where(diff >= 0, diff, -diff).sum(), dm)
+            return num / (n_live * a.shape[-1]).clamp_min(1)
 
         cyc = [masked_l1(-d_back, d_xyz), masked_l1(-d_rot_back, d_rot),
                masked_l1(-d_scale_back, d_scale)]
@@ -282,16 +332,17 @@ def loss_and_aux(ctx: StepContext, gp: G.GaussianParams, nets: NetParams, screen
         mesh, mesh_diag = extract_mesh(ctx, gp, gs, d_xyz, d_normal, flags.freeze_pos,
                                        with_diag=True)
         aux.update(mesh_diag)
-        vtx_color = _mesh_colors(nets, mesh.verts, mesh.vert_valid, batch.fid, mode)
-        # one verts[faces] gather shared by the raster and the Laplacian, of
-        # the valid faces (a prefix) only: the padding faces all point at
-        # vertex 0, and their gather's backward would pile on it
-        nf = int(mesh.n_faces)
-        tri_w = mesh.verts.new_zeros(mesh.faces.shape + (3,))
-        tri_w[:nf] = mesh.verts[mesh.faces[:nf]]
-        mout = MR.render_mesh(mesh.verts, mesh.faces, mesh.face_valid, vtx_color,
-                              batch.mesh_pose, batch.mesh_proj, batch.bg, ctx.mr_cfg,
-                              want_soft=True, tri_w=tri_w)
+        if dm is None:
+            vtx_color = _mesh_colors(nets, mesh.verts, mesh.vert_valid, batch.fid, mode)
+            # one verts[faces] gather shared by the raster and the Laplacian,
+            # of the valid faces (a prefix) only: the padding faces all point
+            # at vertex 0, and their gather's backward would pile on it
+            tri_w = _valid_corners(mesh.verts, mesh.faces, mesh.face_valid)
+            mout = MR.render_mesh(mesh.verts, mesh.faces, mesh.face_valid, vtx_color,
+                                  batch.mesh_pose, batch.mesh_proj, batch.bg, ctx.mr_cfg,
+                                  want_soft=True, tri_w=tri_w)
+        else:
+            mesh, tri_w, vtx_color, mout = _mesh_render_sharded(ctx, nets, mesh, batch, mode)
         # straight-through mask: the hard coverage value, the soft gradient
         mask = mout["st_mask"]
         mesh_image = mout["rgb"].permute(2, 0, 1)
@@ -312,9 +363,10 @@ def loss_and_aux(ctx: StepContext, gp: G.GaussianParams, nets: NetParams, screen
     # through means3d (into the deform net and xyz); the n-1 term is a
     # constant, as tests/test_anchor_gradient_parity.py pins
     if flags.anchor and anchor_info is not None:
+        # with a device mesh, anchor_info holds the rank's rows
         w = anchor_info.gauss_1_1_mask
         d2 = ((means3d - anchor_info.centroid_of_gaussian) ** 2).sum(-1)
-        a11 = torch.where(w, d2, 0.0).sum() / w.sum().clamp_min(1)
+        a11 = _sum(torch.where(w, d2, 0.0).sum(), dm) / _sum(w.sum(), dm).clamp_min(1)
         losses["anchor_loss"] = (a11 + anchor_info.loss_n_1) * 0.1
 
     # --- GS image loss (train.py:306-312)
@@ -326,6 +378,44 @@ def loss_and_aux(ctx: StepContext, gp: G.GaussianParams, nets: NetParams, screen
         total = total + v
     aux["losses"] = {k: v.detach() for k, v in losses.items()}
     return total, aux
+
+
+def _valid_corners(verts, faces, face_valid):
+    """verts[faces] (F,3,3) of the valid faces, zeros elsewhere."""
+    idx = torch.nonzero(face_valid).squeeze(1)
+    tri_w = verts.new_zeros(faces.shape + (3,))
+    tri_w[idx] = verts[faces[idx]]
+    return tri_w
+
+
+def _mesh_render_sharded(ctx: StepContext, nets, mesh, batch: Batch, mode: str):
+    """The mesh colours and render on one rank of ``ctx.device_mesh``.
+
+    ``mesh`` is the rank's block where the marching tets ran sharded (its
+    colours are computed there and gathered), else the whole mesh (coloured
+    whole on every rank).  The raster takes the rank's block of the face
+    axis where the face capacity divides by n, else renders whole.  Returns
+    the whole mesh, its valid faces' corners (for the Laplacian), the
+    vertex colours and the render."""
+    dm = ctx.device_mesh
+    blocked = ctx.mt_cfg.res % dm.world == 0
+    vtx_color = _mesh_colors(nets, mesh.verts, mesh.vert_valid, batch.fid, mode)
+    block = mesh
+    if blocked:
+        vtx_color = all_gather(vtx_color, dm)
+        mesh = stitch(mesh, dm)
+    tri_w = _valid_corners(mesh.verts, mesh.faces, mesh.face_valid)
+    args = (batch.mesh_pose, batch.mesh_proj, batch.bg, ctx.mr_cfg)
+    if blocked or mesh.faces.shape[0] % dm.world == 0:
+        faces, fvalid = ((block.faces, block.face_valid) if blocked
+                         else (rows_of(mesh.faces, dm), rows_of(mesh.face_valid, dm)))
+        mout = render_mesh_sharded(dm, mesh.verts, faces, fvalid, vtx_color, *args,
+                                   want_soft=True,
+                                   tri_w=_valid_corners(mesh.verts, faces, fvalid))
+    else:
+        mout = MR.render_mesh(mesh.verts, mesh.faces, mesh.face_valid, vtx_color, *args,
+                              want_soft=True, tri_w=tri_w)
+    return mesh, tri_w, vtx_color, mout
 
 
 class Grads(NamedTuple):
@@ -353,32 +443,43 @@ def backward(loss: torch.Tensor, gp: G.GaussianParams, nets: NetParams,
 def loss_and_grads(ctx: StepContext, state: TrainState, batch: Batch, flags: StepFlags,
                    gen: Optional[torch.Generator] = None, anchor_info=None):
     """The forward (``loss_and_aux``) and the backward of one step, from
-    ``state`` (which is not modified).  Returns (loss, aux, Grads)."""
+    ``state`` (which is not modified).  Returns (loss, aux, Grads).  With a
+    device mesh, the rank's gradients: its own rows', and its part of the
+    replicated leaves' (``sanitize`` sums those)."""
     M = state.gp.xyz.shape[0]
     gp = G.GaussianParams(*[x.detach().requires_grad_(True) for x in state.gp])
     screen = state.gp.xyz.new_zeros((M, 2), requires_grad=True)
     loss, aux = loss_and_aux(ctx, gp, state.nets, screen, state.gs, batch,
                              state.step.to(torch.float32), flags, gen, anchor_info)
-    return loss.detach(), aux, backward(loss, gp, state.nets, screen)
+    seed = replicated_backward_scale(ctx.device_mesh)
+    return loss.detach(), aux, backward(loss * seed if seed != 1.0 else loss, gp, state.nets,
+                                        screen)
 
 
-def sanitize(grads: Grads):
+def sanitize(grads: Grads, device_mesh=None):
     """Zero every gradient leaf that holds a non-finite value, and count them
-    (JAX's sanitiser, dgmesh_tpu/train/step.py:410-431).  No host sync."""
-    bad = torch.zeros((), dtype=torch.int32, device=grads.screen.device)
+    (JAX's sanitiser, dgmesh_tpu/train/step.py:410-431).  No host sync.
 
-    def clean(leaves):
-        nonlocal bad
-        out = []
-        for g in leaves:
-            ok = torch.isfinite(g).all()
-            bad = bad + (~ok).to(torch.int32)
-            out.append(torch.where(ok, g, 0.0))
-        return out
-
-    gp = G.GaussianParams(*clean(grads.gp))
-    nets = NetParams(*[clean(g) for g in grads.nets])
-    return grads._replace(gp=gp, nets=nets), bad
+    With a device mesh, the replicated leaves' gradients (the nets',
+    ``density_thres``') are first summed over the ranks, and a row leaf is
+    non-finite where any rank's rows are."""
+    n = len(grads.gp)
+    leaves = list(grads.gp) + [g for net in grads.nets for g in net]
+    if device_mesh is not None:
+        dt = G.GaussianParams._fields.index("density_thres")
+        leaves = [psum(g, device_mesh) if i >= n or i == dt else g
+                  for i, g in enumerate(leaves)]
+    ok = torch.stack([torch.isfinite(g).all() for g in leaves])
+    if device_mesh is not None:
+        ok = pmin(ok.to(torch.int32), device_mesh).bool()
+    bad = (~ok).sum().to(torch.int32)
+    clean = [torch.where(o, g, 0.0) for o, g in zip(ok, leaves)]
+    gp = G.GaussianParams(*clean[:n])
+    nets, i = [], n
+    for g in grads.nets:
+        nets.append(clean[i:i + len(g)])
+        i += len(g)
+    return grads._replace(gp=gp, nets=NetParams(*nets)), bad
 
 
 def apply_updates(ctx: StepContext, state: TrainState, aux, grads: Grads,
@@ -429,11 +530,15 @@ def train_step(ctx: StepContext, state: TrainState, batch: Batch, flags: StepFla
     """One optimisation step (dgmesh_tpu/train/step.py::train_step); returns
     (new_state, metrics).  ``state`` is not modified, so a step can be taken
     again from it; ``gen`` draws the time noise of non-blender data;
-    ``anchor_info`` feeds the anchor loss on an anchor iteration."""
+    ``anchor_info`` feeds the anchor loss on an anchor iteration.  With
+    ``ctx.device_mesh``, every rank calls it with its part of the state
+    (parallel/sharding.py::shard_state) and gets its part of the new state;
+    the metrics are global."""
     loss, aux, grads = loss_and_grads(ctx, state, batch, flags, gen, anchor_info)
-    grads, nonfinite = sanitize(grads)
+    grads, nonfinite = sanitize(grads, ctx.device_mesh)
     new_state = apply_updates(ctx, state, aux, grads, flags)
     metrics = dict(loss=loss, **aux["losses"], img_psnr=aux["img_psnr"],
-                   n_alive=new_state.gs.alive.sum(), nonfinite_grad_leaves=nonfinite)
+                   n_alive=_sum(new_state.gs.alive.sum(), ctx.device_mesh),
+                   nonfinite_grad_leaves=nonfinite)
     metrics.update({k: aux[k] for k in METRIC_KEYS if k in aux})
     return new_state, metrics

@@ -141,8 +141,13 @@ def _port_files():
 
 
 def test_import_scan_covers_the_driver():
-    """The scan reads the CLIs, the data readers and the eval modules."""
+    """The scan reads the CLIs, the data readers, the eval modules, the
+    multi-device modules and the entry module."""
     names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {"dgmesh_torch/parallel/sharding.py", "dgmesh_torch/parallel/sharded_splat.py",
+            "dgmesh_torch/parallel/sharded_mr.py", "dgmesh_torch/parallel/sharded_dpsr.py",
+            "dgmesh_torch/parallel/sharded_mt.py", "dgmesh_torch/graft_entry.py",
+            "dgmesh_torch/ops/rigid.py"} <= names
     assert {"dgmesh_torch/cli/train.py", "dgmesh_torch/cli/render_test.py",
             "dgmesh_torch/cli/render_trajectory.py", "dgmesh_torch/cli/mesh_evaluation.py",
             "dgmesh_torch/data/readers.py", "dgmesh_torch/data/scene.py",

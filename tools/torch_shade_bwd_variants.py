@@ -142,13 +142,20 @@ def build(sources, out_dir):
     return out
 
 
+def tile0_args(lib):
+    """(0,) for a version whose launchers take the tile offset tile0 (it
+    exports ``takes_tile0``), else (): older versions lack the argument."""
+    return (0,) if hasattr(lib, "takes_tile0") else ()
+
+
 def launcher(torch, lib, res):
     """The version's launch on (attrs, g_rgb, g_soft, geometry), through
     its residual entry point with ``res`` where it has one."""
     with_res = hasattr(lib, "shade_bwd_res_launch")
     fn = lib.shade_bwd_res_launch if with_res else lib.shade_bwd_launch
     res = res if with_res else ()
-    fn.argtypes = ([ctypes.c_void_p] * (4 + len(res)) + [ctypes.c_int] * 5
+    t0 = tile0_args(lib)
+    fn.argtypes = ([ctypes.c_void_p] * (4 + len(res)) + [ctypes.c_int] * (5 + len(t0))
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
 
@@ -157,7 +164,8 @@ def launcher(torch, lib, res):
         d = torch.empty_like(attrs)
         err = fn(attrs.data_ptr(), g_rgb.data_ptr(), g_soft.data_ptr(),
                  *(x.data_ptr() for x in res), d.data_ptr(), T, K,
-                 tiles_x, tile_h, tile_w, float(sigma), torch.cuda.current_stream().cuda_stream)
+                 tiles_x, tile_h, tile_w, *t0, float(sigma),
+                 torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"shade_bwd_launch failed with cudaError {err}")
         return d
@@ -320,7 +328,9 @@ def shade_fwd_launcher(torch, lib):
     """The version's kernel 3 on (attrs, geometry) → (rgb, hard, soft, fid)
     and, with ``residuals``, (win, M)."""
     fn = lib.shade_tiles_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    t0 = tile0_args(lib)
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * (5 + len(t0))
+                   + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
 
     def run(attrs, tiles_x, tile_h, tile_w, sigma, residuals=False):
@@ -333,7 +343,7 @@ def shade_fwd_launcher(torch, lib):
                 torch.empty((T, P), **f32)) if residuals else ())
         err = fn(attrs.data_ptr(), *(x.data_ptr() for x in out),
                  *([x.data_ptr() for x in res] or [None, None]),
-                 T, K, tiles_x, tile_h, tile_w, float(sigma),
+                 T, K, tiles_x, tile_h, tile_w, *t0, float(sigma),
                  torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"shade_tiles_launch failed with cudaError {err}")
@@ -410,7 +420,9 @@ def composite_launcher(torch, lib, res):
     with_res = hasattr(lib, "composite_bwd_res_launch")
     fn = lib.composite_bwd_res_launch if with_res else lib.composite_bwd_launch
     res = res if with_res else ()
-    fn.argtypes = [ctypes.c_void_p] * (4 + len(res)) + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    t0 = tile0_args(lib)
+    fn.argtypes = ([ctypes.c_void_p] * (4 + len(res)) + [ctypes.c_int] * (5 + len(t0))
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
 
     def run(attrs, g_rgb, g_alpha, tiles_x, tile_h, tile_w):
@@ -418,7 +430,7 @@ def composite_launcher(torch, lib, res):
         d = torch.empty_like(attrs)
         err = fn(attrs.data_ptr(), g_rgb.data_ptr(), g_alpha.data_ptr(),
                  *(x.data_ptr() for x in res), d.data_ptr(), T, K, tiles_x, tile_h, tile_w,
-                 torch.cuda.current_stream().cuda_stream)
+                 *t0, torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"composite_bwd launch failed with cudaError {err}")
         return d
@@ -461,7 +473,9 @@ def composite_fwd_launcher(torch, lib, with_s):
     """The version's kernel 1 on (attrs, geometry) → (rgb, alpha, S or
     None); S is asked for only where ``s_out`` and the version has it."""
     fn = lib.composite_tiles_launch
-    fn.argtypes = [ctypes.c_void_p] * (4 if with_s else 3) + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    t0 = tile0_args(lib)
+    fn.argtypes = ([ctypes.c_void_p] * (4 if with_s else 3) + [ctypes.c_int] * (5 + len(t0))
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
 
     def run(attrs, tiles_x, tile_h, tile_w, s_out=False):
@@ -472,7 +486,8 @@ def composite_fwd_launcher(torch, lib, with_s):
         S = torch.empty_like(alpha) if s_out and with_s else None
         ptrs = [attrs.data_ptr(), rgb.data_ptr(), alpha.data_ptr()]
         ptrs += [S.data_ptr() if S is not None else None] if with_s else []
-        err = fn(*ptrs, T, K, tiles_x, tile_h, tile_w, torch.cuda.current_stream().cuda_stream)
+        err = fn(*ptrs, T, K, tiles_x, tile_h, tile_w, *t0,
+                 torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"composite_tiles_launch failed with cudaError {err}")
         return rgb, alpha, S
