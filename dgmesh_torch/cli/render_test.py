@@ -7,7 +7,7 @@ Loads the checkpoint (the latest, or --iteration) and the config the run
 stored (cfg_args.json), renders the GS and mesh images of the test
 cameras, writes them with the meshes, prints the metrics, and writes the
 side-by-side GT | mesh GIF (test.gif) where imageio is installed (the
-port's own PNG reader reads the renders back).
+renders read back by ``utils_io.read_png``).
 """
 
 from __future__ import annotations

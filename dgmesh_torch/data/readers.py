@@ -6,9 +6,10 @@ scene/dataset_readers.py): ``PointCloud``, ``SceneInfo`` and
 sceneLoadTypeCallbacks (:995-1004): Colmap (:113-259), Blender / D-NeRF
 (:262-352), finetune-nerf (:355-453), DTU (:456-542), Nerfies (:545-677),
 iPhone (:680-800), NeuralActor (:803-905) and PlenopticVideo (:908-992).
-Images and masks are read by the port's own PNG reader (utils_io.py), which
-gives Pillow's arrays (a palette mask's indices, a SAM mask's L or 1-bit
-values); a file of another format goes through Pillow where it imports.
+Images and masks are read as JAX reads them, through Pillow where it
+imports; without Pillow a PNG goes to the port's own reader
+(utils_io.decode_png), which gives Pillow's arrays (a palette mask's
+indices, a SAM mask's L or 1-bit values).
 The ``downsample`` of the Blender and finetune-nerf readers is Pillow's
 LANCZOS resize, as data/resize.py reproduces it.
 """

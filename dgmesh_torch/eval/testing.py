@@ -28,7 +28,7 @@ from ..ops import losses as L
 from ..ops import mesh_raster as MR
 from ..ops import splat
 from ..train.step import StepContext, _deform_all, _mesh_colors, extract_mesh, make_batch
-from ..utils_io import decode_png, save_image, write_mesh_ply
+from ..utils_io import png_array, save_image, write_mesh_ply
 from .lpips_torch import lpips_available, rgb_lpips
 
 
@@ -77,7 +77,7 @@ def pointcloud_scatter_render(points: np.ndarray, cam, out_path: str = None,
     """Matplotlib scatter render of a Gaussian point cloud from a camera
     (dgmesh_tpu/eval/testing.py::pointcloud_scatter_render; the reference's
     utils/renderer.py pointcloud_renderer :322-374).  Returns (H,W,3) float
-    in [0,1]; the figure is decoded by the port's own PNG reader.  Needs
+    in [0,1]; the figure's PNG is decoded by ``utils_io.png_array``.  Needs
     matplotlib, which it imports here."""
     import io
 
@@ -101,7 +101,7 @@ def pointcloud_scatter_render(points: np.ndarray, cam, out_path: str = None,
     buf = io.BytesIO()
     fig.savefig(buf, format="png")
     plt.close(fig)
-    img = decode_png(buf.getvalue()).astype(np.float32)[..., :3] / 255.0
+    img = png_array(buf.getvalue()).astype(np.float32)[..., :3] / 255.0
     if out_path:
         save_image(out_path, img)
     return img

@@ -1,17 +1,18 @@
 """Mesh and image files: OBJ, binary PLY meshes and PNG images.
 
 A copy of ``dgmesh_tpu/utils_io.py`` (the reference exports meshes through
-trimesh/open3d and images through imageio, train.py:323-423), with a PNG
-codec of its own in place of Pillow: ``zlib`` and numpy.  The reader gives
-the array ``np.asarray(PIL.Image.open(p))`` gives for every non-interlaced
-PNG: each colour type and bit depth, every filter type (Pillow's modes
-below).  The writer filters each row with "Up" (type 2) and writes 8-bit
-grey, RGB, RGBA or, given a palette, palette images.  ``read_image`` reads
-a file of another format through Pillow where Pillow imports.
+trimesh/open3d and images through imageio, train.py:323-423).  An image is
+read as JAX's readers read it, ``np.asarray(PIL.Image.open(p))``, through
+Pillow where Pillow imports; without Pillow a PNG goes to the port's own
+reader, ``decode_png`` (``zlib`` and numpy), which gives the same array for
+every PNG: each colour type and bit depth, every filter type, interlaced or
+not (Pillow's modes below).  The writer filters each row with "Up" (type
+2) and writes 8-bit grey, RGB, RGBA or, given a palette, palette images.
 """
 
 from __future__ import annotations
 
+import io
 import os
 import struct
 import zlib
@@ -149,61 +150,138 @@ def write_png(path: str, img: np.ndarray, palette: np.ndarray = None):
         f.write(_chunk(b"IEND", b""))
 
 
-def _unfilter(data: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
-    """Undo the per-row filters (PNG spec §9): None, Sub, Up, Average, Paeth;
-    ``bpp`` is the filter's byte distance (1 below 8 bits a pixel), which
-    divides ``stride``."""
+# Adam7's seven passes: (first row, first column, row step, column step)
+_ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4), (2, 0, 4, 2), (0, 1, 2, 2),
+          (1, 0, 2, 1))
+
+
+def _unfilter(rows: np.ndarray, bpp: int) -> np.ndarray:
+    """Undo the per-row filters (PNG spec §9) of ``rows`` (h, 1 + stride):
+    each row's filter byte, then its bytes.  ``bpp`` is the filter's byte
+    distance (1 below 8 bits a pixel), which divides the stride."""
+    ft = rows[:, 0]
+    if ft.max(initial=0) > 4:
+        raise ValueError(f"PNG: unknown filter type {int(ft.max())}")
+    if (ft >= 3).any():
+        return _unfilter_diagonals(rows[:, 1:], ft, bpp)
+    h, stride = rows.shape[0], rows.shape[1] - 1
     out = np.zeros((h, stride), np.uint8)
     prior = np.zeros(stride, np.int32)
-    rows = data[:h * (stride + 1)].reshape(h, stride + 1)
-    for y in range(h):
-        ft, line = int(rows[y, 0]), rows[y, 1:].astype(np.int32)
-        if ft == 0:
+    for y in range(h):                           # None, Sub and Up: a row at a time
+        f, line = ft[y], rows[y, 1:].astype(np.int32)
+        if f == 0:
             cur = line
-        elif ft == 1:                                # Sub: running sums per channel
+        elif f == 1:                             # Sub: running sums per channel
             cur = np.cumsum(line.reshape(-1, bpp), axis=0).reshape(-1) & 0xFF
-        elif ft == 2:
-            cur = (line + prior) & 0xFF
-        elif ft in (3, 4):                           # Average, Paeth: left to right
-            cur = line.copy()
-            left = np.zeros(bpp, np.int32)
-            upleft = np.zeros(bpp, np.int32)
-            for x in range(0, stride, bpp):
-                up = prior[x:x + bpp]
-                if ft == 3:
-                    pred = (left + up) >> 1
-                else:
-                    p = left + up - upleft
-                    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
-                    pred = np.where((pa <= pb) & (pa <= pc), left,
-                                    np.where(pb <= pc, up, upleft))
-                left = (cur[x:x + bpp] + pred) & 0xFF
-                cur[x:x + bpp] = left
-                upleft = up
         else:
-            raise ValueError(f"PNG: unknown filter type {ft}")
+            cur = (line + prior) & 0xFF
         out[y] = cur
-        prior = cur.astype(np.int32)
+        prior = cur
     return out
 
 
+def _unfilter_diagonals(raw: np.ndarray, ft: np.ndarray, bpp: int) -> np.ndarray:
+    """``_unfilter`` of a file with Average or Paeth rows.  Pixel (y, x)
+    (``bpp`` bytes) depends on (y, x-1), (y-1, x) and (y-1, x-1), so every
+    pixel on one anti-diagonal y + x = d is found in one vector step, whatever
+    its row's filter: h + n - 1 steps for n pixels a row.  The bytes are kept
+    skewed, diagonal-major: row y of diagonal d at ``diag[d + 2, y + 1]``,
+    with a zero diagonal and a zero row before the first ones."""
+    h, n = raw.shape[0], raw.shape[1] // bpp
+    y, x = np.ogrid[:h, :n]
+    skew = np.zeros((h + n - 1, h, bpp), np.uint8)
+    skew[y + x, y] = raw.reshape(h, n, bpp)
+    diag = np.zeros((h + n + 1, h + 1, bpp), np.uint8)
+    kinds = ft[:, None]
+    for d in range(h + n - 1):
+        lo, hi = max(0, d - n + 1), min(h, d + 1)
+        left = diag[d + 1, lo + 1:hi + 1].astype(np.int16)
+        up = diag[d + 1, lo:hi].astype(np.int16)
+        upleft = diag[d, lo:hi].astype(np.int16)
+        pa, pb = np.abs(up - upleft), np.abs(left - upleft)
+        pc = np.abs(left + up - 2 * upleft)
+        paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+        k = kinds[lo:hi]
+        pred = np.where(k == 4, paeth, np.where(k == 3, (left + up) >> 1, np.where(
+            k == 2, up, np.where(k == 1, left, 0))))
+        diag[d + 2, lo + 1:hi + 1] = skew[d, lo:hi] + pred.astype(np.uint8)   # mod 256
+    return diag[y + x + 2, y + 1].reshape(h, n * bpp)
+
+
+def _scanlines(data: np.ndarray, pos: int, h: int, w: int, bits: int, path: str):
+    """The unfiltered (h, stride) bytes of an h x w image at ``bits`` a pixel
+    that starts at ``data[pos]``, and the position after it."""
+    stride = (w * bits + 7) // 8
+    end = pos + h * (stride + 1)
+    if len(data) < end:
+        raise ValueError(f"{path}: the image data ends early ({len(data)} of {end} bytes)")
+    return _unfilter(data[pos:end].reshape(h, stride + 1), max(bits // 8, 1)), end
+
+
+def _samples(rows: np.ndarray, w: int, depth: int, ctype: int) -> np.ndarray:
+    """Unfiltered bytes (h, stride) → Pillow's array (``decode_png``)."""
+    h, ch = rows.shape[0], _COLOUR_TYPES[ctype][0]
+    if depth == 16:
+        if ctype == 0:                              # I;16: the samples as they are
+            return rows.view(">u2").astype(np.uint16).reshape(h, w)
+        img = rows[:, 0::2].reshape(h, w, ch)       # RGB;16B and the like: high bytes
+        if ctype == 4:                              # LA;16B: Pillow gives RGBA (L, L, L, A)
+            img = img[..., [0, 0, 0, 1]]
+    elif depth < 8:
+        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)   # the first pixel is high
+        v = ((rows[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(h, -1)[:, :w]
+        if ctype == 3:
+            return v
+        return v.astype(bool) if depth == 1 else (v * (255 // ((1 << depth) - 1))).astype(
+            np.uint8)
+    else:
+        img = rows.reshape(h, w, ch)
+    return img[..., 0] if ch == 1 else img
+
+
+def _pillow_image():
+    """Pillow's ``Image`` module, or None where Pillow does not import."""
+    try:
+        from PIL import Image
+    except ImportError:
+        return None
+    return Image
+
+
 def read_png(path: str) -> np.ndarray:
-    """A non-interlaced PNG → the array ``np.asarray(PIL.Image.open(path))``
-    gives (``decode_png``)."""
+    """A PNG file → ``np.asarray(PIL.Image.open(path))``, JAX's call: through
+    Pillow where it imports, else ``decode_png``.  A file that is no PNG
+    raises, naming it."""
     with open(path, "rb") as f:
-        return decode_png(f.read(), path)
+        blob = f.read()
+    if blob[:8] != _PNG_SIG:
+        raise ValueError(f"{path}: not a PNG file")
+    return png_array(blob, path)
+
+
+def png_array(blob: bytes, path: str = "<bytes>") -> np.ndarray:
+    """A PNG file's bytes → ``np.asarray(PIL.Image.open(...))``: through
+    Pillow where it imports, else ``decode_png``."""
+    Image = _pillow_image()
+    if Image is None:
+        return decode_png(blob, path)
+    with Image.open(io.BytesIO(blob)) as im:
+        return np.asarray(im)
 
 
 def decode_png(blob: bytes, path: str = "<bytes>") -> np.ndarray:
-    """``read_png`` of a PNG file's bytes; ``path`` names it in errors.
+    """The port's own PNG reader, for a machine without Pillow: a PNG file's
+    bytes → the array ``np.asarray(PIL.Image.open(...))`` gives; ``path``
+    names the file in errors.
 
     As Pillow's modes give them: grey at 8 bits (L) uint8 (H,W); at 1 bit
     (mode 1) bool; at 2 and 4 bits (L) uint8 scaled to 0-255 (×85, ×17);
     at 16 bits (I;16) uint16; a palette image (P, 1 to 8 bits) its indices,
     uint8 (H,W), the palette and any tRNS left aside; grey + alpha (LA)
     (H,W,2), RGB (H,W,3) and RGBA (H,W,4) uint8, at 16 bits their high
-    bytes (grey + alpha at 16 bits as RGBA: L, L, L, A).  An interlaced
-    (Adam7) file raises."""
+    bytes (grey + alpha at 16 bits as RGBA: L, L, L, A).  Every filter type,
+    and Adam7-interlaced files: each pass a sub-image of its own, unfiltered
+    and unpacked, then scattered into the image."""
     if blob[:8] != _PNG_SIG:
         raise ValueError(f"{path}: not a PNG file")
     pos, idat, hdr = 8, [], None
@@ -221,50 +299,38 @@ def decode_png(blob: bytes, path: str = "<bytes>") -> np.ndarray:
         elif tag == b"IEND":
             break
     w, h, depth, ctype, _, _, interlace = hdr
-    if ctype not in _COLOUR_TYPES or depth not in _COLOUR_TYPES[ctype][1]:
-        raise ValueError(f"{path}: not a valid PNG (bit depth {depth}, colour type {ctype})")
-    if interlace != 0:
-        raise ValueError(f"{path}: interlaced (Adam7) PNGs are not read (colour type {ctype}, "
-                         f"bit depth {depth}); save it without interlacing")
-    ch = _COLOUR_TYPES[ctype][0]
-    bits = depth * ch
-    stride = (w * bits + 7) // 8
+    if ctype not in _COLOUR_TYPES or depth not in _COLOUR_TYPES[ctype][1] or interlace > 1:
+        raise ValueError(f"{path}: not a valid PNG (bit depth {depth}, colour type {ctype}, "
+                         f"interlace method {interlace})")
+    bits = depth * _COLOUR_TYPES[ctype][0]
     data = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    rows = _unfilter(data, h, stride, max(bits // 8, 1))
-    if depth == 16:
-        if ctype == 0:                              # I;16: the samples as they are
-            return rows.view(">u2").astype(np.uint16).reshape(h, w)
-        img = rows[:, 0::2].reshape(h, w, ch)       # RGB;16B and the like: high bytes
-        if ctype == 4:                              # LA;16B: Pillow gives RGBA (L, L, L, A)
-            img = img[..., [0, 0, 0, 1]]
-    elif depth < 8:
-        per_byte = 8 // depth
-        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)   # the first pixel is high
-        v = ((rows[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(h, stride * per_byte)
-        v = v[:, :w]
-        if ctype == 3:
-            return v
-        return v.astype(bool) if depth == 1 else (v * (255 // ((1 << depth) - 1))).astype(
-            np.uint8)
-    else:
-        img = rows.reshape(h, w, ch)
-    return img[..., 0] if ch == 1 else img
+    if interlace == 0:
+        return _samples(_scanlines(data, 0, h, w, bits, path)[0], w, depth, ctype)
+    img, pos = None, 0
+    for y0, x0, dy, dx in _ADAM7:
+        ph, pw = (h - y0 + dy - 1) // dy, (w - x0 + dx - 1) // dx
+        if ph <= 0 or pw <= 0:                      # an empty pass has no scanlines at all
+            continue
+        rows, pos = _scanlines(data, pos, ph, pw, bits, path)
+        sub = _samples(rows, pw, depth, ctype)
+        if img is None:                             # pass 1 holds pixel (0, 0)
+            img = np.zeros((h, w) + sub.shape[2:], sub.dtype)
+        img[y0::dy, x0::dx] = sub
+    return img
 
 
 def read_image(path: str) -> np.ndarray:
-    """An image file as ``np.asarray(PIL.Image.open(path))``: a PNG by the
-    port's own reader; any other format (a JPEG of a Colmap scene, say)
-    through Pillow, which raises naming the file where Pillow is not
-    installed."""
+    """An image file as ``np.asarray(PIL.Image.open(path))``: through Pillow
+    where it imports; without Pillow a PNG by ``decode_png``, and any other
+    format (a JPEG of a Colmap scene, say) raises naming the file."""
     with open(path, "rb") as f:
         blob = f.read()
     if blob[:8] == _PNG_SIG:
-        return decode_png(blob, path)
-    try:
-        from PIL import Image
-    except ImportError as e:
+        return png_array(blob, path)
+    Image = _pillow_image()
+    if Image is None:
         raise ValueError(f"{path}: not a PNG, and Pillow, which would read it, is not "
-                         f"installed ({e})") from e
+                         f"installed")
     with Image.open(path) as im:
         return np.asarray(im)
 

@@ -105,23 +105,27 @@ def _png_with_filters(img, filters):
 @pytest.mark.parametrize("shape", [(37, 53), (37, 53, 3), (40, 29, 4)])
 def test_png_reader_undoes_every_filter_type_as_pillow(shape, tmp_path):
     """Rows filtered None, Sub, Up, Average and Paeth in turn: the port's
-    reader and Pillow both give the image back exactly."""
+    reader without Pillow (decode_png), read_png and Pillow all give the
+    image back exactly."""
     img = _image(shape, len(shape))
     p = tmp_path / "f.png"
     p.write_bytes(_png_with_filters(img, [0, 1, 2, 3, 4, 4, 3, 1]))
     np.testing.assert_array_equal(np.asarray(Image.open(p)), img)
     np.testing.assert_array_equal(TIO.read_png(str(p)), img)
+    np.testing.assert_array_equal(TIO.decode_png(p.read_bytes()), img)
 
 
 @pytest.mark.parametrize("shape", [(37, 53), (37, 53, 3), (40, 29, 4)])
 def test_png_codec_against_pillow_both_ways(shape, tmp_path):
-    """Pillow's file (its own filter choice) read by the port, and the
-    port's file read by Pillow: the same pixels."""
+    """Pillow's file (its own filter choice) read by the port, with Pillow
+    and without it (decode_png), and the port's file read by Pillow: the
+    same pixels."""
     img = _image(shape, 7)
     a, b = tmp_path / "pil.png", tmp_path / "port.png"
     Image.fromarray(img).save(a)
     TIO.write_png(str(b), img)
     np.testing.assert_array_equal(TIO.read_png(str(a)), img)
+    np.testing.assert_array_equal(TIO.decode_png(a.read_bytes()), img)
     np.testing.assert_array_equal(np.asarray(Image.open(b)), img)
 
 
@@ -137,18 +141,22 @@ def test_save_image_matches_jax_save_image(tmp_path):
 
 
 def test_png_reader_refuses_what_it_does_not_read(tmp_path):
-    """An interlaced (Adam7) PNG and a file that is no PNG raise, naming the
-    file (every other colour type and depth is read:
+    """A file that is no PNG raises, naming the file, with Pillow and
+    without it; an interlaced (Adam7) PNG is read, as Pillow reads it
+    (every colour type and depth, interlaced or not:
     test_torch_readers.py)."""
     from torch_capture_fixtures import build_png
     p = tmp_path / "i.png"
-    p.write_bytes(build_png(np.zeros((4, 4, 3), np.uint8), 8, 2, interlace=1))
-    with pytest.raises(ValueError, match="i.png: interlaced"):
-        TIO.read_png(str(p))
+    img = _image((4, 4, 3), 2)
+    p.write_bytes(build_png(img, 8, 2, interlace=1))
+    np.testing.assert_array_equal(TIO.read_png(str(p)), np.asarray(Image.open(p)))
+    np.testing.assert_array_equal(TIO.decode_png(p.read_bytes(), str(p)), img)
     q = tmp_path / "j.png"
     Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(q, format="JPEG")
     with pytest.raises(ValueError, match="j.png: not a PNG"):
         TIO.read_png(str(q))
+    with pytest.raises(ValueError, match="j.png: not a PNG"):
+        TIO.decode_png(q.read_bytes(), str(q))
 
 
 # --- PLY ------------------------------------------------------------------------

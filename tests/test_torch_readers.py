@@ -1,10 +1,11 @@
 """The port's real-capture data path against the JAX package's and Pillow:
 the eight dataset readers and ``Scene`` on the fixtures of
 tests/torch_capture_fixtures.py (cameras, images, masks and point clouds
-exactly), the PNG reader against ``np.asarray(PIL.Image.open(p))`` on every
-colour type, bit depth and filter type, ``lanczos_resize`` against
-Pillow's LANCZOS value for value, and reading every PNG dataset without
-Pillow."""
+exactly), the PNG reader without Pillow against
+``np.asarray(PIL.Image.open(p))`` on every colour type, bit depth and
+filter type, interlaced or not, PNGs read through Pillow where it imports,
+``lanczos_resize`` against Pillow's LANCZOS value for value, and reading
+every PNG dataset without Pillow."""
 
 import io
 import os
@@ -213,6 +214,72 @@ def test_png_reader_matches_pillow(ctype, depth, mode):
             np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("ctype,depth,mode", PNG_MODES, ids=lambda v: str(v))
+def test_interlaced_png_reader_matches_pillow(ctype, depth, mode, tmp_path):
+    """Adam7-interlaced PNGs of each colour type and bit depth, each pass's
+    rows filtered None, Sub, Up, Average and Paeth in turn, at 1x1 (six
+    empty passes), 3x5, 9x17 and 33x20: ``decode_png`` (the path without
+    Pillow) gives Pillow's array (values, dtype, shape), and ``read_png``
+    (through Pillow) the same."""
+    rng = np.random.default_rng(ctype * 100 + depth + 1)
+    ch = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[ctype]
+    for h, w in ((1, 1), (3, 5), (9, 17), (33, 20)):
+        samples = rng.integers(0, 1 << depth, (h, w) if ch == 1 else (h, w, ch))
+        pal = rng.integers(0, 256, 3 << depth) if ctype == 3 else None
+        blob = build_png(samples, depth, ctype, filters=(0, 1, 2, 3, 4, 4, 3, 1),
+                         palette=pal, interlace=1)
+        im = Image.open(io.BytesIO(blob))
+        assert im.mode == mode and im.info.get("interlace") == 1
+        want = np.asarray(im)
+        got = TIO.decode_png(blob)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+        p = tmp_path / f"{h}x{w}.png"
+        p.write_bytes(blob)
+        np.testing.assert_array_equal(TIO.read_png(str(p)), want)
+
+
+def _frame(h, w, seed):
+    """A smooth RGB ramp with noise, as a camera frame."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:h, :w]
+    base = np.stack([np.sin(xx / 37.0) * 80 + np.cos(yy / 23.0) * 60 + 120 + 10 * c
+                     for c in range(3)], -1)
+    return np.clip(base + rng.integers(0, 20, base.shape), 0, 255).astype(np.uint8)
+
+
+@pytest.mark.parametrize("name,ft", [("Paeth", 4), ("Average", 3)])
+def test_png_reader_reads_a_paeth_or_average_frame_as_pillow(name, ft):
+    """A 540x960 RGB frame with every row Paeth, or every row Average (the
+    filters whose rows run left to right): ``decode_png`` gives the frame
+    back, equal to Pillow's array."""
+    img = _frame(540, 960, ft)
+    blob = build_png(img, 8, 2, filters=(ft,))
+    got = TIO.decode_png(blob)
+    np.testing.assert_array_equal(got, np.asarray(Image.open(io.BytesIO(blob))))
+    np.testing.assert_array_equal(got, img)
+
+
+def test_png_goes_through_pillow_where_it_imports(tmp_path, monkeypatch):
+    """``read_png`` and ``read_image`` open a PNG with Pillow (JAX's call)
+    where Pillow imports, and never call ``decode_png``; with PIL blocked
+    they call ``decode_png``.  Both give the same array."""
+    img = _frame(19, 23, 5)
+    p = tmp_path / "f.png"
+    p.write_bytes(build_png(img, 8, 2, filters=(4, 3, 1), interlace=1))
+    calls = []
+    decode, pil_open = TIO.decode_png, Image.open
+    monkeypatch.setattr(TIO, "decode_png", lambda *a: calls.append("decode_png") or decode(*a))
+    monkeypatch.setattr(Image, "open", lambda *a: calls.append("Pillow") or pil_open(*a))
+    with_pil = [TIO.read_png(str(p)), TIO.read_image(str(p))]
+    assert calls == ["Pillow", "Pillow"]
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    without = [TIO.read_png(str(p)), TIO.read_image(str(p))]
+    assert calls == ["Pillow", "Pillow", "decode_png", "decode_png"]
+    for a in with_pil + without:
+        np.testing.assert_array_equal(a, img)
+
+
 def test_png_writer_palette_is_read_as_indices_by_both(tmp_path):
     """write_png with a palette: Pillow opens mode P with that palette, and
     both readers give the indices back."""
@@ -261,14 +328,15 @@ def test_lanczos_resize_refuses_what_pillow_would_not_resize_so():
 # --- without Pillow -------------------------------------------------------------------
 
 def test_png_datasets_read_without_pillow(fixtures):
-    """A fresh interpreter reads every PNG fixture through the port's Scene
-    (Blender at downsample 2 and resolution 2 too) and never imports PIL;
-    a JPEG frame (the text Colmap model's) raises naming the file when
-    Pillow cannot be imported."""
+    """A fresh interpreter with PIL blocked reads every PNG fixture through
+    the port's Scene (Blender at downsample 2 and resolution 2 too) and
+    never imports PIL; a JPEG frame (the text Colmap model's) raises naming
+    the file."""
     paths = {k: v for k, v in fixtures.items() if k != "Colmap (text)"}
     code = textwrap.dedent(f"""
         import sys
         sys.path.insert(0, {str(ROOT)!r})
+        sys.modules["PIL"] = None
         from dgmesh_torch.config import Config
         from dgmesh_torch.data.scene import Scene
         paths, types = {paths!r}, {DATA_TYPES!r}
@@ -279,8 +347,7 @@ def test_png_datasets_read_without_pillow(fixtures):
                 cfg.model.resolution, cfg.model.downsample = res, ds
                 s = Scene(cfg)
                 assert len(s.train_cameras) > 1, kind
-        assert "PIL" not in sys.modules
-        sys.modules["PIL"] = None
+        assert sys.modules["PIL"] is None and "PIL.Image" not in sys.modules
         cfg = Config()
         cfg.model.source_path = {fixtures["Colmap (text)"]!r}
         try:

@@ -39,12 +39,12 @@ def _pack_rows(samples, depth):
     return (s.astype(np.int64) << np.arange(8 - depth, -1, -depth)).sum(-1).astype(np.uint8)
 
 
-def _filter_rows(rows, bpp, filters):
-    """Row y filtered with filters[y % len(filters)] (PNG spec §9)."""
+def _filter_rows(rows, bpp, filters, first=0):
+    """Row y filtered with filters[(first + y) % len(filters)] (PNG spec §9)."""
     rows = rows.astype(np.int32)
     out = []
     for y, cur in enumerate(rows):
-        ft = filters[y % len(filters)]
+        ft = filters[(first + y) % len(filters)]
         up = rows[y - 1] if y else np.zeros_like(cur)
         left = np.concatenate([np.zeros(bpp, np.int32), cur[:-bpp]])
         upleft = np.concatenate([np.zeros(bpp, np.int32), up[:-bpp]])
@@ -64,21 +64,37 @@ def _filter_rows(rows, bpp, filters):
     return b"".join(out)
 
 
+# Adam7 (PNG spec §8.2): each pass's first row and column, row and column steps
+ADAM7 = [(0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4), (2, 0, 4, 2), (0, 1, 2, 2),
+         (1, 0, 2, 1)]
+
+
 def build_png(samples, depth, ctype, filters=(0, 1, 2, 3, 4), palette=None, trns=None,
               interlace=0):
     """PNG bytes of ``samples`` (H,W) or (H,W,C) at ``depth`` bits, colour
     type ``ctype``; ``palette`` a PLTE's (N*3,) bytes, ``trns`` a tRNS
-    chunk's.  An interlaced header is written with the rows as they are
-    (enough for a reader that must refuse it)."""
+    chunk's.  With ``interlace`` 1 the image data is Adam7's seven passes,
+    each a sub-image with rows, packing and filter bytes of its own (an
+    empty pass has none); the filters run on from one pass's rows to the
+    next."""
     h, w = samples.shape[:2]
     ch = 1 if samples.ndim == 2 else samples.shape[2]
-    rows = _pack_rows(samples.reshape(h, w * ch), depth)
+    bpp = max(depth * ch // 8, 1)
+    data, first = [], 0
+    for y0, x0, dy, dx in (ADAM7 if interlace else [(0, 0, 1, 1)]):
+        sub = samples[y0::dy, x0::dx]
+        ph, pw = sub.shape[:2]
+        if ph == 0 or pw == 0:
+            continue
+        data.append(_filter_rows(_pack_rows(sub.reshape(ph, pw * ch), depth), bpp, filters,
+                                 first))
+        first += ph
     body = _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, interlace))
     if palette is not None:
         body += _chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
     if trns is not None:
         body += _chunk(b"tRNS", trns)
-    body += _chunk(b"IDAT", zlib.compress(_filter_rows(rows, max(depth * ch // 8, 1), filters)))
+    body += _chunk(b"IDAT", zlib.compress(b"".join(data)))
     return b"\x89PNG\r\n\x1a\n" + body + _chunk(b"IEND", b"")
 
 
