@@ -126,6 +126,18 @@ Phases; any failure exits non-zero and prints no result:
                 build/, found through DGMESH_LPIPS_DIR for this phase only),
                 the four columns finite, each net timed at 800² and held
                 card vs CPU on a 256² crop;
+     7f: evaluation from a checkpoint: cli.evaluate (tools/
+                eval_from_checkpoint.py's port) on a copy of the fused run's
+                config and final checkpoint, loaded afresh, with
+                EVALUATE_MESHES 2 (t = 0 and 1, 7e's first and last frames,
+                against their two GT meshes) at EVALUATE_EMD_SAMPLES; the
+                launch counters zeroed just before and read just after
+                (kernels 1 and 3 once a test view: the render path and the
+                export apply the nets in float32, as JAX's, so a fused
+                checkpoint's nets launch no kernel 5 here); test_result.txt holds
+                run_testing's keys, all finite; the two meshes' V and F
+                within TOL_EVALUATE_MESH and their CD within TOL_EVALUATE_CD
+                of 7e's; its time;
      7b: the converging regime of tests/test_mesh_phase_learns.py
                 (420 iterations at 64², grid 24) trained by the port's
                 Trainer, with that test's four properties;
@@ -151,7 +163,12 @@ Phases; any failure exits non-zero and prints no result:
                 partial) and kernels 5-6 on its trunk calls at din 84, each
                 timed; render_frame of a 72x56 off-centre camera on the card
                 and the CPU (TOL_SMALL, faces equal); lanczos_resize of a
-                2704x2028 frame to 1600x1200 on the host, timed.  Gates:
+                2704x2028 frame to 1600x1200 on the host, timed; a 540x960
+                capture frame written as PNG with every row Paeth, every
+                row Average and Adam7-interlaced (png_file) and read by
+                utils_io.read_png through Pillow where it imports and with
+                PIL blocked (decode_png), each read timed and every array
+                equal to the frame.  Gates:
                 the driver's, mesh_overflow 0, every kernel within its
                 tolerance, all six launched;
   9. multi    — the multi-device step (dgmesh_torch/parallel) on bench.py's
@@ -191,6 +208,7 @@ import sys
 import time
 import traceback
 import warnings
+import zlib
 
 import numpy as np
 
@@ -363,6 +381,15 @@ TOL_EVAL_CD_REL = 1e-5
 TOL_EVAL_EMD_REL = 1e-4
 TOL_LPIPS_REL = 1e-4
 TOL_SHAPE_RENDER = 1e-5
+# phase 7f: cli.evaluate on the same checkpoint exports EVALUATE_MESHES 2
+# meshes, t = 0 and 1 (7e's first and last frames), held to 7e's V, F and CD:
+# the card's scatter order moves DPSR's phi by an ulp from run to run, which
+# can flip a tet's sign at the surface, so V and F within TOL_EVALUATE_MESH
+# relative (as TOL_RESUME_MESH) and the CD within TOL_EVALUATE_CD relative
+EVALUATE_MESHES = 2
+EVALUATE_EMD_SAMPLES = 2048
+TOL_EVALUATE_MESH = 1e-3
+TOL_EVALUATE_CD = 1e-3
 
 # phase 8 (real capture): the GT-mesh scene written in the layouts of the
 # real-capture readers at a portrait 540x960 (a width that is no multiple
@@ -383,6 +410,9 @@ CAPTURE_TRAIN, CAPTURE_VAL = 8, 2
 CAPTURE_DIN = 84          # real-capture nets: 63 position + 21 time lanes, no timenet
 CAPTURE_SMALL = (72, 56)  # the card-vs-CPU camera: neither side a multiple of 16
 RESIZE_FROM, RESIZE_TO = (2704, 2028), (1600, 1200)
+# ... and the host's PNG reads of a frame of that size, each file read
+# through Pillow where it imports and with PIL blocked (utils_io.decode_png)
+PNG_FILES = {"Paeth": (4, False), "Average": (3, False), "Adam7 Paeth": (4, True)}
 
 STRUCT_EXTENT = 2.75
 REFERENCE_OCC_RES = 256   # the reference's normal-init grid (VERDICT r5 #8), timed only
@@ -1654,8 +1684,12 @@ def main() -> int:
     log(f"# phase 7 (driver): {time.perf_counter() - t0:.2f} s")
     # 7e. evaluation (module 4) on the fused run's final checkpoint ---------
     t0 = time.perf_counter()
-    eval_phase(torch, dev, failures, counters, run_fused, data)
+    frames, pairs = eval_phase(torch, dev, failures, counters, run_fused, data)
     log(f"# phase 7e (eval): {time.perf_counter() - t0:.2f} s")
+    # 7f. evaluation from the checkpoint: cli.evaluate, held to 7e ---------
+    t0 = time.perf_counter()
+    evaluate_phase(torch, dev, failures, counters, run_fused, data, frames, pairs)
+    log(f"# phase 7f (cli.evaluate): {time.perf_counter() - t0:.2f} s")
     # 7b. the converging regime of tests/test_mesh_phase_learns.py ---------
     t0 = time.perf_counter()
     converging_phase(torch, dev, failures)
@@ -2645,6 +2679,147 @@ def eval_phase(torch, dev, failures, counters, run_dir, data):
             os.environ.pop("DGMESH_LPIPS_DIR", None)
         else:
             os.environ["DGMESH_LPIPS_DIR"] = saved
+    return frames, pairs
+
+
+def evaluate_phase(torch, dev, failures, counters, run_dir, data, frames, pairs):
+    """7f (module docstring)."""
+    import shutil
+    from dgmesh_torch.cli import evaluate as cli_eval
+    from dgmesh_torch.utils_io import read_mesh_ply
+    # the run's config and final checkpoint in a folder of their own (7e's
+    # files stay), and the dataset with the GT meshes of 7e's first and
+    # last frames, the export's t = 0 and 1 at EVALUATE_MESHES 2
+    run, src = (os.path.join(DRIVER_DIR, k) for k in ("evaluate_run", "evaluate_data"))
+    for d in (run, src):
+        shutil.rmtree(d, ignore_errors=True)
+    ckpt = os.path.join(run_dir, "checkpoint")
+    last = max(int(n[6:-3]) for n in os.listdir(ckpt) if n.startswith("state_")
+               and n.endswith(".pt"))
+    os.makedirs(os.path.join(run, "checkpoint"))
+    shutil.copy(os.path.join(run_dir, "cfg_args.json"), run)
+    shutil.copy(os.path.join(ckpt, f"state_{last}.pt"), os.path.join(run, "checkpoint"))
+    os.makedirs(os.path.join(src, "gt_eval"))
+    for name in os.listdir(data):
+        if name != "gt_eval":
+            os.symlink(os.path.join(data, name), os.path.join(src, name))
+    gts = sorted(x for x in os.listdir(os.path.join(data, "gt_eval")) if x.endswith(".obj"))
+    for name in (gts[0], gts[-1]):
+        os.symlink(os.path.join(data, "gt_eval", name), os.path.join(src, "gt_eval", name))
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with open(os.path.join(DRIVER_DIR, "evaluate.log"), "w") as f, \
+            contextlib.redirect_stdout(f):
+        results, got = cli_eval.main(["-m", run, "-s", src, "--n_meshes", str(EVALUATE_MESHES),
+                                      "--emd_samples", str(EVALUATE_EMD_SAMPLES)], device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    vf = [tuple(len(x) for x in read_mesh_ply(os.path.join(run, "meshes", f"mesh_{i:05d}.ply")))
+          for i in range(EVALUATE_MESHES)]
+    want_vf = [(fr["n_verts"], fr["n_faces"]) for fr in (frames[0], frames[-1])]
+    want_cd = [pairs[0][0], pairs[-1][0]]
+    d_mesh = max(abs(a - b) / b for g, w in zip(vf, want_vf) for a, b in zip(g, w))
+    d_cd = max(abs(g[0] - w) / w for g, w in zip(got, want_cd))
+    with open(os.path.join(run, "test_results", "test_result.txt")) as f:
+        written = dict(ln.split(": ", 1) for ln in f.read().splitlines())
+    n_views = sum(x.startswith("render_") for x in os.listdir(os.path.join(run, "test_results")))
+    ok_txt = (set(written) == set(results) and {"psnr", "ssim", "mesh_psnr", "mesh_ssim",
+                                                "fps"} <= set(written)
+              and all(math.isfinite(float(v)) for v in written.values()))
+    ok = (ok_txt and len(got) == EVALUATE_MESHES and d_mesh <= TOL_EVALUATE_MESH
+          and d_cd <= TOL_EVALUATE_CD and all(math.isfinite(x) for p in got for x in p)
+          and launches["composite_tiles"] == launches["shade_tiles"] == n_views)
+    log(f"# evaluate: cli.evaluate -m (state_{last}.pt) --n_meshes {EVALUATE_MESHES} "
+        f"--emd_samples {EVALUATE_EMD_SAMPLES}: test_result.txt {written}; V/F {vf} against 7e's "
+        f"frames 0 and {len(frames) - 1} {want_vf}, {d_mesh:.3g} relative (tol "
+        f"{TOL_EVALUATE_MESH}); CD {[p[0] for p in got]} against 7e's {want_cd}, {d_cd:.3g} "
+        f"relative (tol {TOL_EVALUATE_CD}); EMD {[p[1] for p in got]}; launches {launches} "
+        f"{'ok' if ok else 'FAIL'}")
+    log(f"# timing/evaluate: cli.evaluate {wall:.2f} s (checkpoint load, run_testing of "
+        f"{n_views} views at {IMG}², {EVALUATE_MESHES} meshes exported and evaluated); "
+        + card_line())
+    if not ok:
+        failures.append("evaluate: cli.evaluate (its files, V/F or CD against 7e, launches)")
+
+
+# --- phase 8's PNG frames, written independently of the port's writer and of
+# Pillow (which writes no Average, Paeth or interlaced file on request)
+
+ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4), (2, 0, 4, 2), (0, 1, 2, 2),
+         (1, 0, 2, 1))   # PNG spec §8.2: each pass's first row and column, row and column steps
+
+
+def png_frame(h: int, w: int, seed: int = 0) -> np.ndarray:
+    """A smooth RGB ramp with noise, (h, w, 3) uint8, as a camera frame."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:h, :w]
+    base = np.stack([np.sin(xx / 37.0) * 80 + np.cos(yy / 23.0) * 60 + 120 + 10 * c
+                     for c in range(3)], -1)
+    return np.clip(base + rng.integers(0, 20, base.shape), 0, 255).astype(np.uint8)
+
+
+def png_file(img: np.ndarray, ft: int, interlace: bool = False) -> bytes:
+    """An 8-bit RGB PNG of ``img`` with every row filtered ``ft`` (PNG spec
+    §9: 0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth); with ``interlace`` its
+    data is Adam7's passes, each a sub-image with its own rows."""
+    def chunk(tag, body):
+        return (len(body).to_bytes(4, "big") + tag + body
+                + (zlib.crc32(tag + body) & 0xFFFFFFFF).to_bytes(4, "big"))
+
+    data = []
+    for y0, x0, dy, dx in (ADAM7 if interlace else ((0, 0, 1, 1),)):
+        a = img[y0::dy, x0::dx].astype(np.int16)
+        if a.size == 0:
+            continue
+        left, up, ul = (np.zeros_like(a) for _ in range(3))
+        left[:, 1:], up[1:], ul[1:, 1:] = a[:, :-1], a[:-1], a[:-1, :-1]
+        pa, pb, pc = np.abs(up - ul), np.abs(left - ul), np.abs(left + up - 2 * ul)
+        pred = [0, left, up, (left + up) >> 1,
+                np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, ul))][ft]
+        rows = ((a - pred) & 0xFF).astype(np.uint8).reshape(len(a), -1)
+        data.append(np.concatenate([np.full((len(a), 1), ft, np.uint8), rows], 1).tobytes())
+    h, w = img.shape[:2]
+    hdr = w.to_bytes(4, "big") + h.to_bytes(4, "big") + bytes([8, 2, 0, 0, int(interlace)])
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", hdr)
+            + chunk(b"IDAT", zlib.compress(b"".join(data), 6)) + chunk(b"IEND", b""))
+
+
+@contextlib.contextmanager
+def pil_blocked():
+    """Pillow unimportable inside the block (a None entry in sys.modules)."""
+    saved = sys.modules.get("PIL")
+    sys.modules["PIL"] = None
+    try:
+        yield
+    finally:
+        if saved is None:
+            del sys.modules["PIL"]
+        else:
+            sys.modules["PIL"] = saved
+
+
+def png_read_times(read, files, img, repeats):
+    """Each PNG of ``files`` {name: path} read by ``read`` ``repeats``
+    times, Pillow's way where it imports and with PIL blocked: {name:
+    {way: median seconds}}, and whether every array equals ``img``."""
+    ways = [("Pillow" if importlib.util.find_spec("PIL") else "no Pillow",
+             contextlib.nullcontext), ("PIL blocked", pil_blocked)]
+    secs, same = {}, True
+    for name, path in files.items():
+        secs[name] = {}
+        for way, ctx in ways:
+            t = []
+            for _ in range(repeats):
+                with ctx():
+                    t0 = time.perf_counter()
+                    a = read(path)
+                    t.append(time.perf_counter() - t0)
+                same = same and a.dtype == img.dtype and np.array_equal(a, img)
+            secs[name][way] = statistics.median(t)
+    return secs, same
 
 
 def capture_phase(torch, dev, failures, counters, kernels):
@@ -2709,9 +2884,7 @@ def capture_phase(torch, dev, failures, counters, kernels):
     state = load_checkpoint(cfg, out, device=dev)
     ctx = StepContext(cfg, CAPTURE_W, CAPTURE_H, device=dev)
     bg = np.ones(3, np.float32)
-    saved_pil = sys.modules.get("PIL")
-    sys.modules["PIL"] = None
-    try:
+    with pil_blocked():
         t0 = time.perf_counter()
         nscene = Scene(cfg, shuffle=True, seed=6666)
         load_s = {"Nerfies": time.perf_counter() - t0}
@@ -2722,11 +2895,6 @@ def capture_phase(torch, dev, failures, counters, kernels):
             t0 = time.perf_counter()
             scenes[layout] = (ycfg, Scene(ycfg, shuffle=False))
             load_s[layout] = time.perf_counter() - t0
-    finally:
-        if saved_pil is None:
-            del sys.modules["PIL"]
-        else:
-            sys.modules["PIL"] = saved_pil
     for layout, (ycfg, scene) in scenes.items():
         yml = CAPTURE_YAMLS[layout]
         cam = scene.test_cameras[0]
@@ -2874,6 +3042,26 @@ def capture_phase(torch, dev, failures, counters, kernels):
         f"({', '.join(f'{v:.3f}' for v in secs)}); {os.cpu_count()} host cores")
     if small.shape != RESIZE_TO[::-1] + (3,):
         failures.append("capture: lanczos_resize shape")
+
+    # the host's PNG reads of a capture frame: Paeth, Average and Adam7 rows,
+    # through Pillow where it imports and with PIL blocked (decode_png)
+    from dgmesh_torch.utils_io import read_png
+    img = png_frame(CAPTURE_H, CAPTURE_W)
+    files = {}
+    for name, (ft, interlace) in PNG_FILES.items():
+        files[name] = os.path.join(CAPTURE_DIR, f"frame_{name.replace(' ', '_')}.png")
+        with open(files[name], "wb") as f:
+            f.write(png_file(img, ft, interlace))
+    secs, same = png_read_times(read_png, files, img, 3)
+    for name, t in secs.items():
+        log(f"# timing/capture PNG {name} {CAPTURE_W}x{CAPTURE_H} RGB "
+            f"({os.path.getsize(files[name])} bytes) read_png on the host: "
+            + ", ".join(f"{k} {v:.4f} s" for k, v in t.items()) + f" (median of 3); "
+            f"{os.cpu_count()} host cores")
+    log(f"# capture PNG reads: every array equal to the frame and to each other "
+        f"{'ok' if same else 'FAIL'}")
+    if not same:
+        failures.append("capture: a PNG read differs from its frame")
 
 
 def capture_small_check(torch, dev, failures):

@@ -90,10 +90,7 @@ def eval_pair(gt_path, pred_path, rotate, cam_origin=None, emd_samples=8192,
     return cd, emd
 
 
-def main(argv=None, device: Optional[str] = None):
-    """Evaluate a predicted mesh sequence against the GT one; ``device``
-    overrides --device.  Returns the per-frame (cd, emd) pairs."""
-    from ..device import resolve_device
+def parse(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description="dgmesh_torch mesh evaluation")
     parser.add_argument("--gt_dir", required=True,
                         help="directory of per-frame GT .obj meshes")
@@ -106,7 +103,14 @@ def main(argv=None, device: Optional[str] = None):
     parser.add_argument("--out", default="eval_results.txt")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to run on (default cuda; 'cpu' on request)")
-    args = parser.parse_args(argv)
+    return parser.parse_args(argv)
+
+
+def main(argv=None, device: Optional[str] = None):
+    """Evaluate a predicted mesh sequence against the GT one; ``device``
+    overrides --device.  Returns the per-frame (cd, emd) pairs."""
+    from ..device import resolve_device
+    args = parse(argv)
     dev = resolve_device(device or args.device)
 
     cam_origin = camera_origin(args.transforms) if args.transforms else None

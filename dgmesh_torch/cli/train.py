@@ -69,7 +69,7 @@ def main(argv=None, device: Optional[str] = None):
     """Train from the command line ``argv``; ``device`` overrides --device."""
     from ..data.scene import Scene
     from ..device import resolve_device
-    from ..eval.testing import export_dynamic_meshes, run_testing
+    from ..eval.testing import export_dynamic_meshes, run_testing, write_test_results
     from ..train.checkpoint import load_checkpoint, save_checkpoint
     from ..train.loop import Trainer
 
@@ -117,11 +117,7 @@ def main(argv=None, device: Optional[str] = None):
     results = None
     if scene.test_cameras:             # reference train.py:540-555 → testing()
         results = run_testing(cfg, trainer, scene)
-        out = os.path.join(cfg.model.model_path, "test_results")
-        os.makedirs(out, exist_ok=True)
-        with open(os.path.join(out, "test_result.txt"), "w") as f:
-            for k, v in results.items():
-                f.write(f"{k}: {v}\n")
+        write_test_results(results, os.path.join(cfg.model.model_path, "test_results"))
         print("Test results:", results, flush=True)
     if args.export_meshes > 0:         # reference train.py:389-423
         export_dynamic_meshes(cfg, trainer, scene, os.path.join(cfg.model.model_path, "meshes"),

@@ -134,6 +134,18 @@ def export_dynamic_meshes(cfg: Config, trainer, scene, out_dir: str, n_frames: i
     return frames
 
 
+def write_test_results(results: Dict[str, float], out_dir: str) -> str:
+    """``out_dir/test_result.txt``, one ``key: value`` line a metric of
+    ``run_testing``'s results, as ``tools/make_quality_md.py`` reads it;
+    returns its path."""
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "test_result.txt")
+    with open(path, "w") as f:
+        for k, v in results.items():
+            f.write(f"{k}: {v}\n")
+    return path
+
+
 @torch.no_grad()
 def run_testing(cfg: Config, trainer, scene, save_dir: str = None,
                 with_mesh: bool = True) -> Dict[str, float]:

@@ -13,6 +13,8 @@ itself is held to JAX's in test_torch_trainer.py.
 import importlib.util
 import json
 import os
+import shutil
+import subprocess
 import sys
 from pathlib import Path
 
@@ -24,6 +26,7 @@ import yaml
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
+from dgmesh_torch.cli import evaluate as cli_eval  # noqa: E402
 from dgmesh_torch.cli import mesh_evaluation as cli_meval  # noqa: E402
 from dgmesh_torch.cli import render_test as cli_render  # noqa: E402
 from dgmesh_torch.cli import render_trajectory as cli_traj  # noqa: E402
@@ -304,6 +307,154 @@ def test_mesh_evaluation_of_the_gt_against_itself(trained, tmp_path):
                             "none", "--emd_samples", "64", "--out", str(tmp_path / "e.txt")],
                            device="cpu")
     assert len(pairs) == EVAL_FRAMES and all(cd < 1e-6 for cd, _ in pairs)
+
+
+# --- evaluation from a checkpoint and the quality recipe ------------------------
+
+EVAL_ARGV = ["--n_meshes", "2", "--emd_samples", "64", "--device", "cpu"]
+
+
+def _copy_run(trained, dst):
+    """What cli.evaluate and make_quality_md read of the run (its config,
+    checkpoints and log) in a folder of its own: the run's files stay as
+    cli.train left them."""
+    shutil.copytree(Path(trained["out"]) / "checkpoint", dst / "checkpoint")
+    for name in ("cfg_args.json", "train_log.jsonl"):
+        shutil.copy(Path(trained["out"]) / name, dst / name)
+    return str(dst)
+
+
+def _timeless(results):
+    return {k: v for k, v in results.items() if k != "fps"}
+
+
+@pytest.fixture(scope="module")
+def evaluated(trained, tmp_path_factory):
+    """cli.evaluate -m COPY -s DATA --n_meshes 2 --emd_samples 64 --device cpu
+    on a copy of the run."""
+    run = _copy_run(trained, tmp_path_factory.mktemp("evaluated"))
+    results, pairs = cli_eval.main(["-m", run, "-s", trained["data"]] + EVAL_ARGV)
+    return dict(run=Path(run), results=results, pairs=pairs)
+
+
+def test_evaluate_cli_is_the_three_steps_on_the_checkpoint(trained, evaluated, tmp_path):
+    """cli.evaluate's files bit for bit those of run_testing (with
+    write_test_results), export_dynamic_meshes and cli.mesh_evaluation.main
+    called on the same checkpoint: test_result.txt (but its fps line, a
+    time), each test view's renders and mesh, the two PLYs (t = 0 and 1)
+    and eval_results.txt."""
+    from dgmesh_torch.data.scene import Scene
+    from dgmesh_torch.eval.testing import export_dynamic_meshes, run_testing, write_test_results
+    from dgmesh_torch.train.checkpoint import load_checkpoint
+    from dgmesh_torch.train.loop import Trainer
+    cfg = Config.load(os.path.join(trained["out"], "cfg_args.json"))
+    scene = Scene(cfg, shuffle=False)
+    tr = Trainer(cfg, scene, state=load_checkpoint(cfg, trained["out"], -1, device="cpu"),
+                 device="cpu")
+    a, b = evaluated["run"], tmp_path
+    want = run_testing(cfg, tr, scene, save_dir=str(b / "test_results"))
+    write_test_results(want, str(b / "test_results"))
+    export_dynamic_meshes(cfg, tr, scene, str(b / "meshes"), 2)
+    pairs = cli_meval.main(["--gt_dir", os.path.join(trained["data"], "gt_eval"), "--pred_dir",
+                            str(b / "meshes"), "--transforms",
+                            os.path.join(trained["data"], "transforms_train.json"),
+                            "--emd_samples", "64", "--out", str(b / "eval_results.txt")],
+                           device="cpu")
+    assert _timeless(evaluated["results"]) == _timeless(want)
+    assert evaluated["pairs"] == pairs and len(pairs) == 2
+    for sub in ("test_results", "meshes"):
+        names = sorted(os.listdir(b / sub))
+        assert sorted(os.listdir(a / sub)) == names, sub
+        for name in names:
+            got, exp = (a / sub / name).read_bytes(), (b / sub / name).read_bytes()
+            if name == "test_result.txt":
+                got, exp = (b"".join(ln for ln in t.splitlines(True) if not ln.startswith(b"fps:"))
+                            for t in (got, exp))
+            assert got == exp, name
+    assert sorted(os.listdir(a / "meshes")) == ["mesh_00000.ply", "mesh_00001.ply"]
+    assert (a / "eval_results.txt").read_bytes() == (b / "eval_results.txt").read_bytes()
+
+
+def test_evaluate_cli_takes_an_older_checkpoint_and_skips_cd(trained, tmp_path):
+    """--iteration 5 evaluates state_5.pt (run_testing's metrics on it, not
+    the final state's); --skip_cd writes no eval_results.txt."""
+    from dgmesh_torch.data.scene import Scene
+    from dgmesh_torch.eval.testing import run_testing
+    from dgmesh_torch.train.checkpoint import load_checkpoint
+    from dgmesh_torch.train.loop import Trainer
+    run = _copy_run(trained, tmp_path / "run")
+    results, pairs = cli_eval.main(["-m", run, "-s", trained["data"], "--iteration", "5",
+                                    "--skip_cd", "--n_meshes", "1", "--device", "cpu"])
+    cfg = Config.load(os.path.join(trained["out"], "cfg_args.json"))
+    scene = Scene(cfg, shuffle=False)
+    tr = Trainer(cfg, scene, state=load_checkpoint(cfg, trained["out"], 5, device="cpu"),
+                 device="cpu")
+    assert _timeless(results) == _timeless(run_testing(cfg, tr, scene))
+    assert _timeless(results) != _timeless(trained["results"])
+    assert pairs is None and not os.path.exists(os.path.join(run, "eval_results.txt"))
+    assert os.listdir(os.path.join(run, "meshes")) == ["mesh_00000.ply"]
+
+
+def test_evaluate_cli_needs_a_gpu_unless_asked_for_the_cpu(trained, monkeypatch, tmp_path):
+    """Without --device cli.evaluate runs on cuda, and raises where there is
+    none."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    run = _copy_run(trained, tmp_path / "run")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli_eval.main(["-m", run, "-s", trained["data"], "--n_meshes", "1"])
+    assert sorted(os.listdir(run)) == ["cfg_args.json", "checkpoint", "train_log.jsonl"]
+
+
+def test_make_quality_md_reads_the_ports_run(evaluated, tmp_path):
+    """tools/make_quality_md.py on the evaluated run: the training log, every
+    line of test_result.txt and the tail of eval_results.txt in QUALITY.md,
+    nothing reported missing."""
+    out = tmp_path / "QUALITY.md"
+    r = subprocess.run([sys.executable, str(ROOT / "tools" / "make_quality_md.py"), "--run",
+                        str(evaluated["run"]), "--out", str(out)],
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    text = out.read_text()
+    assert "MISSING" not in text and f"reached iteration **{ITERS}**" in text
+    for line in (evaluated["run"] / "test_results" / "test_result.txt").read_text().splitlines():
+        assert line in text
+    assert (evaluated["run"] / "eval_results.txt").read_text().splitlines()[-1] in text
+
+
+def test_quality_recipe_script_names_what_the_port_has(monkeypatch):
+    """tools/torch_run_quality.sh passes ``bash -n``; each ``python -m``
+    module it runs imports, and its parser takes the flags the script
+    passes (the shell variables at the script's defaults, resumed); its
+    dataset call binds to generate_mesh_dataset's signature."""
+    import ast
+    import importlib
+    import inspect
+    import re
+    import shlex
+    script = ROOT / "tools" / "torch_run_quality.sh"
+    assert subprocess.run(["bash", "-n", str(script)]).returncode == 0
+    text = "".join(ln for ln in script.read_text().splitlines(True) if not ln.startswith("#"))
+    env = dict(re.findall(r"^(\w+)=\$\{\w+:-([^}]*)\}$", text, re.M))
+    assert set(env) == {"DS", "RUN", "CFG"}
+    text = re.sub(r"\$(\w+)", lambda m: env.get(m.group(1), m.group(0)), text.replace("\\\n", " "))
+    monkeypatch.chdir(ROOT)
+    cmds = re.findall(r"python -m (\S+)(.*)", text)
+    assert [m for m, _ in cmds] == ["dgmesh_torch.cli.train", "dgmesh_torch.cli.mesh_evaluation"]
+    for module, rest in cmds:
+        argv = shlex.split(rest.replace('"${RESUME[@]}"', f"--start_checkpoint {env['RUN']}"))
+        parsed = importlib.import_module(module).parse(argv)
+        if module.endswith("train"):
+            args, cfg = parsed
+            assert args.export_meshes == 200 and args.start_checkpoint == env["RUN"]
+            assert cfg.model.pretrain_mesh_path == env["DS"] + "/mesh"
+        else:
+            assert parsed.transforms == env["DS"] + "/transforms_train.json"
+    (call,) = [n for n in ast.walk(ast.parse(text.split("<<PY\n")[1].split("\nPY\n")[0]))
+               if isinstance(n, ast.Call)]
+    inspect.signature(generate_mesh_dataset).bind(
+        *[ast.literal_eval(a) for a in call.args],
+        **{k.arg: ast.literal_eval(k.value) for k in call.keywords})
+    assert call.func.id == "generate_mesh_dataset"
 
 
 # --- module 3's remainder: the real captures and the D-NeRF generator ---------

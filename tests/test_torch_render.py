@@ -142,7 +142,7 @@ def _port_files():
 
 def test_import_scan_covers_the_driver():
     """The scan reads the CLIs, the data readers, the eval modules, the
-    multi-device modules and the entry module."""
+    multi-device modules, the entry module and the viewer stub."""
     names = {str(p.relative_to(ROOT)) for p in _port_files()}
     assert {"dgmesh_torch/parallel/sharding.py", "dgmesh_torch/parallel/sharded_splat.py",
             "dgmesh_torch/parallel/sharded_mr.py", "dgmesh_torch/parallel/sharded_dpsr.py",
@@ -153,7 +153,8 @@ def test_import_scan_covers_the_driver():
             "dgmesh_torch/data/readers.py", "dgmesh_torch/data/scene.py",
             "dgmesh_torch/train/checkpoint.py", "dgmesh_torch/ops/chamfer.py",
             "dgmesh_torch/eval/point_metrics.py", "dgmesh_torch/eval/lpips_torch.py",
-            "dgmesh_torch/eval/testing.py"} <= names
+            "dgmesh_torch/eval/testing.py", "dgmesh_torch/cli/evaluate.py",
+            "dgmesh_torch/viewer.py", "dgmesh_torch/utils_io.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -190,6 +191,8 @@ def test_port_renders_on_cpu_without_jax():
         from dgmesh_torch.train import checkpoint, densify, loop  # noqa: F401
         from dgmesh_torch.cli import render_test, train  # noqa: F401  (the CLIs)
         from dgmesh_torch.cli import mesh_evaluation, render_trajectory  # noqa: F401
+        from dgmesh_torch.cli import evaluate  # noqa: F401
+        from dgmesh_torch import viewer  # noqa: F401
         from dgmesh_torch.eval import lpips_torch, point_metrics  # noqa: F401
         from dgmesh_torch.data import colmap, readers, resize, scene  # noqa: F401
         from dgmesh_torch.data import synthetic, synthetic_mesh  # noqa: F401
