@@ -11,6 +11,8 @@ Phases; any failure exits non-zero and prints no result:
   1. card     — the card's name and power limit (nvidia-smi);
   2. build    — nvcc builds every kernel of the render and training paths
                 from dgmesh_torch/csrc (one nvcc per source, in parallel);
+                kernel 6's weight-gradient pass must be wgmma only (HGMMA
+                and no HMMA in cuobjdump's SASS);
   3. kernels  — each kernel against its plain PyTorch twin on the card, at
                 the main path's full-width shapes, on seeded random rows with
                 the edge cases (invalid rows, alpha-clamped rows, slivers
@@ -28,8 +30,10 @@ Phases; any failure exits non-zero and prints no result:
                 too); the fused trunk
                 (kernels 5 and 6) at 131,072 and 479,966 (ragged) rows,
                 each launched twice there for identical bits and kernel
-                6's two passes timed apart, then at the shapes their
-                tiling makes special (MLP_EDGE_SHAPES);
+                6's two passes timed apart (its weight-gradient pass
+                beside its floor and cuBLAS's nine products), then at the
+                shapes their tiling makes special (MLP_EDGE_SHAPES), kernel
+                6 launched twice there too;
      3t: kernels 1-4 on the tiles [T/2, T) alone, launched with tile0 =
                 T/2 (a rank's block of tiles): the same bits as those tiles
                 of the whole launch, and each against its twin given tile0;
@@ -305,10 +309,17 @@ MLP_DIN = 93                    # blender nets: 63 position + 30 timenet lanes
 # multiplies (ceil(din/64) of them), last so that the shapes before them
 # keep their random rows; then NaN in one lane of every seventh row, which
 # stays NaN through every ReLU (jnp.maximum and torch.relu keep it) and
-# reaches every weight gradient the row meets
+# reaches every weight gradient the row meets.  For kernel 6's
+# weight-gradient pass (S row splits of whole 64-row stages, S = 8 for the
+# 16 jobs at din <= 128 on 132 SMs, 128-row dW tiles, those of dW[0] and
+# dW[8] wholly past din skipped: din 1, 64, 65, 128, 129 and 256 above): 1, 37,
+# 129 and 300 rows leave splits with no stage, 511 and 513 rows lie either
+# side of S x 64 rows (one stage a split, then two for some), and the main
+# path's 479,966
 MLP_EDGE_SHAPES = ((1, 93), (37, 93), (64, 93), (65, 93), (129, 93), (131_072 + 37, 93),
                    (129, 1), (129, 256), (129, 64), (129, 65), (129, 128), (129, 129),
-                   (129, 192), (129, 93, "NaN rows"))
+                   (129, 192), (129, 93, "NaN rows"), (300, 93), (511, 93), (513, 93),
+                   (479_966, 93))
 TRUNKS = 6    # fused trunks per step: deform, deform_normal, the two cycle nets,
               # deform_back and appearance on the mesh vertices
 # The small card-vs-CPU step in the fused configuration.  Card and CPU sum
@@ -425,6 +436,26 @@ TOL_STRUCT_ABS, TOL_STRUCT_REL, TOL_STRUCT_NORMAL = 1e-5, 1e-4, 1e-4
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def sass_mma_counts(lib, func: str):
+    """(HGMMA, HMMA) instructions in the SASS of the kernels of the built
+    library ``lib`` whose names contain ``func``, from the toolkit's
+    cuobjdump; None where it lists no such kernel."""
+    exe = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    out = subprocess.run([exe, "-sass", str(lib)], capture_output=True, text=True,
+                         timeout=120).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ", 1)[1].strip()
+            counts[name] = [0, 0]
+        elif name is not None and "HGMMA" in line:
+            counts[name][0] += 1
+        elif name is not None and "HMMA" in line:
+            counts[name][1] += 1
+    hits = [v for k, v in counts.items() if func in k]
+    return tuple(map(sum, zip(*hits))) if hits else None
 
 
 def card_line() -> str:
@@ -663,19 +694,50 @@ def trunk_pass_times(torch, MF, x, wb, bp, g):
     straight to the passes and are not counted), as one log line with each
     pass's rate on the products it needs: twice the forward's for the row
     pass (the recompute and the products with Wᵀ), once for the
-    weight-gradient pass."""
+    weight-gradient pass; that pass's share of its floor (the larger of its
+    products at the bf16 peak and its bytes at the memory rate: the
+    workspace's 16 buffers read once, the row blocks' db sums read, dW and
+    db written) and, as a yardstick, the same nine products as cuBLAS
+    computes them from the same workspace (torch.bmm of the stacked
+    buffers' transposes, float32 out where this torch takes out_dtype)."""
     n, din = x.shape
     dx = torch.empty_like(x)
     dw = torch.empty((9, 256, 256), dtype=torch.float32, device=x.device)
     db = torch.empty((8, 256), dtype=torch.float32, device=x.device)
-    ws, db_part, dw_part = MF._bwd_buffers(n, x.device)
+    ws, db_part, dw_part, plan = MF._bwd_buffers(n, din, x.device)
     wt = MF.transpose_pack(wb)
     rows_ms = time_cuda(torch, lambda: MF._bwd_rows(x, wb, wt, bp, g, dx, ws, db_part), 5)
-    wgrad_ms = time_cuda(torch, lambda: MF._bwd_wgrad(ws, db_part, dw_part, dw, db), 5)
+    wgrad_ms = time_cuda(torch, lambda: MF._bwd_wgrad(ws, db_part, dw_part, dw, db, plan), 5)
     flops = 2 * n * (7 * 256 * 256 + 2 * din * 256)
+    nbytes = ws.numel() * 2 + db_part.numel() * 4 + (dw.numel() + db.numel()) * 4
+    floor_ms = max(flops / PEAK_BF16_TC, nbytes / PEAK_BYTES) * 1e3
+    lib_ms, lib_how = library_wgrad_ms(torch, ws)
     return (f"# timing/passes trunk_bwd ({n},{din}): row pass {rows_ms:.4f} ms "
             f"({2 * flops / rows_ms / 1e9:.1f} TFLOP/s), weight-gradient pass + reductions "
-            f"{wgrad_ms:.4f} ms ({flops / wgrad_ms / 1e9:.1f} TFLOP/s)")
+            f"{wgrad_ms:.4f} ms ({flops / wgrad_ms / 1e9:.1f} TFLOP/s; {plan.splits} splits x "
+            f"{plan.jobs} jobs), {floor_ms / wgrad_ms:.1%} of its floor {floor_ms:.4f} ms "
+            f"({'bytes' if nbytes / PEAK_BYTES > flops / PEAK_BF16_TC else 'operations'}); "
+            f"the nine products by cuBLAS ({lib_how}) {lib_ms:.4f} ms")
+
+
+def library_wgrad_ms(torch, ws):
+    """ms of the weight-gradient pass's nine products Aᵀ·G by cuBLAS on the
+    workspace ws (16, npad, 256) bf16: one torch.bmm for e = 0..7 (A the
+    buffers 0..7, G 8..15) and one torch.mm for e = 8 (x and gmb_5), float32
+    out where torch.bmm takes out_dtype, else bf16; and which of the two."""
+    a, g = ws[:8].transpose(1, 2), ws[8:]
+    kw = {"out_dtype": torch.float32}
+    try:
+        torch.bmm(a[:1, :, :64], g[:1, :64], **kw)
+        torch.mm(ws[0, :64].t(), ws[13, :64], **kw)
+        how = "bf16 in, float32 out"
+    except (TypeError, RuntimeError):
+        kw, how = {}, "bf16 in and out"
+
+    def run():
+        torch.bmm(a, g, **kw)
+        torch.mm(ws[0].t(), ws[13], **kw)
+    return time_cuda(torch, run, 5), how
 
 
 def trunk_report(rep):
@@ -1141,6 +1203,12 @@ def main() -> int:
             # ptxas reports a serialised wgmma pipeline as info C7515
             if any(k in line for k in ("registers", "spill", "warning", "C75")):
                 log(f"#   {n}: {line.strip()}")
+    # every product of kernel 6's weight-gradient pass on wgmma: HGMMA and no
+    # HMMA (mma.sync) in its SASS
+    mma = sass_mma_counts(cuda_build._target("mlp_bwd"), "mlp_bwd_wgrad")
+    log(f"# sass: mlp_bwd_wgrad HGMMA, HMMA {mma}")
+    if mma is None or mma[0] == 0 or mma[1] != 0:
+        failures.append(f"kernel 6's weight-gradient pass: HGMMA, HMMA {mma} in its SASS")
 
     cfg = load_cfg()
     if PROFILE:
@@ -1274,11 +1342,18 @@ def main() -> int:
             what += f" ({n_nan} output rows NaN, as the twin's)"
         errs["trunk_fwd"].append(rep["out"][2])
         errs["trunk_bwd"].append(max(rep[k][2] for k in ("dx", "dW", "db")))
+        # kernel 6 twice on the same inputs: the same bits (NaN included)
+        first, again = MF.trunk_bwd(x, wbe, bpe, g), MF.trunk_bwd(x, wbe, bpe, g)
+        same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(first, again))
         log(f"# kernels/edge: trunk_fwd/trunk_bwd {what}: {trunk_report(rep)} "
-            f"{'ok' if ok else 'FAIL'}")
+            f"{'ok' if ok else 'FAIL'}; trunk_bwd twice "
+            f"{'identical' if same else 'DIFFERENT'}")
         if not ok:
             failures.append(f"trunk kernels vs twins (edge shape {what})")
-        del x, g
+        if not same:
+            failures.append(f"trunk_bwd not deterministic (edge shape {what})")
+        del x, g, first, again
     if KERNELS_ONLY:
         r1 = SK.composite_tiles(a1, *geo_s, residuals=True)[0::2]
         for name, fk in (("composite_bwd", lambda: SK.composite_bwd(a1, g1, g2, *geo_s)),

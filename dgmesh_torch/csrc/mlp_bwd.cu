@@ -48,12 +48,28 @@
 //     and one CTA fills an SM; each chunk's products are waited for before
 //     the ring moves on (three stages leave no room for a second batch in
 //     flight while the loads stay two chunks ahead).
-//  2. mlp_bwd_wgrad: the weight gradients as 9 products Aᵀ·G over the rows,
-//     split into S = 32 row ranges; each CTA computes a 128x128 block of
-//     one range with mma.sync and writes it as a float32 partial.  Its
-//     blocks read their own 128 columns of A and G over all rows (up to
-//     8.8 GB at 479,966 rows): bound by the bytes its tile shape costs,
-//     which a larger dW tile, not another instruction, would cut.
+//  2. mlp_bwd_wgrad: the weight gradients as 9 products Aᵀ·G over the rows
+//     (A the workspace's x or a_{e-1}, G its gmb_e), every product on wgmma
+//     m64n256k16.  The reduction runs over workspace rows and a row holds
+//     consecutive features, so both operands are MN-major: a stage of 64
+//     rows lands by cp.async in 128-byte-swizzled [64][64] blocks (rows
+//     along K) and wgmma reads them by descriptor with its transpose flags
+//     (mlp_wgmma.cuh's desc_mn), no operand through registers.  A CTA
+//     computes a 128 x 256 dW tile (two warpgroups of 64 x 256, 128 float32
+//     accumulators a thread), so G's rows are read for two halves of A at
+//     once, over one of S row splits; a ring of four 48 KB stages, two
+//     loading while one multiplies and the one before it finishes, one CTA
+//     an SM (three loading ahead with each stage's products waited for was
+//     slower; so were TMA loads).  x's lanes past din are zero, so a 128-row
+//     tile of dW[0] or dW[8] wholly past din is not computed, and the
+//     reduction writes zeros from row 64·ceil(din/64) on (exact for a
+//     finite gmb).  The wrapper's plan (mlp_fused.wgrad_plan)
+//     takes S = SMs / jobs splits (16 jobs at din <= 128: S = 8, 128 CTAs
+//     on 132 SMs, one wave), each a whole number of stages, the jobs of a
+//     split neighbours in launch order so that L2 serves the second read of
+//     G.  Bound at 479,966 rows, din 93: bytes, the workspace's 3.9 GB read
+//     once (1.17 ms at 3.35 TB/s) against 0.49 TFLOP (0.49 ms at 989
+//     TFLOP/s); the partials add 2 x 19 MB.
 //  3. mlp_bwd_reduce_dw / _db: the partials summed in a fixed order.
 // No atomics: the result is the same from run to run.  The workspace
 // (8 KB a row: 3.9 GB at 479,966 rows) is the price of not holding dW in
@@ -62,6 +78,26 @@
 
 #include "mlp_common.cuh"
 #include "mlp_wgmma.cuh"
+
+namespace mlp {
+
+// The weight-gradient pass's plan, made by the wrapper (mlp_fused.wgrad_plan)
+// and passed by value: CTA b takes job b % jobs over the rows of split
+// b / jobs, so the jobs of one split are neighbours in launch order.  Job
+// j multiplies matrix e = job_e[j] (A_e the workspace buffer e, x for e =
+// 8; G_e buffer 8 + e, gmb_5 for e = 8) for dW rows 128·job_tile[j] ..;
+// split s owns workspace stages split_stage[s] .. split_stage[s + 1] - 1 of
+// stage_rows rows each.  kx = ceil(din / 64): dW[0] and dW[8] are zero
+// from row 64·kx on, where no job or no job's result is read.
+constexpr int WG_MAX_SPLITS = 32;
+constexpr int WG_MAX_JOBS = 2 * (DEPTH + 1);
+struct WgradPlan {
+  int splits, jobs, kx, stage_rows;
+  int split_stage[WG_MAX_SPLITS + 1];
+  int job_e[WG_MAX_JOBS], job_tile[WG_MAX_JOBS];
+};
+
+}  // namespace mlp
 
 namespace {
 
@@ -204,99 +240,106 @@ mlp_bwd_rows(const float* __restrict__ x, const bf16* __restrict__ w, const bf16
     }
 }
 
-// Weight gradients: partial[s][e] = A_eᵀ · G_e over row range s, as 128x128
-// blocks.  A_e is buffer e (x, then a_0..a_6) for e < 8 and x for e = 8;
-// G_e is gmb_e, and gmb_5 for e = 8.  8 warps as 2 (rows of dW) x 4
-// (columns), 64x32 each; 32 rows per stage, two stages.
-constexpr int WG_T = 128;              // dW block edge
-constexpr int WG_K = 32;               // workspace rows per stage
-constexpr int WG_LD = WG_T + 8;        // bf16 pitch
+constexpr int WG_TILE = 128;            // dW rows a CTA: two warpgroups of 64
+constexpr int WG_R = 64;                // workspace rows a stage
+// A ring of four stages: while stage c multiplies, stages c + 1 and c + 2
+// load and the products of stage c - 1 may still run, so stage c - 2's
+// slot takes stage c + 2 (one wgmma batch left pending, cp.async groups
+// waited for down to one).
+constexpr int WG_RING = 4;              // stages in shared memory
+constexpr int WG_LEAD = 2;              // stages loading ahead of the one multiplied
+constexpr int WG_BLK = WG_R * KC;       // bf16 of one [R][64] MN-major block
+constexpr int WG_STAGE = 6 * WG_BLK;    // A: 2 blocks (128 features), G: 4 (256)
+constexpr size_t WGRAD_SMEM = (size_t)WG_RING * WG_STAGE * sizeof(bf16) + 1024;
+static_assert(WGRAD_SMEM <= 232448, "shared memory");
 
-__global__ void __launch_bounds__(THREADS)
-mlp_bwd_wgrad(const bf16* __restrict__ ws, float* __restrict__ dw_part, int npad, int splits) {
-  __shared__ __align__(16) bf16 sA[2][WG_K * WG_LD];
-  __shared__ __align__(16) bf16 sG[2][WG_K * WG_LD];
-  const int s = blockIdx.x, tm = blockIdx.y >> 1, tn = blockIdx.y & 1, e = blockIdx.z;
-  const size_t buf = (size_t)npad * W;
-  const bf16* A = ws + (size_t)(e < DEPTH ? e : 0) * buf + tm * WG_T;
-  const bf16* G = ws + (size_t)(DEPTH + (e < DEPTH ? e : SKIP + 1)) * buf + tn * WG_T;
-  const int per = ((npad / WG_K + splits - 1) / splits) * WG_K;
-  const int r_begin = s * per, r_end = min(npad, r_begin + per);
-  const int nch = r_end > r_begin ? (r_end - r_begin) / WG_K : 0;
+// Weight gradients: partial[s][e] rows 128·tile .. = A_eᵀ·G_e over split
+// s's rows, each warpgroup 64 dW rows x 256 columns on wgmma m64n256k16
+// with both operands MN-major (mlp_wgmma.cuh's desc_mn): a stage's A is
+// its rows' 128 features of A_e as two [R][64] blocks, its G the rows'
+// 256 features of G_e as four, copied by every thread with cp.async into
+// the 128-byte-swizzled layout; WG_LEAD stages load while one multiplies,
+// and its products run on while the next stage is waited for.
+__global__ void __launch_bounds__(THREADS, 1)
+mlp_bwd_wgrad(const bf16* __restrict__ ws, float* __restrict__ dw_part, int npad,
+              const __grid_constant__ WgradPlan plan) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
+  const int job = blockIdx.x % plan.jobs, s = blockIdx.x / plan.jobs;
+  const int e = plan.job_e[job], tile = plan.job_tile[job];
+  const int st0 = plan.split_stage[s], nst = plan.split_stage[s + 1] - st0;
+  const size_t buf = (size_t)npad * W, row0 = (size_t)st0 * WG_R;
+  const bf16* A = ws + (size_t)(e < DEPTH ? e : 0) * buf + row0 * W + tile * WG_TILE;
+  const bf16* G = ws + (size_t)(DEPTH + (e < DEPTH ? e : SKIP + 1)) * buf + row0 * W;
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int m0 = (warp >> 2) * 64, n0 = (warp & 3) * 32;
-  const int q = lane >> 3, r = lane & 7;
-  float acc[4][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[mt][nt][k] = 0.f;
-
-  auto load = [&](int stage, int ch) {
-    const size_t row = (size_t)(r_begin + ch * WG_K);
-    for (int i = threadIdx.x; i < 2 * WG_K * (WG_T / 8); i += THREADS) {
-      const int which = i / (WG_K * (WG_T / 8)), j = i % (WG_K * (WG_T / 8));
-      const int rr = j / (WG_T / 8), p = j % (WG_T / 8);
-      const bf16* src = (which ? G : A) + (row + rr) * W + p * 8;
-      bf16* dst = (which ? sG[stage] : sA[stage]) + rr * WG_LD + p * 8;
-      cp_async16(dst, src);
-    }
-  };
-  if (nch > 0) load(0, 0);
-  cp_async_commit();
-  for (int ch = 0; ch < nch; ++ch) {
-    if (ch + 1 < nch) load((ch + 1) & 1, ch + 1);
-    cp_async_commit();
-    cp_async_wait1();
-    __syncthreads();
-    const bf16* a_s = sA[ch & 1];
-    const bf16* g_s = sG[ch & 1];
-#pragma unroll
-    for (int ks = 0; ks < WG_K; ks += 16) {
-      uint32_t a[4][4], bb[4][2];
-      // A operand (dW rows = columns of the activations): stored [k][m]
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-        ldsm_x4_t(a[mt][0], a[mt][1], a[mt][2], a[mt][3],
-                  a_s + (ks + (q >> 1) * 8 + r) * WG_LD + m0 + mt * 16 + (q & 1) * 8);
-      // B operand (columns of gmb): stored [k][n]
-#pragma unroll
-      for (int np = 0; np < 2; ++np)
-        ldsm_x4_t(bb[2 * np][0], bb[2 * np][1], bb[2 * np + 1][0], bb[2 * np + 1][1],
-                  g_s + (ks + (q & 1) * 8 + r) * WG_LD + n0 + np * 16 + (q >> 1) * 8);
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma(acc[mt][nt], a[mt], bb[nt]);
-    }
-    __syncthreads();
-  }
-  float* out = dw_part + ((size_t)s * (DEPTH + 1) + e) * W * W;
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = tm * WG_T + m0 + mt * 16 + (lane >> 2) + half * 8;
-        const int col = tn * WG_T + n0 + nt * 8 + (lane & 3) * 2;
-        *reinterpret_cast<float2*>(out + (size_t)row * W + col) =
-            make_float2(acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
+  // stage c of the split into its slot, as one cp.async group (empty past
+  // the split's end, so that the group count stays the stage count)
+  const auto load = [&](int c) {
+    if (c < nst) {
+      bf16* st = ring + (c % WG_RING) * WG_STAGE;
+      const bf16* a = A + (size_t)c * WG_R * W;
+      const bf16* g = G + (size_t)c * WG_R * W;
+      for (int i = threadIdx.x; i < WG_R * (WG_TILE / 8); i += THREADS) {
+        const int r = i >> 4, p = i & 15;
+        cp_async16(st + (p >> 3) * WG_BLK + wg::swz(r, (p & 7) * 8), a + (size_t)r * W + p * 8);
       }
+      for (int i = threadIdx.x; i < WG_R * (W / 8); i += THREADS) {
+        const int r = i >> 5, p = i & 31;
+        cp_async16(st + (2 + (p >> 3)) * WG_BLK + wg::swz(r, (p & 7) * 8),
+                   g + (size_t)r * W + p * 8);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // the first stage's first product sets acc (no other instruction writes
+  // it while products run: ptxas would serialise them, C7515); a split with
+  // no stage writes zeros
+  float acc[32][4];
+  for (int c = 0; c < WG_LEAD; ++c) load(c);
+  for (int c = 0; c < nst; ++c) {
+    cp_async_wait1();                   // stage c has landed (this thread's part)
+    wg::fence_proxy_async();
+    __syncthreads();                    // ... every thread's; stage c + LEAD - RING is multiplied
+    load(c + WG_LEAD);
+    const bf16* st = ring + (c % WG_RING) * WG_STAGE;
+    const uint64_t da = wg::desc_mn(st + (threadIdx.x >> 7) * WG_BLK, WG_BLK * sizeof(bf16));
+    const uint64_t db = wg::desc_mn(st + 2 * WG_BLK, WG_BLK * sizeof(bf16));
+    wg::fence_acc(acc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int k = 0; k < WG_R / 16; ++k)
+      wg::wgmma_m64n256k16_mn(acc, da + k * wg::MN_K16, db + k * wg::MN_K16, c > 0 || k > 0);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    wg::fence_acc(acc);
+  }
+  wg::mma_wait_all(acc);
+  float* out = dw_part + ((size_t)s * (DEPTH + 1) + e) * W * W + (size_t)tile * WG_TILE * W;
+#pragma unroll
+  for (int j = 0; j < 32; ++j)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      *reinterpret_cast<float2*>(out + (size_t)wg::acc_row(half) * W + wg::acc_col(j)) =
+          nst > 0 ? make_float2(acc[j][2 * half], acc[j][2 * half + 1]) : make_float2(0.f, 0.f);
 }
 
-// dW = Σ_s partial[s], s in order.
+// dW = Σ_s partial[s], s in order, four elements a thread; the rows of
+// dW[0] and dW[8] from 64·kx on are zero (x's lanes there are zero), their
+// partials not read.
 __global__ void mlp_bwd_reduce_dw(const float* __restrict__ dw_part, float* __restrict__ dw,
-                                  int splits) {
-  const size_t total = (size_t)(DEPTH + 1) * W * W;
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+                                  int splits, int kx) {
+  constexpr size_t total = (size_t)(DEPTH + 1) * W * W;
+  const size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
   if (i >= total) return;
-  float v = 0.f;
-  for (int s = 0; s < splits; ++s) v += dw_part[s * total + i];
-  dw[i] = v;
+  const int e = (int)(i / (W * W)), row = (int)(i / W) % W;
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if ((e != 0 && e != DEPTH) || row < kx * KC)
+    for (int s = 0; s < splits; ++s) {
+      const float4 p = *reinterpret_cast<const float4*>(dw_part + s * total + i);
+      v.x += p.x, v.y += p.y, v.z += p.z, v.w += p.w;
+    }
+  *reinterpret_cast<float4*>(dw + i) = v;
 }
 
 // db = Σ_blocks db_part: one CTA per 32 columns of (DEPTH, W); warp k sums
@@ -342,19 +385,30 @@ extern "C" int mlp_bwd_rows_launch(const float* x, const void* wpack, const void
 
 // Passes 2 and 3: that workspace and db_part (blocks = ceil(n/128) row
 // blocks) → dw (9,256,256) and db (8,256) f32, through the scratch dw_part
-// (splits, 9, 256, 256) f32.
+// (plan->splits, 9, 256, 256) f32, of which only the rows the plan's jobs
+// cover are written and read.
 extern "C" int mlp_bwd_wgrad_launch(const void* ws, const float* db_part, float* dw_part,
-                                    float* dw, float* db, int blocks, int splits, void* stream) {
+                                    float* dw, float* db, int blocks, const WgradPlan* plan,
+                                    void* stream) {
   if (blocks <= 0) return 0;
-  if (splits <= 0) return (int)cudaErrorInvalidValue;
+  if (!plan || plan->splits <= 0 || plan->splits > WG_MAX_SPLITS || plan->jobs <= 0 ||
+      plan->jobs > WG_MAX_JOBS || plan->kx < 1 || plan->kx > W / KC ||
+      plan->stage_rows != WG_R || plan->split_stage[0] != 0 ||
+      plan->split_stage[plan->splits] * WG_R != blocks * BM)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  mlp_bwd_wgrad<<<dim3(splits, 4, DEPTH + 1), THREADS, 0, st>>>(
-      static_cast<const bf16*>(ws), dw_part, blocks * BM, splits);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = cudaFuncSetAttribute(mlp_bwd_wgrad, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)WGRAD_SMEM);
   if (e != cudaSuccess) return (int)e;
-  const int total = (DEPTH + 1) * W * W;
-  mlp_bwd_reduce_dw<<<(total + 255) / 256, 256, 0, st>>>(dw_part, dw, splits);
+  mlp_bwd_wgrad<<<plan->splits * plan->jobs, THREADS, WGRAD_SMEM, st>>>(
+      static_cast<const bf16*>(ws), dw_part, blocks * BM, *plan);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  const int quads = (DEPTH + 1) * W * W / 4;
+  mlp_bwd_reduce_dw<<<(quads + 255) / 256, 256, 0, st>>>(dw_part, dw, plan->splits, plan->kx);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   mlp_bwd_reduce_db<<<DEPTH * W / 32, THREADS, 0, st>>>(db_part, db, blocks);
   return (int)cudaGetLastError();
 }
+
+// Marks the launcher that takes a WgradPlan (tools/torch_shade_bwd_variants.py).
+extern "C" int takes_wgrad_plan() { return 1; }

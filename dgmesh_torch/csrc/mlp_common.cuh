@@ -1,10 +1,7 @@
 // Shared pieces of the fused MLP trunk kernels (mlp_fwd.cu, mlp_bwd.cu,
 // mlp_wgmma.cuh): the trunk's shape, the order in which the forward reads
-// the packed matrices, the cp.async copies, and the mma.sync pieces of the
-// backward's weight-gradient pass (ldmatrix.trans and the bf16 tensor-core
-// product mma.sync m16n8k16 with float32 accumulators).  Every product of
-// the forward and of the backward's row pass runs on wgmma instead
-// (mlp_wgmma.cuh).
+// the packed matrices, and the cp.async copies.  Every product of both
+// kernels runs on wgmma (mlp_wgmma.cuh).
 //
 // A CTA of 8 warps (two warpgroups) owns BM = 128 rows; the weights of a
 // pass stream in stages of KC = 64 reduction steps.
@@ -37,22 +34,6 @@ __device__ __forceinline__ float relu(float v) { return v <= 0.f ? 0.f : v; }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t& r0, uint32_t& r1, uint32_t& r2, uint32_t& r3,
-                                          const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(smem_addr(p)));
-}
-
-// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col): exact products,
-// float32 sums.
-__device__ __forceinline__ void mma(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {

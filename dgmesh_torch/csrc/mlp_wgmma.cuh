@@ -1,11 +1,13 @@
 // Hopper warpgroup (wgmma) pieces of the fused MLP trunk kernels, used by
-// the forward (mlp_fwd.cu) and by the backward's row pass (mlp_bwd.cu):
+// the forward (mlp_fwd.cu) and by the backward's two passes (mlp_bwd.cu):
 // the 128-byte-swizzled K-major shared-memory tiles and their copies to and
 // from device memory, the shared-memory matrix descriptors, wgmma
 // m64n256k16 (bf16 operands, float32 accumulators), the fences between the
 // generic and the async proxy, a three-stage cp.async weight pipeline, and
 // the backward's forward pass over one block of rows (kernel 5 runs its own
-// loop, on a ring shared by a cluster: mlp_fwd.cu).
+// loop, on a ring shared by a cluster: mlp_fwd.cu); and the MN-major form
+// of the descriptor and of the product for the backward's weight-gradient
+// pass, whose operands are transposed (MN-major below).
 //
 // Tiles.  A CTA of 256 threads (two warpgroups) owns BM = 128 rows; each
 // warpgroup owns 64 of them and all 256 output columns, its accumulator
@@ -100,6 +102,51 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[32][4], uint64_t da,
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
       "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : MLP_D4(0), MLP_D4(1), MLP_D4(2), MLP_D4(3), MLP_D4(4), MLP_D4(5), MLP_D4(6), MLP_D4(7),
+        MLP_D4(8), MLP_D4(9), MLP_D4(10), MLP_D4(11), MLP_D4(12), MLP_D4(13), MLP_D4(14),
+        MLP_D4(15), MLP_D4(16), MLP_D4(17), MLP_D4(18), MLP_D4(19), MLP_D4(20), MLP_D4(21),
+        MLP_D4(22), MLP_D4(23), MLP_D4(24), MLP_D4(25), MLP_D4(26), MLP_D4(27), MLP_D4(28),
+        MLP_D4(29), MLP_D4(30), MLP_D4(31)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+#undef MLP_D4
+
+// MN-major operands.  In the weight-gradient pass's Aᵀ·G the reduction
+// runs over workspace rows, and a row holds consecutive features: A (M =
+// input features) and B (N = output features) are both MN-major.  Such an
+// operand lies in [R][64] blocks, R rows of 64 features (128 bytes), the
+// granule g of row r at granule g ^ (r % 8): the same 128-byte swizzle
+// (swz above) with rows along K.  Its 8-row x 64-feature atoms are 1024
+// bytes; the descriptor's SBO is the step from 8 rows to the next 8 (1024
+// bytes), its LBO the step from one 64-feature block to the next along MN
+// (R·128 bytes).  A k16 step is 16 rows: +2048 bytes, +128 in the start
+// address field.
+__device__ __forceinline__ uint64_t desc_mn(const bf16* p, uint32_t lbo_bytes) {
+  return (uint64_t)((smem_addr(p) >> 4) & 0x3FFF) | ((uint64_t)((lbo_bytes >> 4) & 0x3FFF) << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+constexpr int MN_K16 = 128;             // desc_mn's advance for 16 rows
+
+#define MLP_D4(j) "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]), "+f"(d[j][3])
+
+// d (64x256, this warpgroup) = A·B (+ d where accumulate): A a 64-feature x
+// 16-row MN-major block, B 256 features x 16 rows MN-major, by desc_mn
+// descriptors (the transpose flags imm-trans-a and imm-trans-b set).
+__device__ __forceinline__ void wgmma_m64n256k16_mn(float (&d)[32][4], uint64_t da, uint64_t db,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 1, 1;\n}\n"
       : MLP_D4(0), MLP_D4(1), MLP_D4(2), MLP_D4(3), MLP_D4(4), MLP_D4(5), MLP_D4(6), MLP_D4(7),
         MLP_D4(8), MLP_D4(9), MLP_D4(10), MLP_D4(11), MLP_D4(12), MLP_D4(13), MLP_D4(14),
         MLP_D4(15), MLP_D4(16), MLP_D4(17), MLP_D4(18), MLP_D4(19), MLP_D4(20), MLP_D4(21),

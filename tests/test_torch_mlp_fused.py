@@ -164,6 +164,75 @@ def test_twins_match_jax_fused_trunk(n, din):
     assert np.abs(tdw[DEPTH]).max() > 0 and np.abs(tdb).max() > 0
 
 
+@pytest.mark.parametrize("din", [93, 65])
+def test_x_weight_gradients_are_zero_past_din(din):
+    """dW[0] and dW[8], whose left operand is x, are exactly 0 from row din
+    on, in JAX's _bwd_kernel (interpret mode) and in the twin: x's padded
+    lanes are zeros and gmb is finite.  Kernel 6's weight-gradient pass
+    writes zeros to the rows past 64·ceil(din/64) and multiplies no tile
+    past din (the MLPs' din 93: rows 128..255), which is exact only because
+    of this."""
+    from dgmesh_tpu.ops.mlp_pallas import _trunk_bwd
+    rng = np.random.default_rng(din)
+    ws, bs = _weights(rng, din)
+    wpack, bpack = _pack(ws, bs)
+    x = rng.uniform(-1, 1, (16, din)).astype(np.float32)
+    g = rng.normal(size=(16, 256)).astype(np.float32)
+    xp = np.pad(x, ((0, 0), (0, 256 - din)))
+    _, dw, _ = _trunk_bwd(DEPTH, SKIP, (jnp.asarray(xp), jnp.asarray(wpack), jnp.asarray(bpack)),
+                          jnp.asarray(g))
+    _, tdw, _ = MF.trunk_bwd_ref(torch.tensor(x), torch.tensor(wpack).to(torch.bfloat16),
+                                 torch.tensor(bpack), torch.tensor(g))
+    for got in (np.asarray(dw), tdw.numpy()):
+        for e in (0, DEPTH):
+            assert np.abs(got[e, :din]).max() > 0
+            assert not got[e, din:].any(), (e, np.abs(got[e, din:]).max())
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("din", [1, 64, 65, 93, 128, 129, 256])
+def test_wgrad_plan_covers_every_product_once(din, sms):
+    """Kernel 6's weight-gradient plan (mlp_fused.wgrad_plan, which the
+    kernel runs as given) at every trunk shape chip_smoke.py holds and on
+    132 and 114 SMs: one wave (splits x jobs <= SMs); the stages dealt out
+    evenly, in order, over all the rows; each (matrix e, 128-row dW tile,
+    workspace row) covered by exactly one CTA, except the tiles of dW[0]
+    and dW[8] wholly past din, covered by none (the reduction writes zeros
+    from row 64·ceil(din/64) on); the two tiles of one matrix and split
+    next to each other in launch order."""
+    import chip_smoke as cs
+    for n in sorted({n for n, *_ in cs.MLP_EDGE_SHAPES} | set(cs.MLP_ROWS)):
+        blocks = -(-n // MF.BWD_ROWS)
+        npad = blocks * MF.BWD_ROWS
+        plan = MF.wgrad_plan(blocks, din, sms)
+        S, J = plan.splits, plan.jobs
+        x_tiles = 1 if din <= 128 else 2
+        assert plan.kx == -(-din // 64) and plan.stage_rows == MF.WGRAD_STAGE_ROWS
+        assert J == 14 + 2 * x_tiles and 1 <= S <= MF.WGRAD_MAX_SPLITS
+        assert S * J <= sms < (S + 1) * J
+        stages = list(plan.split_stage[:S + 1])
+        assert stages[0] == 0 and stages[-1] * plan.stage_rows == npad
+        sizes = np.diff(stages)
+        assert (sizes >= 0).all() and sizes.max() - sizes.min() <= 1
+        covered = {}
+        for b in range(S * J):
+            j, s = b % J, b // J
+            e, tile = plan.job_e[j], plan.job_tile[j]
+            assert 0 <= e <= DEPTH and tile in (0, 1)
+            if tile == 1:
+                assert (plan.job_e[j - 1], plan.job_tile[j - 1]) == (e, 0)
+            covered.setdefault((e, tile), []).append(
+                (stages[s] * plan.stage_rows, stages[s + 1] * plan.stage_rows))
+        for e in range(DEPTH + 1):
+            for tile in range(2):
+                spans = sorted(covered.get((e, tile), []))
+                if e in (0, DEPTH) and tile >= x_tiles:
+                    assert not spans, (n, e, tile)
+                    continue
+                assert spans[0][0] == 0 and spans[-1][1] == npad, (n, e, tile)
+                assert all(a[1] == b[0] for a, b in zip(spans, spans[1:])), (n, e, tile)
+
+
 def test_twin_of_a_padded_input_is_the_unpadded_one():
     """x zero-padded to 256 lanes gives the same output, dW and db as x
     itself (the kernel reads (N, din) directly), and dx padded with the

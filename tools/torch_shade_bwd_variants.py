@@ -69,11 +69,16 @@ the first source's bit for bit.
 Versions of the fused trunk backward (kernel 6): each TRUNK_BWD.cu is a
 version of ``dgmesh_torch/csrc/mlp_bwd.cu`` that exports
 ``mlp_bwd_rows_launch`` and ``mlp_bwd_wgrad_launch`` with their C
-signatures.  The same rows and trunk as kernel 5's, with a seeded normal
-cotangent; printed per source and shape: ms per call (both passes) in two
-rounds, dx, dW and db against the plain twin (chip_smoke.compare_trunk's
-measures), whether two calls give the same bits, and whether dx, dW and db
-are the first source's bits.  What follows is about kernel 4's versions.
+signatures: with the weight-gradient pass's plan where it exports
+``takes_wgrad_plan``, else (the pass before its plan) with 32 row splits.
+The same rows and trunk as kernel 5's, with a seeded normal cotangent;
+printed per shape the time torch.sum takes to read a bf16 tensor of the
+workspace's size (the rate a read-only pass reaches), and per source: ms
+per call (both passes) and of the
+weight-gradient pass with its reductions alone, each in two rounds, dx, dW
+and db against the plain twin (chip_smoke.compare_trunk's measures),
+whether two calls give the same bits, and whether dx, dW and db are the
+first source's bits.  What follows is about kernel 4's versions.
 
 Each SOURCE.cu is a version of ``dgmesh_torch/csrc/shade_bwd.cu`` that
 exports ``shade_bwd_launch`` with its C signature (an older version, or one
@@ -229,31 +234,54 @@ def trunk_fwd_main(torch, chip_smoke, libs, transposed, dev) -> int:
     return 0
 
 
-def trunk_bwd_launcher(torch, lib):
-    """The version's kernel 6, both passes, on (x, wpack, wpackt, bpack, g)
-    → (dx, dW, db)."""
-    from dgmesh_torch.ops import mlp_fused as MF
-    rows = lib.mlp_bwd_rows_launch
-    rows.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    wgrad = lib.mlp_bwd_wgrad_launch
-    wgrad.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    rows.restype = wgrad.restype = ctypes.c_int
+OLD_WGRAD_SPLITS = 32   # the row splits of the weight-gradient pass before its plan
 
-    def run(x, wb, wt, bp, g):
+
+def trunk_bwd_launcher(torch, lib):
+    """The version's kernel 6 on (x, wpack, wpackt, bpack, g): ``run`` →
+    (dx, dW, db), both passes; ``run.passes`` → (rows, wgrad, outputs), the
+    two passes as functions of no argument on that call's buffers.  A
+    version that exports ``takes_wgrad_plan`` gets mlp_fused's plan, one
+    without it (before the plan) 32 row splits."""
+    from dgmesh_torch.ops import mlp_fused as MF
+    planned = hasattr(lib, "takes_wgrad_plan")
+    rows_fn = lib.mlp_bwd_rows_launch
+    rows_fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    wgrad_fn = lib.mlp_bwd_wgrad_launch
+    wgrad_fn.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_int, ctypes.POINTER(MF.WgradPlan) if planned else ctypes.c_int, ctypes.c_void_p]
+    rows_fn.restype = wgrad_fn.restype = ctypes.c_int
+
+    def check(err):
+        if err:
+            raise RuntimeError(f"mlp_bwd launch failed with cudaError {err}")
+
+    def passes(x, wb, wt, bp, g):
         n, din = x.shape
         dev = x.device
         dx = torch.empty((n, din), dtype=torch.float32, device=dev)
         dw = torch.empty((MF.DEPTH + 1, 256, 256), dtype=torch.float32, device=dev)
         db = torch.empty((MF.DEPTH, 256), dtype=torch.float32, device=dev)
-        ws, db_part, dw_part = MF._bwd_buffers(n, dev)
+        ws, db_part, dw_part, plan = MF._bwd_buffers(n, din, dev)
+        if not planned:
+            dw_part = torch.empty((OLD_WGRAD_SPLITS, MF.DEPTH + 1, 256, 256),
+                                  dtype=torch.float32, device=dev)
+        arg = ctypes.byref(plan) if planned else OLD_WGRAD_SPLITS
         stream = torch.cuda.current_stream().cuda_stream
-        err = rows(x.data_ptr(), wb.data_ptr(), wt.data_ptr(), bp.data_ptr(), g.data_ptr(),
-                   dx.data_ptr(), ws.data_ptr(), db_part.data_ptr(), n, din, stream)
-        err = err or wgrad(ws.data_ptr(), db_part.data_ptr(), dw_part.data_ptr(), dw.data_ptr(),
-                           db.data_ptr(), db_part.shape[0], dw_part.shape[0], stream)
-        if err:
-            raise RuntimeError(f"mlp_bwd launch failed with cudaError {err}")
-        return dx, dw, db
+        return (lambda: check(rows_fn(x.data_ptr(), wb.data_ptr(), wt.data_ptr(), bp.data_ptr(),
+                                      g.data_ptr(), dx.data_ptr(), ws.data_ptr(),
+                                      db_part.data_ptr(), n, din, stream)),
+                lambda: check(wgrad_fn(ws.data_ptr(), db_part.data_ptr(), dw_part.data_ptr(),
+                                       dw.data_ptr(), db.data_ptr(), db_part.shape[0], arg,
+                                       stream)),
+                (dx, dw, db))
+
+    def run(x, wb, wt, bp, g):
+        rows, wgrad, out = passes(x, wb, wt, bp, g)
+        rows()
+        wgrad()
+        return out
+    run.passes = passes
     return run
 
 
@@ -269,6 +297,19 @@ def trunk_bwd_main(torch, chip_smoke, libs, dev) -> int:
         g = torch.as_tensor(rng.normal(size=(n, 256)).astype(np.float32), device=dev)
         want = MF.trunk_bwd_ref(x, wb, bp, g)
         times = timed_rounds(torch, chip_smoke, runs, lambda src: runs[src](x, wb, wt, bp, g))
+        big = torch.ones((MF.BWD_BUFFERS, -(-n // MF.BWD_ROWS) * MF.BWD_ROWS, 256),
+                         dtype=torch.bfloat16, device=dev)
+        read_ms = chip_smoke.time_cuda(torch, lambda: big.sum(dtype=torch.float32), LAUNCHES)
+        print(f"# read yardstick ({n},{din}): torch.sum over a workspace-sized bf16 tensor "
+              f"({big.numel() * 2 / 1e9:.3f} GB) {read_ms:.4f} ms, "
+              f"{big.numel() * 2 / read_ms / 1e9:.3f} TB/s", flush=True)
+        del big
+        wgrads = {}
+        for src, run in runs.items():
+            rows, wgrads[src], _ = run.passes(x, wb, wt, bp, g)
+            rows()
+        wtimes = timed_rounds(torch, chip_smoke, runs, lambda src: wgrads[src]())
+        del wgrads
         first = None
         for src, run in runs.items():
             got, again = run(x, wb, wt, bp, g), run(x, wb, wt, bp, g)
@@ -283,8 +324,9 @@ def trunk_bwd_main(torch, chip_smoke, libs, dev) -> int:
             same = all(torch.equal(a, b) for a, b in zip(got, again))
             same_first = all(torch.equal(a, b) for a, b in zip(got, first))
             print(f"# {src} ({n},{din}): {' / '.join(f'{t:.4f}' for t in times[src])} "
-                  f"ms/call; " + ", ".join(f"{k} max {v[0]:.3g} norm {v[1]:.3g}"
-                                           for k, v in rep.items())
+                  f"ms/call, of it the weight-gradient pass + reductions "
+                  f"{' / '.join(f'{t:.4f}' for t in wtimes[src])} ms; "
+                  + ", ".join(f"{k} max {v[0]:.3g} norm {v[1]:.3g}" for k, v in rep.items())
                   + f" {'agrees' if ok else 'DISAGREES'} with the twin; two calls "
                   f"{'identical' if same else 'DIFFERENT'}; "
                   f"{'the same bits as' if same_first else 'OTHER bits than'} "
