@@ -695,49 +695,43 @@ def trunk_pass_times(torch, MF, x, wb, bp, g):
     pass's rate on the products it needs: twice the forward's for the row
     pass (the recompute and the products with Wᵀ), once for the
     weight-gradient pass; that pass's share of its floor (the larger of its
-    products at the bf16 peak and its bytes at the memory rate: the
-    workspace's 16 buffers read once, the row blocks' db sums read, dW and
-    db written) and, as a yardstick, the same nine products as cuBLAS
-    computes them from the same workspace (torch.bmm of the stacked
-    buffers' transposes, float32 out where this torch takes out_dtype)."""
+    products at the bf16 peak and the bytes they need at the memory rate:
+    x's din lanes and the workspace's 15 other buffers over the n rows read
+    once, the row blocks' db sums read, dW and db written) and, as a
+    yardstick, the same nine products as cuBLAS computes them from the same
+    workspace (torch.bmm of the stacked buffers' transposes, float32 out)."""
     n, din = x.shape
     dx = torch.empty_like(x)
     dw = torch.empty((9, 256, 256), dtype=torch.float32, device=x.device)
     db = torch.empty((8, 256), dtype=torch.float32, device=x.device)
-    ws, db_part, dw_part, plan = MF._bwd_buffers(n, din, x.device)
+    ws, db_part, dw_part = MF._bwd_buffers(n, din, x.device)
     wt = MF.transpose_pack(wb)
     rows_ms = time_cuda(torch, lambda: MF._bwd_rows(x, wb, wt, bp, g, dx, ws, db_part), 5)
-    wgrad_ms = time_cuda(torch, lambda: MF._bwd_wgrad(ws, db_part, dw_part, dw, db, plan), 5)
+    wgrad_ms = time_cuda(torch, lambda: MF._bwd_wgrad(ws, db_part, dw_part, dw, db, din), 5)
     flops = 2 * n * (7 * 256 * 256 + 2 * din * 256)
-    nbytes = ws.numel() * 2 + db_part.numel() * 4 + (dw.numel() + db.numel()) * 4
+    nbytes = (n * ((MF.BWD_BUFFERS - 1) * 256 + din) * 2 + db_part.numel() * 4
+              + (dw.numel() + db.numel()) * 4)
     floor_ms = max(flops / PEAK_BF16_TC, nbytes / PEAK_BYTES) * 1e3
-    lib_ms, lib_how = library_wgrad_ms(torch, ws)
+    lib_ms = library_wgrad_ms(torch, ws)
     return (f"# timing/passes trunk_bwd ({n},{din}): row pass {rows_ms:.4f} ms "
             f"({2 * flops / rows_ms / 1e9:.1f} TFLOP/s), weight-gradient pass + reductions "
-            f"{wgrad_ms:.4f} ms ({flops / wgrad_ms / 1e9:.1f} TFLOP/s; {plan.splits} splits x "
-            f"{plan.jobs} jobs), {floor_ms / wgrad_ms:.1%} of its floor {floor_ms:.4f} ms "
+            f"{wgrad_ms:.4f} ms ({flops / wgrad_ms / 1e9:.1f} TFLOP/s; {dw_part.shape[0]} row "
+            f"splits), {floor_ms / wgrad_ms:.1%} of its floor {floor_ms:.4f} ms "
             f"({'bytes' if nbytes / PEAK_BYTES > flops / PEAK_BF16_TC else 'operations'}); "
-            f"the nine products by cuBLAS ({lib_how}) {lib_ms:.4f} ms")
+            f"the nine products by cuBLAS (bf16 in, float32 out) {lib_ms:.4f} ms")
 
 
 def library_wgrad_ms(torch, ws):
     """ms of the weight-gradient pass's nine products Aᵀ·G by cuBLAS on the
-    workspace ws (16, npad, 256) bf16: one torch.bmm for e = 0..7 (A the
-    buffers 0..7, G 8..15) and one torch.mm for e = 8 (x and gmb_5), float32
-    out where torch.bmm takes out_dtype, else bf16; and which of the two."""
+    workspace ws (16, npad, 256) bf16, float32 out: one torch.bmm for e =
+    0..7 (A the buffers 0..7, G 8..15) and one torch.mm for e = 8 (x and
+    gmb_5)."""
     a, g = ws[:8].transpose(1, 2), ws[8:]
-    kw = {"out_dtype": torch.float32}
-    try:
-        torch.bmm(a[:1, :, :64], g[:1, :64], **kw)
-        torch.mm(ws[0, :64].t(), ws[13, :64], **kw)
-        how = "bf16 in, float32 out"
-    except (TypeError, RuntimeError):
-        kw, how = {}, "bf16 in and out"
 
     def run():
-        torch.bmm(a, g, **kw)
-        torch.mm(ws[0].t(), ws[13], **kw)
-    return time_cuda(torch, run, 5), how
+        torch.bmm(a, g, out_dtype=torch.float32)
+        torch.mm(ws[0].t(), ws[13], out_dtype=torch.float32)
+    return time_cuda(torch, run, 5)
 
 
 def trunk_report(rep):

@@ -62,14 +62,18 @@
 //     an SM (three loading ahead with each stage's products waited for was
 //     slower; so were TMA loads).  x's lanes past din are zero, so a 128-row
 //     tile of dW[0] or dW[8] wholly past din is not computed, and the
-//     reduction writes zeros from row 64·ceil(din/64) on (exact for a
-//     finite gmb).  The wrapper's plan (mlp_fused.wgrad_plan)
-//     takes S = SMs / jobs splits (16 jobs at din <= 128: S = 8, 128 CTAs
-//     on 132 SMs, one wave), each a whole number of stages, the jobs of a
-//     split neighbours in launch order so that L2 serves the second read of
-//     G.  Bound at 479,966 rows, din 93: bytes, the workspace's 3.9 GB read
-//     once (1.17 ms at 3.35 TB/s) against 0.49 TFLOP (0.49 ms at 989
-//     TFLOP/s); the partials add 2 x 19 MB.
+//     reduction writes zeros from row 64·ceil(din/64) on.  Those rows are
+//     what JAX's kernel and the twin compute as 0·gmb: the same for a
+//     finite cotangent, but 0 here where theirs is NaN for a non-finite
+//     one; no caller reads them (the trunk's pad backward drops dW rows
+//     past din).  S = SMs / jobs row splits (the wrapper's choice,
+//     mlp_fused.wgrad_splits: 16 jobs at din <= 128, S = 8, 128 CTAs on
+//     132 SMs, one wave), each a whole number of stages, the jobs of a
+//     split neighbours in launch order so that L2 serves the second read
+//     of G.  Bound at 479,966 rows, din 93: bytes, the 3.81 GB the
+//     products need (x's 93 lanes and the other 15 buffers read once, the
+//     row blocks' db sums read, dW written; 1.14 ms at 3.35 TB/s) against
+//     0.49 TFLOP (0.49 ms at 989 TFLOP/s); the partials add 2 x 17 MB.
 //  3. mlp_bwd_reduce_dw / _db: the partials summed in a fixed order.
 // No atomics: the result is the same from run to run.  The workspace
 // (8 KB a row: 3.9 GB at 479,966 rows) is the price of not holding dW in
@@ -78,26 +82,6 @@
 
 #include "mlp_common.cuh"
 #include "mlp_wgmma.cuh"
-
-namespace mlp {
-
-// The weight-gradient pass's plan, made by the wrapper (mlp_fused.wgrad_plan)
-// and passed by value: CTA b takes job b % jobs over the rows of split
-// b / jobs, so the jobs of one split are neighbours in launch order.  Job
-// j multiplies matrix e = job_e[j] (A_e the workspace buffer e, x for e =
-// 8; G_e buffer 8 + e, gmb_5 for e = 8) for dW rows 128·job_tile[j] ..;
-// split s owns workspace stages split_stage[s] .. split_stage[s + 1] - 1 of
-// stage_rows rows each.  kx = ceil(din / 64): dW[0] and dW[8] are zero
-// from row 64·kx on, where no job or no job's result is read.
-constexpr int WG_MAX_SPLITS = 32;
-constexpr int WG_MAX_JOBS = 2 * (DEPTH + 1);
-struct WgradPlan {
-  int splits, jobs, kx, stage_rows;
-  int split_stage[WG_MAX_SPLITS + 1];
-  int job_e[WG_MAX_JOBS], job_tile[WG_MAX_JOBS];
-};
-
-}  // namespace mlp
 
 namespace {
 
@@ -253,21 +237,36 @@ constexpr int WG_STAGE = 6 * WG_BLK;    // A: 2 blocks (128 features), G: 4 (256
 constexpr size_t WGRAD_SMEM = (size_t)WG_RING * WG_STAGE * sizeof(bf16) + 1024;
 static_assert(WGRAD_SMEM <= 232448, "shared memory");
 
+// The pass's jobs at input width din: the 128-row tiles of the 9 dW
+// matrices in order, two each, but one of dW[0] and dW[8] (A is x, zero
+// past din) at din <= 128.
+__host__ __device__ constexpr int wgrad_x_tiles(int din) { return din > WG_TILE ? 2 : 1; }
+__host__ __device__ constexpr int wgrad_jobs(int din) {
+  return 2 * (DEPTH - 1) + 2 * wgrad_x_tiles(din);
+}
+
 // Weight gradients: partial[s][e] rows 128·tile .. = A_eᵀ·G_e over split
 // s's rows, each warpgroup 64 dW rows x 256 columns on wgmma m64n256k16
 // with both operands MN-major (mlp_wgmma.cuh's desc_mn): a stage's A is
 // its rows' 128 features of A_e as two [R][64] blocks, its G the rows'
 // 256 features of G_e as four, copied by every thread with cp.async into
 // the 128-byte-swizzled layout; WG_LEAD stages load while one multiplies,
-// and its products run on while the next stage is waited for.
+// and its products run on while the next stage is waited for.  CTA b runs
+// job b % jobs over split b / jobs, which owns stages s·stages/splits ..
+// (s+1)·stages/splits - 1 (none, for a split past the rows).  A_e is
+// buffer e (x, then a_0..a_6) for e < 8 and x for e = 8; G_e buffer 8 + e,
+// gmb_5 for e = 8.
 __global__ void __launch_bounds__(THREADS, 1)
-mlp_bwd_wgrad(const bf16* __restrict__ ws, float* __restrict__ dw_part, int npad,
-              const __grid_constant__ WgradPlan plan) {
+mlp_bwd_wgrad(const bf16* __restrict__ ws, float* __restrict__ dw_part, int npad, int splits,
+              int din) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   bf16* ring = reinterpret_cast<bf16*>(smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
-  const int job = blockIdx.x % plan.jobs, s = blockIdx.x / plan.jobs;
-  const int e = plan.job_e[job], tile = plan.job_tile[job];
-  const int st0 = plan.split_stage[s], nst = plan.split_stage[s + 1] - st0;
+  const int jobs = wgrad_jobs(din);
+  const int job = blockIdx.x % jobs, s = blockIdx.x / jobs;
+  // job j is tile q % 2 of matrix q / 2, q = j past dW[0]'s lone tile + 1
+  const int q = job == 0 ? 0 : job + 2 - wgrad_x_tiles(din), e = q >> 1, tile = q & 1;
+  const int stages = npad / WG_R;
+  const int st0 = s * stages / splits, nst = (s + 1) * stages / splits - st0;
   const size_t buf = (size_t)npad * W, row0 = (size_t)st0 * WG_R;
   const bf16* A = ws + (size_t)(e < DEPTH ? e : 0) * buf + row0 * W + tile * WG_TILE;
   const bf16* G = ws + (size_t)(DEPTH + (e < DEPTH ? e : SKIP + 1)) * buf + row0 * W;
@@ -325,8 +324,9 @@ mlp_bwd_wgrad(const bf16* __restrict__ ws, float* __restrict__ dw_part, int npad
 }
 
 // dW = Σ_s partial[s], s in order, four elements a thread; the rows of
-// dW[0] and dW[8] from 64·kx on are zero (x's lanes there are zero), their
-// partials not read.
+// dW[0] and dW[8] from 64·kx on, kx = ceil(din/64), are written as zeros
+// (x's lanes there are zero; see the header for a non-finite cotangent),
+// their partials not read.
 __global__ void mlp_bwd_reduce_dw(const float* __restrict__ dw_part, float* __restrict__ dw,
                                   int splits, int kx) {
   constexpr size_t total = (size_t)(DEPTH + 1) * W * W;
@@ -384,31 +384,24 @@ extern "C" int mlp_bwd_rows_launch(const float* x, const void* wpack, const void
 }
 
 // Passes 2 and 3: that workspace and db_part (blocks = ceil(n/128) row
-// blocks) → dw (9,256,256) and db (8,256) f32, through the scratch dw_part
-// (plan->splits, 9, 256, 256) f32, of which only the rows the plan's jobs
-// cover are written and read.
+// blocks) at input width din → dw (9,256,256) and db (8,256) f32, through
+// the scratch dw_part (splits, 9, 256, 256) f32, of which only the rows the
+// pass's jobs cover are written and read.
 extern "C" int mlp_bwd_wgrad_launch(const void* ws, const float* db_part, float* dw_part,
-                                    float* dw, float* db, int blocks, const WgradPlan* plan,
+                                    float* dw, float* db, int blocks, int splits, int din,
                                     void* stream) {
   if (blocks <= 0) return 0;
-  if (!plan || plan->splits <= 0 || plan->splits > WG_MAX_SPLITS || plan->jobs <= 0 ||
-      plan->jobs > WG_MAX_JOBS || plan->kx < 1 || plan->kx > W / KC ||
-      plan->stage_rows != WG_R || plan->split_stage[0] != 0 ||
-      plan->split_stage[plan->splits] * WG_R != blocks * BM)
-    return (int)cudaErrorInvalidValue;
+  if (splits <= 0 || din <= 0 || din > W) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t e = cudaFuncSetAttribute(mlp_bwd_wgrad, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)WGRAD_SMEM);
   if (e != cudaSuccess) return (int)e;
-  mlp_bwd_wgrad<<<plan->splits * plan->jobs, THREADS, WGRAD_SMEM, st>>>(
-      static_cast<const bf16*>(ws), dw_part, blocks * BM, *plan);
+  mlp_bwd_wgrad<<<splits * wgrad_jobs(din), THREADS, WGRAD_SMEM, st>>>(
+      static_cast<const bf16*>(ws), dw_part, blocks * BM, splits, din);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   const int quads = (DEPTH + 1) * W * W / 4;
-  mlp_bwd_reduce_dw<<<(quads + 255) / 256, 256, 0, st>>>(dw_part, dw, plan->splits, plan->kx);
+  mlp_bwd_reduce_dw<<<(quads + 255) / 256, 256, 0, st>>>(dw_part, dw, splits, (din + KC - 1) / KC);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   mlp_bwd_reduce_db<<<DEPTH * W / 32, THREADS, 0, st>>>(db_part, db, blocks);
   return (int)cudaGetLastError();
 }
-
-// Marks the launcher that takes a WgradPlan (tools/torch_shade_bwd_variants.py).
-extern "C" int takes_wgrad_plan() { return 1; }

@@ -21,7 +21,6 @@ bf16 activation as float32.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -175,15 +174,9 @@ def trunk_fwd(x: torch.Tensor, wpack: torch.Tensor, bpack: torch.Tensor,
 trunk_fwd.launches = 0
 
 # rows per CTA of the backward's row pass (csrc/mlp_bwd.cu; it fixes the
-# workspace's size), and the weight-gradient pass's tiling: stages of 64
-# workspace rows, 128 dW rows a CTA, at most 32 row splits and 2 tiles for
-# each of the 9 matrices
+# workspace's size)
 BWD_ROWS = 128
 BWD_BUFFERS = 2 * DEPTH         # bf16 x, activations 0..6, the 8 masked gradients
-WGRAD_STAGE_ROWS = 64
-WGRAD_TILE = 128
-WGRAD_MAX_SPLITS = 32
-WGRAD_MAX_JOBS = 2 * (DEPTH + 1)
 
 
 def transpose_pack(wpack: torch.Tensor) -> torch.Tensor:
@@ -211,57 +204,26 @@ def stage_pack(wpackt: torch.Tensor) -> torch.Tensor:
     return st[:, n, src].reshape(STAGE_PACK_SHAPE).contiguous()
 
 
-class WgradPlan(ctypes.Structure):
-    """The weight-gradient pass's plan, csrc/mlp_bwd.cu's ``WgradPlan``:
-    CTA b runs job b % jobs over the stages of split b // jobs; job j is
-    matrix ``job_e[j]``, dW rows 128·``job_tile[j]`` .. + 127; split s owns
-    stages ``split_stage[s]`` .. ``split_stage[s + 1]`` - 1 of
-    ``stage_rows`` rows; dW[0] and dW[8] are zero from row 64·``kx`` on."""
-    _fields_ = [("splits", ctypes.c_int), ("jobs", ctypes.c_int), ("kx", ctypes.c_int),
-                ("stage_rows", ctypes.c_int),
-                ("split_stage", ctypes.c_int * (WGRAD_MAX_SPLITS + 1)),
-                ("job_e", ctypes.c_int * WGRAD_MAX_JOBS),
-                ("job_tile", ctypes.c_int * WGRAD_MAX_JOBS)]
-
-
-@functools.lru_cache(maxsize=256)
-def wgrad_plan(blocks: int, din: int, sms: int) -> WgradPlan:
-    """The plan of the weight-gradient pass over ``blocks`` row blocks of
-    128 at input width ``din`` on a card with ``sms`` SMs (do not modify:
-    cached).  Jobs: for each matrix e in order, its 128-row dW tiles; those
-    of dW[0] and dW[8] (A is x) only as far as x's din lanes reach.
-    Splits: as many as fit one wave beside the jobs (SMs // jobs, at least
-    1, at most 32), the stages dealt out evenly, split s from stage
-    s·stages // splits on (a split may get none)."""
-    jobs = [(e, tile) for e in range(DEPTH + 1)
-            for tile in range(-(-din // WGRAD_TILE) if e in (0, DEPTH) else WIDTH // WGRAD_TILE)]
-    splits = max(1, min(WGRAD_MAX_SPLITS, sms // len(jobs)))
-    stages = blocks * BWD_ROWS // WGRAD_STAGE_ROWS
-    plan = WgradPlan(splits=splits, jobs=len(jobs), kx=-(-din // 64), stage_rows=WGRAD_STAGE_ROWS)
-    for s in range(splits + 1):
-        plan.split_stage[s] = s * stages // splits
-    for j, (e, tile) in enumerate(jobs):
-        plan.job_e[j], plan.job_tile[j] = e, tile
-    return plan
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def wgrad_splits(din: int, sms: int) -> int:
+    """Row splits of kernel 6's weight-gradient pass at input width din on
+    a card of sms SMs: as many as fit one wave beside its jobs, at least 1.
+    Its jobs (csrc/mlp_bwd.cu's wgrad_jobs) are the 128-row dW tiles of the
+    9 matrices, two each but one of dW[0] and dW[8] at din <= 128 (x's lanes
+    past din are zero): 16 or 18."""
+    jobs = 2 * (DEPTH - 1) + 2 * (1 if din <= 128 else 2)
+    return max(1, sms // jobs)
 
 
 def _bwd_buffers(n: int, din: int, dev: torch.device):
     """Kernel 6's scratch for n rows at input width din on the CUDA device
-    dev (a tensor's, with its index): the workspace (16, rows padded to
-    128, 256) bf16, the row blocks' bias-gradient sums and the
-    weight-gradient pass's partials (splits, 9, 256, 256), float32; and
-    that pass's plan for this card."""
+    dev: the workspace (16, rows padded to 128, 256) bf16, the row blocks'
+    bias-gradient sums and the weight-gradient pass's partials (splits, 9,
+    256, 256), float32."""
     blocks = -(-n // BWD_ROWS)
-    plan = wgrad_plan(blocks, din, _sm_count(dev.index))
+    splits = wgrad_splits(din, torch.cuda.get_device_properties(dev).multi_processor_count)
     return (torch.empty((BWD_BUFFERS, blocks * BWD_ROWS, WIDTH), dtype=torch.bfloat16, device=dev),
             torch.empty((blocks, DEPTH, WIDTH), dtype=torch.float32, device=dev),
-            torch.empty((plan.splits, DEPTH + 1, WIDTH, WIDTH), dtype=torch.float32, device=dev),
-            plan)
+            torch.empty((splits, DEPTH + 1, WIDTH, WIDTH), dtype=torch.float32, device=dev))
 
 
 def _bwd_rows(x, wpack, wpackt, bpack, g, dx, ws, db_part) -> None:
@@ -275,13 +237,15 @@ def _bwd_rows(x, wpack, wpackt, bpack, g, dx, ws, db_part) -> None:
             torch.cuda.current_stream(x.device).cuda_stream)
 
 
-def _bwd_wgrad(ws, db_part, dw_part, dw, db, plan: WgradPlan) -> None:
+def _bwd_wgrad(ws, db_part, dw_part, dw, db, din: int) -> None:
     """Kernel 6's weight-gradient pass and both reductions, on the current
-    stream: dW and db from the row pass's workspace and sums, by ``plan``."""
+    stream: dW and db from the row pass's workspace and sums at input width
+    din, over as many row splits as dw_part holds."""
     _launch("mlp_bwd", "mlp_bwd_wgrad_launch",
-            [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.POINTER(WgradPlan), ctypes.c_void_p],
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
             ws.data_ptr(), db_part.data_ptr(), dw_part.data_ptr(), dw.data_ptr(), db.data_ptr(),
-            db_part.shape[0], ctypes.byref(plan), torch.cuda.current_stream(ws.device).cuda_stream)
+            db_part.shape[0], dw_part.shape[0], din,
+            torch.cuda.current_stream(ws.device).cuda_stream)
 
 
 def trunk_bwd(x: torch.Tensor, wpack: torch.Tensor, bpack: torch.Tensor,
@@ -309,11 +273,11 @@ def trunk_bwd(x: torch.Tensor, wpack: torch.Tensor, bpack: torch.Tensor,
     db = torch.empty((DEPTH, WIDTH), dtype=torch.float32, device=dev)
     if n == 0:
         return dx, dw.zero_(), db.zero_()
-    ws, db_part, dw_part, plan = _bwd_buffers(n, din, dev)
+    ws, db_part, dw_part = _bwd_buffers(n, din, dev)
     with torch.cuda.device(dev):
         _bwd_rows(x, wpack, transpose_pack(wpack) if wpackt is None else wpackt, bpack, g, dx,
                   ws, db_part)
-        _bwd_wgrad(ws, db_part, dw_part, dw, db, plan)
+        _bwd_wgrad(ws, db_part, dw_part, dw, db, din)
     trunk_bwd.launches += 1
     return dx, dw, db
 

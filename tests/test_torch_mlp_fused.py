@@ -192,45 +192,41 @@ def test_x_weight_gradients_are_zero_past_din(din):
 @pytest.mark.parametrize("sms", [132, 114])
 @pytest.mark.parametrize("din", [1, 64, 65, 93, 128, 129, 256])
 def test_wgrad_plan_covers_every_product_once(din, sms):
-    """Kernel 6's weight-gradient plan (mlp_fused.wgrad_plan, which the
-    kernel runs as given) at every trunk shape chip_smoke.py holds and on
-    132 and 114 SMs: one wave (splits x jobs <= SMs); the stages dealt out
-    evenly, in order, over all the rows; each (matrix e, 128-row dW tile,
-    workspace row) covered by exactly one CTA, except the tiles of dW[0]
-    and dW[8] wholly past din, covered by none (the reduction writes zeros
-    from row 64·ceil(din/64) on); the two tiles of one matrix and split
-    next to each other in launch order."""
+    """Kernel 6's weight-gradient plan at every trunk shape chip_smoke.py
+    holds and on 132 and 114 SMs: the wrapper's row splits
+    (mlp_fused.wgrad_splits) fill one wave beside the jobs, and the
+    kernel's rule (csrc/mlp_bwd.cu's mlp_bwd_wgrad, written out here: CTA b
+    runs job j = b % jobs, tile q % 2 of matrix q // 2 with q = j past
+    dW[0]'s lone tile + 1, over split s = b // jobs's stages s·stages //
+    splits ..) covers each (matrix e, 128-row dW tile, 64-row workspace
+    stage) with exactly one CTA, except the tiles of dW[0] and dW[8] wholly
+    past din, covered by none (the reduction writes zeros from row
+    64·ceil(din/64) on); the two tiles of one matrix and split are next to
+    each other in launch order."""
     import chip_smoke as cs
+    x_tiles = 1 if din <= 128 else 2
+    jobs = 2 * (DEPTH - 1) + 2 * x_tiles
+    splits = MF.wgrad_splits(din, sms)
+    assert splits * jobs <= sms < (splits + 1) * jobs
     for n in sorted({n for n, *_ in cs.MLP_EDGE_SHAPES} | set(cs.MLP_ROWS)):
-        blocks = -(-n // MF.BWD_ROWS)
-        npad = blocks * MF.BWD_ROWS
-        plan = MF.wgrad_plan(blocks, din, sms)
-        S, J = plan.splits, plan.jobs
-        x_tiles = 1 if din <= 128 else 2
-        assert plan.kx == -(-din // 64) and plan.stage_rows == MF.WGRAD_STAGE_ROWS
-        assert J == 14 + 2 * x_tiles and 1 <= S <= MF.WGRAD_MAX_SPLITS
-        assert S * J <= sms < (S + 1) * J
-        stages = list(plan.split_stage[:S + 1])
-        assert stages[0] == 0 and stages[-1] * plan.stage_rows == npad
-        sizes = np.diff(stages)
-        assert (sizes >= 0).all() and sizes.max() - sizes.min() <= 1
+        stages = -(-n // MF.BWD_ROWS) * MF.BWD_ROWS // 64
         covered = {}
-        for b in range(S * J):
-            j, s = b % J, b // J
-            e, tile = plan.job_e[j], plan.job_tile[j]
-            assert 0 <= e <= DEPTH and tile in (0, 1)
+        for b in range(splits * jobs):
+            j, s = b % jobs, b // jobs
+            q = 0 if j == 0 else j + 2 - x_tiles
+            e, tile = q // 2, q % 2
             if tile == 1:
-                assert (plan.job_e[j - 1], plan.job_tile[j - 1]) == (e, 0)
+                qp = 0 if j - 1 == 0 else j + 1 - x_tiles
+                assert (qp // 2, qp % 2) == (e, 0)
             covered.setdefault((e, tile), []).append(
-                (stages[s] * plan.stage_rows, stages[s + 1] * plan.stage_rows))
-        for e in range(DEPTH + 1):
-            for tile in range(2):
-                spans = sorted(covered.get((e, tile), []))
-                if e in (0, DEPTH) and tile >= x_tiles:
-                    assert not spans, (n, e, tile)
-                    continue
-                assert spans[0][0] == 0 and spans[-1][1] == npad, (n, e, tile)
-                assert all(a[1] == b[0] for a, b in zip(spans, spans[1:])), (n, e, tile)
+                (s * stages // splits, (s + 1) * stages // splits))
+        want = {(e, tile) for e in range(DEPTH + 1) for tile in range(2)
+                if e not in (0, DEPTH) or tile < x_tiles}
+        assert set(covered) == want, n
+        for spans in covered.values():
+            spans.sort()
+            assert spans[0][0] == 0 and spans[-1][1] == stages, n
+            assert all(a[1] == b[0] and a[0] <= a[1] for a, b in zip(spans, spans[1:])), n
 
 
 def test_twin_of_a_padded_input_is_the_unpadded_one():

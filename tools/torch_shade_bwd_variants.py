@@ -8,7 +8,7 @@ its fused trunk (kernels 5 and 6), side by side on one NVIDIA GPU.
     python3 tools/torch_shade_bwd_variants.py [--random] COMPOSITE_BWD.cu ...
     python3 tools/torch_shade_bwd_variants.py [--random] COMPOSITE.cu[:noS] ...
     python3 tools/torch_shade_bwd_variants.py TRUNK_FWD.cu[:transposed] ...
-    python3 tools/torch_shade_bwd_variants.py TRUNK_BWD.cu ...
+    python3 tools/torch_shade_bwd_variants.py TRUNK_BWD.cu[:nodin] ...
 
 Versions of the mesh shade forward (kernel 3): each SHADE.cu is a version
 of ``dgmesh_torch/csrc/shade.cu`` that exports ``shade_tiles_launch`` with
@@ -69,8 +69,9 @@ the first source's bit for bit.
 Versions of the fused trunk backward (kernel 6): each TRUNK_BWD.cu is a
 version of ``dgmesh_torch/csrc/mlp_bwd.cu`` that exports
 ``mlp_bwd_rows_launch`` and ``mlp_bwd_wgrad_launch`` with their C
-signatures: with the weight-gradient pass's plan where it exports
-``takes_wgrad_plan``, else (the pass before its plan) with 32 row splits.
+signatures, the weight-gradient pass given mlp_fused's row splits and the
+input width, or with the ``:nodin`` suffix 32 row splits and no width (that
+pass's signature before its wgmma redesign).
 The same rows and trunk as kernel 5's, with a seeded normal cotangent;
 printed per shape the time torch.sum takes to read a bf16 tensor of the
 workspace's size (the rate a read-only pass reaches), and per source: ms
@@ -234,22 +235,21 @@ def trunk_fwd_main(torch, chip_smoke, libs, transposed, dev) -> int:
     return 0
 
 
-OLD_WGRAD_SPLITS = 32   # the row splits of the weight-gradient pass before its plan
+NODIN_SPLITS = 32   # the row splits of the weight-gradient pass before its redesign
 
 
-def trunk_bwd_launcher(torch, lib):
+def trunk_bwd_launcher(torch, lib, nodin):
     """The version's kernel 6 on (x, wpack, wpackt, bpack, g): ``run`` →
     (dx, dW, db), both passes; ``run.passes`` → (rows, wgrad, outputs), the
-    two passes as functions of no argument on that call's buffers.  A
-    version that exports ``takes_wgrad_plan`` gets mlp_fused's plan, one
-    without it (before the plan) 32 row splits."""
+    two passes as functions of no argument on that call's buffers.  With
+    ``nodin`` its weight-gradient launcher takes no input width and runs 32
+    row splits."""
     from dgmesh_torch.ops import mlp_fused as MF
-    planned = hasattr(lib, "takes_wgrad_plan")
     rows_fn = lib.mlp_bwd_rows_launch
     rows_fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     wgrad_fn = lib.mlp_bwd_wgrad_launch
-    wgrad_fn.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_int, ctypes.POINTER(MF.WgradPlan) if planned else ctypes.c_int, ctypes.c_void_p]
+    wgrad_fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * (2 if nodin else 3) + [
+        ctypes.c_void_p]
     rows_fn.restype = wgrad_fn.restype = ctypes.c_int
 
     def check(err):
@@ -262,18 +262,18 @@ def trunk_bwd_launcher(torch, lib):
         dx = torch.empty((n, din), dtype=torch.float32, device=dev)
         dw = torch.empty((MF.DEPTH + 1, 256, 256), dtype=torch.float32, device=dev)
         db = torch.empty((MF.DEPTH, 256), dtype=torch.float32, device=dev)
-        ws, db_part, dw_part, plan = MF._bwd_buffers(n, din, dev)
-        if not planned:
-            dw_part = torch.empty((OLD_WGRAD_SPLITS, MF.DEPTH + 1, 256, 256),
+        ws, db_part, dw_part = MF._bwd_buffers(n, din, dev)
+        if nodin:
+            dw_part = torch.empty((NODIN_SPLITS, MF.DEPTH + 1, 256, 256),
                                   dtype=torch.float32, device=dev)
-        arg = ctypes.byref(plan) if planned else OLD_WGRAD_SPLITS
+        width = () if nodin else (din,)
         stream = torch.cuda.current_stream().cuda_stream
         return (lambda: check(rows_fn(x.data_ptr(), wb.data_ptr(), wt.data_ptr(), bp.data_ptr(),
                                       g.data_ptr(), dx.data_ptr(), ws.data_ptr(),
                                       db_part.data_ptr(), n, din, stream)),
                 lambda: check(wgrad_fn(ws.data_ptr(), db_part.data_ptr(), dw_part.data_ptr(),
-                                       dw.data_ptr(), db.data_ptr(), db_part.shape[0], arg,
-                                       stream)),
+                                       dw.data_ptr(), db.data_ptr(), db_part.shape[0],
+                                       dw_part.shape[0], *width, stream)),
                 (dx, dw, db))
 
     def run(x, wb, wt, bp, g):
@@ -285,10 +285,11 @@ def trunk_bwd_launcher(torch, lib):
     return run
 
 
-def trunk_bwd_main(torch, chip_smoke, libs, dev) -> int:
-    """Kernel 6's versions at TRUNK_SHAPES (module docstring)."""
+def trunk_bwd_main(torch, chip_smoke, libs, nodin, dev) -> int:
+    """Kernel 6's versions at TRUNK_SHAPES (module docstring); those in
+    ``nodin`` with the weight-gradient launcher before its redesign."""
     from dgmesh_torch.ops import mlp_fused as MF
-    runs = {src: trunk_bwd_launcher(torch, lib) for src, (lib, _) in libs.items()}
+    runs = {src: trunk_bwd_launcher(torch, lib, src in nodin) for src, (lib, _) in libs.items()}
     rng = np.random.default_rng(0)
     for n, din in TRUNK_SHAPES:
         _, wb, bp = chip_smoke.random_trunk(torch, din, dev, seed=0)
@@ -701,9 +702,11 @@ def main() -> int:
     import chip_smoke
     from dgmesh_torch.ops import mesh_raster_kernels as MK
     named = [s for s in sys.argv[1:] if not s.startswith("--")]
-    sources = [s.removesuffix(":transposed").removesuffix(":noS") for s in named]
+    sources = [s.removesuffix(":transposed").removesuffix(":noS").removesuffix(":nodin")
+               for s in named]
     transposed = {s.removesuffix(":transposed") for s in named if s.endswith(":transposed")}
     no_s = {s.removesuffix(":noS") for s in named if s.endswith(":noS")}
+    nodin = {s.removesuffix(":nodin") for s in named if s.endswith(":nodin")}
     print(chip_smoke.card_line(), flush=True)
     libs = build(sources, os.path.join(ROOT, "build", "variants"))
     for src, (_, lines) in libs.items():
@@ -713,7 +716,7 @@ def main() -> int:
     if all(hasattr(lib, "mlp_fwd_launch") for lib, _ in libs.values()):
         return trunk_fwd_main(torch, chip_smoke, libs, transposed, dev)
     if all(hasattr(lib, "mlp_bwd_rows_launch") for lib, _ in libs.values()):
-        return trunk_bwd_main(torch, chip_smoke, libs, dev)
+        return trunk_bwd_main(torch, chip_smoke, libs, nodin, dev)
     if all(hasattr(lib, "shade_tiles_launch") for lib, _ in libs.values()):
         return shade_fwd_main(torch, chip_smoke, libs, dev)
     if all(hasattr(lib, "composite_tiles_launch") for lib, _ in libs.values()):
