@@ -33,7 +33,10 @@ Phases; any failure exits non-zero and prints no result:
                 6's two passes timed apart (its weight-gradient pass
                 beside its floor and cuBLAS's nine products), then at the
                 shapes their tiling makes special (MLP_EDGE_SHAPES), kernel
-                6 launched twice there too;
+                6 launched twice there too; wherever the trunk is held
+                (here, 5f and 8), every group of equal input rows must
+                come out with the same bits, and the norm ratios weigh
+                each group once (trunk_measures);
      3t: kernels 1-4 on the tiles [T/2, T) alone, launched with tile0 =
                 T/2 (a rank's block of tiles): the same bits as those tiles
                 of the whole launch, and each against its twin given tile0;
@@ -664,29 +667,70 @@ def random_trunk(torch, din, device, seed):
     return trunk, wpack.detach().to(torch.bfloat16).contiguous(), bpack.detach().contiguous()
 
 
-def compare_trunk(torch, MF, x, wb, bp, g):
-    """Kernels 5 and 6 against their twins on rows x and cotangent g: every
-    NaN and infinity where the twin has one, and the limits on the elements
-    where the twin is finite.  Returns (ok, {output: (max |Δ| / max |twin|,
-    ‖Δ‖ / ‖twin‖, max |Δ|)})."""
-    got = [MF.trunk_fwd(x, wb, bp), *MF.trunk_bwd(x, wb, bp, g)]
-    want = [MF.trunk_fwd_ref(x, wb, bp), *MF.trunk_bwd_ref(x, wb, bp, g)]
-    torch.cuda.synchronize()
-    rep, same_nonfinite = {}, True
+def row_groups(torch, key):
+    """The groups of equal rows of key (N, k), float32: for every row the
+    index of its group's first row, and those first rows in row order.
+    Rows are equal when their bits are; a row holding a NaN is a group of
+    its own (NaN is equal to nothing)."""
+    n = key.shape[0]
+    idx = torch.arange(n, device=key.device)
+    alone = torch.where(torch.isnan(key).any(1), idx, -1).to(torch.int32)
+    _, inv = torch.unique(torch.cat([key.contiguous().view(torch.int32), alone[:, None]], 1),
+                          dim=0, return_inverse=True)
+    first = torch.full((int(inv.max()) + 1,), n, dtype=idx.dtype, device=key.device)
+    first.scatter_reduce_(0, inv, idx, "amin")
+    return first[inv], first.sort().values
+
+
+def trunk_measures(torch, x, g, got, want):
+    """Kernels 5 and 6's (out, dx, dW, db) ``got`` against their twins'
+    ``want`` on rows x and cotangent g, on any device: every NaN and
+    infinity where the twin has one, over all rows, and the limits on the
+    elements where the twin is finite.  The rows of out are grouped by their
+    input row x and those of dx by (x, g) (row_groups): every row of a group
+    must have the bits of the group's first row, and the norm ratio weighs
+    each group once, by that row, so that one input repeated on most rows
+    (the dead Gaussian slots) does not set it alone; on distinct rows it is
+    the ratio over all rows, to the bit.  The max ratios run over all rows;
+    dW and db are sums over the rows, as the step uses them.  Returns (ok,
+    rep, groups): rep {output: (max |Δ| / max |twin|, ‖Δ‖ / ‖twin‖, max |Δ|,
+    ‖Δ‖ / ‖twin‖ over all rows)}, groups {"out" and "dx": (distinct rows,
+    every group the same bits)}."""
+    keys = {"out": x, "dx": torch.cat([x, g], 1)}
+    rep, groups, same_nonfinite = {}, {}, True
     for name, a, b in zip(("out", "dx", "dW", "db"), got, want):
         fin = torch.isfinite(b)
         same_nonfinite &= (torch.equal(torch.isfinite(a), fin)
                            and torch.equal(torch.isnan(a), torch.isnan(b)))
         d = torch.where(fin, a.double() - b.double(), 0.0)
         bf = torch.where(fin, b.double(), 0.0)
-        rep[name] = (float(d.abs().max()) / max(float(bf.abs().max()), 1e-30),
-                     float(d.norm()) / max(float(bf.norm()), 1e-30),
-                     float(d.abs().max()))
-    ok = (same_nonfinite
-          and rep["out"][0] <= TOL_MLP_FWD_MAX and rep["out"][1] <= TOL_MLP_FWD_NORM
-          and all(rep[k][1] <= TOL_MLP_BWD_NORM for k in ("dx", "dW", "db"))
-          and all(rep[k][0] <= TOL_MLP_BWD_MAX for k in ("dW", "db")))
-    return ok, rep
+        worst = (float(d.abs().max()) / max(float(bf.abs().max()), 1e-30), float(d.abs().max()))
+        norm_all = float(d.norm()) / max(float(bf.norm()), 1e-30)
+        norm = norm_all
+        if name in keys:
+            first, reps = row_groups(torch, keys[name])
+            bits = a.view(torch.int32)
+            groups[name] = (reps.numel(), torch.equal(bits[first], bits))
+            norm = float(d[reps].norm()) / max(float(bf[reps].norm()), 1e-30)
+        rep[name] = (worst[0], norm, worst[1], norm_all)
+    ok = same_nonfinite and all(same for _, same in groups.values()) and trunk_limits(rep)
+    return ok, rep, groups
+
+
+def trunk_limits(rep):
+    """Whether the ratios (max, norm, ...) of rep are within TOL_MLP_*."""
+    return (rep["out"][0] <= TOL_MLP_FWD_MAX and rep["out"][1] <= TOL_MLP_FWD_NORM
+            and all(rep[k][1] <= TOL_MLP_BWD_NORM for k in ("dx", "dW", "db"))
+            and all(rep[k][0] <= TOL_MLP_BWD_MAX for k in ("dW", "db")))
+
+
+def compare_trunk(torch, MF, x, wb, bp, g):
+    """Kernels 5 and 6 against their twins on the card, on rows x and
+    cotangent g (trunk_measures)."""
+    got = [MF.trunk_fwd(x, wb, bp), *MF.trunk_bwd(x, wb, bp, g)]
+    want = [MF.trunk_fwd_ref(x, wb, bp), *MF.trunk_bwd_ref(x, wb, bp, g)]
+    torch.cuda.synchronize()
+    return trunk_measures(torch, x, g, got, want)
 
 
 def trunk_pass_times(torch, MF, x, wb, bp, g):
@@ -734,8 +778,11 @@ def library_wgrad_ms(torch, ws):
     return time_cuda(torch, run, 5)
 
 
-def trunk_report(rep):
-    return ", ".join(f"{k} max {v[0]:.3g} norm {v[1]:.3g}" for k, v in rep.items())
+def trunk_report(rep, groups):
+    return (", ".join(f"{k} max {v[0]:.3g} norm {v[1]:.3g}" for k, v in rep.items())
+            + f" (norms over {groups['out'][0]} distinct rows for out, {groups['dx'][0]} "
+            f"distinct (x, g) rows for dx; every group of equal rows the same bits: "
+            f"{'yes' if all(same for _, same in groups.values()) else 'NO'})")
 
 
 def cotangents(rng, T, P):
@@ -1291,11 +1338,11 @@ def main() -> int:
     for n in MLP_ROWS:
         x = torch.as_tensor(rng.uniform(-1.0, 1.0, (n, MLP_DIN)).astype(np.float32), device=dev)
         g = torch.as_tensor(rng.normal(size=(n, 256)).astype(np.float32), device=dev)
-        ok, rep = compare_trunk(torch, MF, x, wb, bp, g)
+        ok, rep, groups = compare_trunk(torch, MF, x, wb, bp, g)
         errs["trunk_fwd"].append(rep["out"][2])
         errs["trunk_bwd"].append(max(rep[k][2] for k in ("dx", "dW", "db")))
-        log(f"# kernels/random: trunk_fwd/trunk_bwd ({n},{MLP_DIN}): {trunk_report(rep)} "
-            f"{'ok' if ok else 'FAIL'}")
+        log(f"# kernels/random: trunk_fwd/trunk_bwd ({n},{MLP_DIN}): "
+            f"{trunk_report(rep, groups)} {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"trunk kernels vs twins (random, {n} rows)")
         # kernels 5 and 6 twice on the same inputs: fixed-order sums, the same bits
@@ -1329,7 +1376,7 @@ def main() -> int:
         what = f"({n},{din}{', ' + case[0] if case else ''})"
         if case:
             x[::7, 3] = float("nan")
-        ok, rep = compare_trunk(torch, MF, x, wbe, bpe, g)
+        ok, rep, groups = compare_trunk(torch, MF, x, wbe, bpe, g)
         if case:
             n_nan = int(torch.isnan(MF.trunk_fwd(x, wbe, bpe)).all(1).sum())
             ok = ok and n_nan == len(range(0, n, 7))
@@ -1340,7 +1387,7 @@ def main() -> int:
         first, again = MF.trunk_bwd(x, wbe, bpe, g), MF.trunk_bwd(x, wbe, bpe, g)
         same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
                    for a, b in zip(first, again))
-        log(f"# kernels/edge: trunk_fwd/trunk_bwd {what}: {trunk_report(rep)} "
+        log(f"# kernels/edge: trunk_fwd/trunk_bwd {what}: {trunk_report(rep, groups)} "
             f"{'ok' if ok else 'FAIL'}; trunk_bwd twice "
             f"{'identical' if same else 'DIFFERENT'}")
         if not ok:
@@ -1630,11 +1677,11 @@ def main() -> int:
         x, g = x.detach(), g.detach()
         gmax = float(g.abs().max())
         # like kernels 2 and 4, each cotangent is scaled to a largest |value| of 1
-        ok, rep = compare_trunk(torch, MF, x, wb, bp, g / max(gmax, 1e-30))
+        ok, rep, groups = compare_trunk(torch, MF, x, wb, bp, g / max(gmax, 1e-30))
         errs["trunk_fwd"].append(rep["out"][2])
         errs["trunk_bwd"].append(max(rep[k][2] for k in ("dx", "dW", "db")))
         log(f"# kernels/train: trunk_fwd/trunk_bwd {tuple(x.shape)}, |g| max {gmax:.3g} "
-            f"scaled to 1: {trunk_report(rep)} {'ok' if ok else 'FAIL'}")
+            f"scaled to 1: {trunk_report(rep, groups)} {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"trunk kernels vs twins (training rows, {x.shape[0]})")
         rows.append((x, wb, bp, g / max(gmax, 1e-30)))
@@ -3069,11 +3116,12 @@ def capture_phase(torch, dev, failures, counters, kernels):
     dins = sorted({x.shape[1] for x, *_ in calls["trunk_bwd_kernel"]})
     for x, wb, bp, g, *_ in calls["trunk_bwd_kernel"]:
         x, g = x.detach(), g.detach()
-        ok, rep = compare_trunk(torch, MF, x, wb, bp, g / g.abs().max().clamp_min(1e-30))
+        g = g / g.abs().max().clamp_min(1e-30)
+        ok, rep, groups = compare_trunk(torch, MF, x, wb, bp, g)
         errs["trunk_fwd"].append(rep["out"][2])
         errs["trunk_bwd"].append(max(rep[k][2] for k in ("dx", "dW", "db")))
-        log(f"# kernels/capture: trunk_fwd/trunk_bwd {tuple(x.shape)}: {trunk_report(rep)} "
-            f"{'ok' if ok else 'FAIL'}")
+        log(f"# kernels/capture: trunk_fwd/trunk_bwd {tuple(x.shape)}: "
+            f"{trunk_report(rep, groups)} {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"capture: trunk kernels vs twins ({tuple(x.shape)})")
     x, wb, bp, g, *_ = max(calls["trunk_bwd_kernel"], key=lambda c: c[0].shape[0])

@@ -273,6 +273,140 @@ def test_twins_summation_order_spread(seed, monkeypatch):
         assert rel[name][0] <= cs.TOL_MLP_BWD_MAX / 2, (name, rel[name])
 
 
+# --- chip_smoke.py's gate for kernels 5 and 6 (trunk_measures) ------------------
+
+def _gate_rows(seed, repeated):
+    """chip_smoke.py's random trunk (din 93) on 2,048 seeded rows, row 0 and
+    its cotangent copied onto about a share ``repeated`` of the others (as
+    the dead Gaussian slots repeat one input row), and the twins' outputs.
+    Returns (chip_smoke, x, wb, bp, g, the copies' mask, twins' outputs)."""
+    import chip_smoke as cs
+    _, wb, bp = cs.random_trunk(torch, 93, "cpu", seed=seed)
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.uniform(-1, 1, (2048, 93)).astype(np.float32))
+    g = torch.tensor(rng.normal(size=(2048, 256)).astype(np.float32))
+    copies = torch.tensor(rng.random(2048) < repeated)
+    copies[0] = True
+    x[copies], g[copies] = x[0].clone(), g[0].clone()
+    return cs, x, wb, bp, g, copies, [MF.trunk_fwd_ref(x, wb, bp), *MF.trunk_bwd_ref(x, wb, bp, g)]
+
+
+def _all_rows_measures(got, want):
+    """The gate's measures with every ratio over all rows, as compare_trunk
+    took them before it grouped equal rows."""
+    rep = {}
+    for name, a, b in zip(("out", "dx", "dW", "db"), got, want):
+        fin = torch.isfinite(b)
+        d = torch.where(fin, a.double() - b.double(), 0.0)
+        bf = torch.where(fin, b.double(), 0.0)
+        rep[name] = (float(d.abs().max()) / max(float(bf.abs().max()), 1e-30),
+                     float(d.norm()) / max(float(bf.norm()), 1e-30), float(d.abs().max()))
+    return rep
+
+
+def _one_ulp_down_the_layers(x, wb, bp, layer):
+    """Row x's trunk output when its largest activation of ``layer`` rounds
+    to the next bf16 value up and the change runs down the later layers, as
+    the twins compute them: how a sum in another order moves a row."""
+    xb, acts = MF._forward_acts(x[None], wb, bp)
+    h = acts[layer].clone()
+    h.view(torch.int16)[0, int(h.float().abs().argmax())] += 1
+    for i in range(layer + 1, DEPTH):
+        y = MF._layer(h, wb[i])
+        if i == SKIP + 1:
+            y = y + MF._layer(xb, wb[DEPTH][:x.shape[0]])
+        h = torch.relu(y + bp[i]).to(torch.bfloat16)
+    return h.float()[0]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_trunk_gate_on_distinct_rows_is_the_all_rows_measure(seed, monkeypatch):
+    """On rows that are all distinct, the grouped measures are those over
+    all rows to the bit, so test_twins_summation_order_spread still
+    calibrates the limits; the 'kernel' here is the twin summing in
+    float64."""
+    cs, x, wb, bp, g, _, want = _gate_rows(seed, 0.0)
+    monkeypatch.setattr(MF, "_layer", lambda h, w: (h.double() @ w.double()).float())
+    got = [MF.trunk_fwd_ref(x, wb, bp), *MF.trunk_bwd_ref(x, wb, bp, g)]
+    ok, rep, groups = cs.trunk_measures(torch, x, g, got, want)
+    old = _all_rows_measures(got, want)
+    assert groups == {"out": (2048, True), "dx": (2048, True)}
+    assert rep["out"][1] > 0
+    for name in ("out", "dx", "dW", "db"):
+        assert rep[name][:3] == old[name] and rep[name][3] == old[name][1], name
+    assert ok
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_trunk_gate_weighs_a_repeated_row_once(seed):
+    """Row 0 on ~90% of the rows, its 'kernel' output one bf16 rounding
+    away from the twin's in layer 2 (every copy alike): the norm over all
+    rows is that one row's own error and fails the limit (the defect of the
+    gate before rows were grouped, which failed phase 8 on the card), the
+    grouped gate passes."""
+    cs, x, wb, bp, g, copies, want = _gate_rows(seed, 0.9)
+    got = [w.clone() for w in want]
+    got[0][copies] = _one_ulp_down_the_layers(x[0], wb, bp, 2)
+    ok, rep, groups = cs.trunk_measures(torch, x, g, got, want)
+    old = _all_rows_measures(got, want)["out"][1]
+    assert old > cs.TOL_MLP_FWD_NORM and rep["out"][3] == old
+    assert groups["out"] == (2048 - int(copies.sum()) + 1, True)
+    assert groups["dx"] == groups["out"]
+    assert rep["out"][1] <= cs.TOL_MLP_FWD_NORM / 4 and ok, rep
+
+
+def test_trunk_gate_fails_a_live_row_five_percent_off():
+    """A 5% error on one distinct row, among ~90% copies of row 0, fails the
+    grouped norm; over all rows the copies drowned it."""
+    cs, x, wb, bp, g, copies, want = _gate_rows(0, 0.9)
+    got = [w.clone() for w in want]
+    live = int(torch.nonzero(~copies & (want[0] > 0).any(1))[0, 0])
+    got[0][live] *= 1.05
+    ok, rep, _ = cs.trunk_measures(torch, x, g, got, want)
+    assert not ok and rep["out"][1] > cs.TOL_MLP_FWD_NORM, rep
+    assert _all_rows_measures(got, want)["out"][1] <= cs.TOL_MLP_FWD_NORM
+
+
+@pytest.mark.parametrize("output", ["out", "dx"])
+def test_trunk_gate_fails_a_copy_unlike_its_siblings(output):
+    """One copy of the repeated row whose output differs from its group's
+    first row by one float32 ulp in one element: every limit holds, the
+    same-bits check fails."""
+    cs, x, wb, bp, g, copies, want = _gate_rows(0, 0.9)
+    got = [w.clone() for w in want]
+    k = {"out": 0, "dx": 1}[output]
+    copy = int(torch.nonzero(copies)[1, 0])
+    j = int(got[k][copy].abs().argmax())
+    got[k][copy, j] = torch.nextafter(got[k][copy, j], torch.tensor(float("inf")))
+    ok, rep, groups = cs.trunk_measures(torch, x, g, got, want)
+    assert rep["out"][0] <= cs.TOL_MLP_FWD_MAX and rep["out"][1] <= cs.TOL_MLP_FWD_NORM
+    assert rep["dx"][1] <= cs.TOL_MLP_BWD_NORM
+    assert groups[output][1] is False and groups[{"out": "dx", "dx": "out"}[output]][1] is True
+    assert not ok
+
+
+def test_trunk_gate_keeps_nan_rows_apart_and_checks_their_place():
+    """A NaN in lane 3 of every seventh row, copies of row 0 among them: a
+    NaN row is equal to nothing, so each is a group of its own; the twin's
+    NaN rows pass, and a row where the 'kernel' lost its NaN fails."""
+    cs, x, wb, bp, g, copies, _ = _gate_rows(0, 0.9)
+    x[::7, 3] = float("nan")
+    want = [MF.trunk_fwd_ref(x, wb, bp), *MF.trunk_bwd_ref(x, wb, bp, g)]
+    nan = torch.zeros(2048, dtype=torch.bool)
+    nan[::7] = True
+    assert torch.equal(torch.isnan(want[0]).all(1), nan)
+    distinct = int(nan.sum()) + 1 + int((~nan & ~copies).sum())
+    if not bool((~nan & copies).any()):
+        distinct -= 1
+    first, reps = cs.row_groups(torch, x)
+    assert reps.numel() == distinct and torch.equal(first[nan], torch.nonzero(nan)[:, 0])
+    ok, _, groups = cs.trunk_measures(torch, x, g, want, want)
+    assert ok and groups["out"] == (distinct, True)
+    got = [w.clone() for w in want]
+    got[0][7] = 0.0
+    assert not cs.trunk_measures(torch, x, g, got, want)[0]
+
+
 def test_transposed_pack_is_each_matrix_transposed():
     """Kernel 6's row pass reads the forward's weights from the transposed
     pack: matrix m of it holds W[m]ᵀ, contiguous, so that a 64-column slice
