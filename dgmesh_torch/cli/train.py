@@ -8,8 +8,10 @@ The reference's flag surface (flat names from the parameter groups, the
 YAML taking precedence over the command line), its fixed seed (:888-891),
 the cfg dump (:919-934), checkpoints at --save_iterations and at the end,
 and a final test pass.  ``--profile_iters N`` profiles the first N
-iterations with torch.profiler (a Chrome trace under OUT/profile and the
-top operators printed).  ``--export_meshes N`` writes the dynamic mesh
+iterations with torch.profiler (a Chrome trace under OUT/profile, holding
+the program's spans of dgmesh_torch/tracing.py, and the top operators
+printed; ``python3 -m portbench.spans OUT/profile/trace.json`` tabulates the
+spans).  ``--export_meshes N`` writes the dynamic mesh
 sequence after the test pass: N meshes at uniform times under OUT/meshes,
 which ``cli.mesh_evaluation`` holds to the GT meshes.
 """

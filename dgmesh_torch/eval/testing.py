@@ -22,6 +22,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .. import tracing
 from ..config import Config
 from ..models import gaussians as G
 from ..ops import losses as L
@@ -32,6 +33,7 @@ from ..utils_io import png_array, save_image, write_mesh_ply
 from .lpips_torch import lpips_available, rgb_lpips
 
 
+@tracing.span("render.frame")
 @torch.no_grad()
 def render_frame_with_aux(ctx: StepContext, state, batch, sh_degree: int,
                           with_mesh: bool = True):
@@ -41,7 +43,7 @@ def render_frame_with_aux(ctx: StepContext, state, batch, sh_degree: int,
     ctx = ctx.f32()     # eval path: the nets apply in float32
     gp, gs, nets = state.gp, state.gs, state.nets
     d_xyz, d_rot, d_scale, d_normal = _deform_all(nets, gp.xyz, batch.fid, with_mesh,
-                                                  mode=ctx.mlp_mode)
+                                                  mode=ctx.mlp_mode, alive=gs.alive)
     out = splat.render(gp.xyz + d_xyz, G.get_scaling(gp) + d_scale,
                        G.get_rotation(gp) + d_rot, G.get_opacity(gp),
                        G.get_features(gp), gs.alive, batch.cam, batch.bg,
@@ -123,7 +125,8 @@ def export_dynamic_meshes(cfg: Config, trainer, scene, out_dir: str, n_frames: i
     frames = []
     for i in range(n_frames):
         fid = torch.tensor(i / max(n_frames - 1, 1), dtype=torch.float32, device=ctx.device)
-        d_xyz, _, _, d_normal = _deform_all(nets, gp.xyz, fid, True, mode=ctx.mlp_mode)
+        d_xyz, _, _, d_normal = _deform_all(nets, gp.xyz, fid, True, mode=ctx.mlp_mode,
+                                            alive=gs.alive)
         m = extract_mesh(ctx, gp, gs, d_xyz, d_normal)
         color = _mesh_colors(nets, m.verts, m.vert_valid, fid, ctx.mlp_mode)
         nv, nf = int(m.n_verts), int(m.n_faces)

@@ -10,6 +10,10 @@ nets' ``dtype``/``fuse`` do: ``"f32"``; ``"bf16"`` (operands, products and
 bias add in bf16, the blender timenet too); ``"fused"`` (the bf16 trunk in
 one kernel per direction, ops/mlp_fused.py; the timenet as in ``"bf16"``).
 The heads and the trunk's output are float32 in every mode.
+
+Each net carries ``field``, its name in train/state.py's ``NetParams``; a
+call of it is the span ``nets.<field>`` and counts its rows as
+``nets.rows.<field>`` (dgmesh_torch/tracing.py).
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .. import tracing
 from ..ops.mlp_fused import FusedTrunk, pack_trunk
 from ..ops.rigid import se3_transform_points
 
@@ -109,8 +114,9 @@ class _TimeConditioned(nn.Module):
     """Shared front end: encode (xyz, t), the blender timenet, the trunk."""
 
     def __init__(self, is_blender: bool, depth: int, width: int, multires: int,
-                 gen: Optional[torch.Generator], device):
+                 gen: Optional[torch.Generator], device, field: str):
         super().__init__()
+        self.field = field
         self.is_blender = is_blender
         self.multires = multires
         self.t_multires = 6 if is_blender else 10
@@ -121,6 +127,11 @@ class _TimeConditioned(nn.Module):
             t_dim = 30
         self.trunk = MLPTrunk(3 * (2 * multires + 1) + t_dim, depth, width,
                               gen=gen, device=device)
+
+    def __call__(self, xyz: torch.Tensor, t: torch.Tensor, mode: str = "f32"):
+        with tracing.span("nets." + self.field):
+            tracing.count("nets.rows." + self.field, xyz.shape[0])
+            return super().__call__(xyz, t, mode)
 
     def features(self, xyz: torch.Tensor, t: torch.Tensor, mode: str = "f32") -> torch.Tensor:
         t_emb = positional_encoding(t, self.t_multires)
@@ -145,8 +156,8 @@ class DeformNetwork(_TimeConditioned):
     def __init__(self, depth: int = 8, width: int = 256, multires: int = 10,
                  is_blender: bool = False, with_normal: bool = False,
                  is_6dof: bool = False, zero_init_heads: bool = True,
-                 gen: Optional[torch.Generator] = None, device=None):
-        super().__init__(is_blender, depth, width, multires, gen, device)
+                 gen: Optional[torch.Generator] = None, device=None, field: str = "deform"):
+        super().__init__(is_blender, depth, width, multires, gen, device, field)
         self.with_normal = with_normal
         self.is_6dof = is_6dof
         z = zero_init_heads
@@ -184,8 +195,8 @@ class DeformNetworkNormalSep(_TimeConditioned):
 
     def __init__(self, depth: int = 8, width: int = 256, multires: int = 10,
                  is_blender: bool = False, gen: Optional[torch.Generator] = None,
-                 device=None):
-        super().__init__(is_blender, depth, width, multires, gen, device)
+                 device=None, field: str = "deform_normal"):
+        super().__init__(is_blender, depth, width, multires, gen, device, field)
         self.head_normal = Dense(width, 3, zero=True, gen=gen, device=device)
 
     def forward(self, xyz, t, mode: str = "f32"):
@@ -197,8 +208,8 @@ class AppearanceNetwork(_TimeConditioned):
 
     def __init__(self, depth: int = 8, width: int = 256, multires: int = 10,
                  is_blender: bool = False, gen: Optional[torch.Generator] = None,
-                 device=None):
-        super().__init__(is_blender, depth, width, multires, gen, device)
+                 device=None, field: str = "appearance"):
+        super().__init__(is_blender, depth, width, multires, gen, device, field)
         self.head_rgb = Dense(width, 3, gen=gen, device=device)
 
     def forward(self, xyz, t, mode: str = "f32"):

@@ -21,6 +21,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
+
 
 def fftfreqs3(res: Tuple[int, int, int]) -> np.ndarray:
     """Integer frequency grids in rfftn layout (r0, r1, r2//2+1, 3) float32:
@@ -143,6 +145,7 @@ class DPSR:
         self.lap = torch.as_tensor(lap, **f32)
         self.kern = torch.as_tensor(kern, **f32)
 
+    @tracing.span("dpsr")
     def __call__(self, points: torch.Tensor, normals: torch.Tensor,
                  point_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
         """points (N,3) in [0,1], normals (N,3) → indicator grid (r0,r1,r2)."""

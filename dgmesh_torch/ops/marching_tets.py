@@ -21,6 +21,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import tracing
+
 # Cube corners, x-major bit layout: corner i = (i>>2 & 1, i>>1 & 1, i & 1).
 _CORNERS = np.array([[(i >> 2) & 1, (i >> 1) & 1, i & 1] for i in range(8)],
                     np.int32)
@@ -119,6 +121,7 @@ class MeshResult(NamedTuple):
     overflow: torch.Tensor     # () int64: dropped cubes + verts + faces
 
 
+@tracing.span("mesh.marching_tets")
 def marching_tets(phi: torch.Tensor, cfg: MTConfig) -> MeshResult:
     """Extract the φ=0 iso-surface of a res³ field (outside > 0).
 

@@ -20,6 +20,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import tracing
 from .binning import bin_rects, quantize_depth, rect_from_bbox
 from .mesh_raster_kernels import AREA_MIN, ShadeTiles
 from .splat import untile
@@ -83,6 +84,7 @@ def _face_screen(verts, faces, face_valid, pose, proj, cfg: MeshRasterConfig,
     return tri, 1.0 / w_safe, face_valid & ok.all(dim=1)
 
 
+@tracing.span("raster.rasterize")
 def rasterize(verts, faces, face_valid, pose, proj, cfg: MeshRasterConfig,
               tri_w=None):
     """Bin the faces per tile.  Returns the bins and the packed per-face
@@ -145,9 +147,10 @@ def render_mesh(verts, faces, face_valid, vtx_color, pose, proj, bg_color,
     rast = rasterize(verts, faces, face_valid, pose, proj, cfg, tri_w)
     bins = rast["bins"]
     bg = torch.as_tensor(bg_color, dtype=torch.float32, device=verts.device)
-    attrs = tile_attrs(rast, faces, vtx_color)
-    rgb, hard, soft, fid = ShadeTiles.apply(attrs, cfg.tiles_x, cfg.tile_h,
-                                            cfg.tile_w, cfg.sigma)
+    with tracing.span("raster.shade"):
+        attrs = tile_attrs(rast, faces, vtx_color)
+        rgb, hard, soft, fid = ShadeTiles.apply(attrs, cfg.tiles_x, cfg.tile_h,
+                                                cfg.tile_w, cfg.sigma)
     rgb = rgb + (1.0 - hard)[..., None] * bg[None, None, :]
     fid_out = torch.where(hard > 0.5, fid.long(), -1)
     out = dict(rgb=_untile(rgb, cfg), mask=_untile(hard, cfg),

@@ -24,6 +24,7 @@ import ctypes
 
 import torch
 
+from .. import tracing
 from . import cuda_build
 from .splat_kernels import tile_pixels
 
@@ -366,6 +367,7 @@ class ShadeTiles(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_rgb, g_hard, g_soft, g_fid):
         attrs, win, M = ctx.saved_tensors
-        d = shade_bwd(attrs, g_rgb.contiguous(), g_soft.contiguous(), *ctx.geo, win, M,
-                      tile0=ctx.tile0)
+        with tracing.span("raster.shade_bwd"):
+            d = shade_bwd(attrs, g_rgb.contiguous(), g_soft.contiguous(), *ctx.geo, win, M,
+                          tile0=ctx.tile0)
         return d, None, None, None, None, None

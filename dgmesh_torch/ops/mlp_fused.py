@@ -24,6 +24,7 @@ import ctypes
 
 import torch
 
+from .. import tracing
 from . import cuda_build
 
 WIDTH = 256
@@ -306,5 +307,6 @@ class FusedTrunk(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, wb, wt, bpack = ctx.saved_tensors
-        dx, dw, db = trunk_bwd(x, wb, bpack, g.contiguous(), wt)
+        with tracing.span("nets.trunk_bwd"):
+            dx, dw, db = trunk_bwd(x, wb, bpack, g.contiguous(), wt)
         return dx, dw, db

@@ -19,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import tracing
 from . import sh as sh_ops
 from .binning import bin_rects, quantize_depth
 from .splat_kernels import CompositeTiles
@@ -67,6 +68,7 @@ class CameraArrays(NamedTuple):
         )
 
 
+@tracing.span("splat.preprocess")
 def preprocess(means3d, scales, quats, opacities, shs, alive, cam: CameraArrays,
                cfg: SplatConfig, sh_degree: int):
     """Project Gaussians to screen space (reference forward.cu:156-256).
@@ -146,6 +148,7 @@ def _tile_rects(mean2d, radius, valid, cfg: SplatConfig):
     return tx0, ty0, nx, ny
 
 
+@tracing.span("splat.binning")
 def bin_gaussians(pre: dict, cfg: SplatConfig):
     """Per-tile depth-sorted Gaussian ids (T,K), -1 padded, and the counters."""
     valid = pre["valid"]
@@ -189,6 +192,7 @@ def untile(x, tiles_x: int, tiles_y: int, tile_h: int, tile_w: int, height: int,
     return x.reshape(tiles_y * tile_h, tiles_x * tile_w, *c)[:height, :width]
 
 
+@tracing.span("splat.composite")
 def composite(tile_idx, pre, bg, cfg: SplatConfig):
     """Composite all tiles through the kernels; returns image (H,W,3), alpha (H,W)."""
     attrs = tile_attrs(tile_idx, pre)

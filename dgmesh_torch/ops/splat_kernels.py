@@ -25,6 +25,7 @@ from typing import Tuple
 
 import torch
 
+from .. import tracing
 from . import cuda_build
 
 ALPHA_MIN = 1.0 / 255.0
@@ -242,6 +243,7 @@ class CompositeTiles(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_rgb, g_alpha):
         attrs, rgb, S = ctx.saved_tensors
-        d = composite_bwd(attrs, g_rgb.contiguous(), g_alpha.contiguous(), *ctx.geo, rgb, S,
-                          tile0=ctx.tile0)
+        with tracing.span("splat.composite_bwd"):
+            d = composite_bwd(attrs, g_rgb.contiguous(), g_alpha.contiguous(), *ctx.geo, rgb,
+                              S, tile0=ctx.tile0)
         return d, None, None, None, None

@@ -26,10 +26,12 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from ..ops.dpsr import DPSR, div_rasterize, grid_interp
 from .sharding import DeviceMesh, all_gather, all_to_all
 
 
+@tracing.span("dpsr")
 def dpsr_sharded(mesh: DeviceMesh, op: DPSR, points, normals, valid) -> torch.Tensor:
     """points, normals (N_l,3) and valid (N_l,) the rank's rows; returns the
     whole indicator grid (R,R,R) on every rank, as ``op(points, normals,

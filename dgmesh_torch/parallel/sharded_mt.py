@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from ..ops.marching_tets import (MTConfig, MeshResult, _CLASS_CORNER_BIT, _EDGE_ANCHOR_NP,
                                  _EDGE_CLASS_NP, _EDGE_DIRS, _TETS, _TRI_COUNT_NP,
                                  _TRI_TABLE_NP)
@@ -38,6 +39,7 @@ def percap(total: int, n: int, floor: int = 256) -> int:
     return int(min(total, max(2 * (-(-total // n)), floor)))
 
 
+@tracing.span("mesh.marching_tets")
 def marching_tets_sharded(mesh: DeviceMesh, phi: torch.Tensor, cfg: MTConfig,
                           halo_cap: int = 0) -> MeshResult:
     """phi: the whole (R,R,R) field, the same on every rank.  Returns the

@@ -27,6 +27,7 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
+from .. import tracing
 from ..config import Config
 from ..models import gaussians as G
 from ..models.gaussians import GaussianParams, GaussianStats, inverse_sigmoid
@@ -71,6 +72,7 @@ def _normalize(v: torch.Tensor) -> torch.Tensor:
     return v / (torch.linalg.norm(v, dim=-1, keepdim=True) + 1e-12)
 
 
+@tracing.span("step.densify")
 @torch.no_grad()
 def densify_and_prune(cfg: Config, gp: GaussianParams, gs: GaussianStats, mu: GaussianParams,
                       nu: GaussianParams, extent, use_size_threshold: bool,
@@ -139,6 +141,7 @@ def densify_and_prune(cfg: Config, gp: GaussianParams, gs: GaussianStats, mu: Ga
     return gp, gs, mu, nu, counts
 
 
+@tracing.span("step.densify")
 @torch.no_grad()
 def reset_opacity(gp: GaussianParams, mu: GaussianParams, nu: GaussianParams):
     """reference reset_opacity :291-294: every opacity to at most 0.01, and
@@ -160,6 +163,7 @@ def normal_initialization(cfg: Config, gp: GaussianParams, gs: GaussianStats, ne
     vertices in the grid's [0,1]³ (MeshResult)."""
     M, dev = gp.xyz.shape[0], gp.xyz.device
     t_in = torch.as_tensor(fid, dtype=torch.float32, device=dev).reshape(1, 1).expand(M, 1)
+    tracing.count("nets.live_rows.deform", lambda: gs.alive.sum())
     d_xyz, d_rot, d_scale, _ = nets.deform(gp.xyz, t_in, "f32")
     pts = gp.xyz + d_xyz
     occ = gaussian_occupancy_grid(pts, G.get_scaling(gp) + d_scale, G.get_rotation(gp) + d_rot,
@@ -225,11 +229,13 @@ def anchor_step(cfg: Config, gp: GaussianParams, gs: GaussianStats, mu: Gaussian
         draws["angle"] = torch.randn((inc, 1), generator=gen, device=dev)
 
     fid_t = torch.as_tensor(fid, dtype=torch.float32, device=dev).reshape(1, 1)
+    tracing.count("nets.live_rows.deform", lambda: gs.alive.sum())
     d_xyz, d_rot, d_scale, d_norm = nets.deform(gp.xyz, fid_t.expand(M, 1), "f32")
     gpts = gp.xyz + d_xyz
     cent = face_centroids(mesh_verts, mesh_faces, face_valid)
     fnorm = face_normals(mesh_verts, mesh_faces, face_valid)
-    d2, nn = knn(gpts, cent, 1, ref_valid=face_valid)
+    with tracing.span("anchor.knn"):
+        d2, nn = knn(gpts, cent, 1, ref_valid=face_valid)
     d2, nn = d2[:, 0], nn[:, 0]
     # the reference compares SQUARED distances with the UNsquared radius (:743-765)
     radius = gs.gaussian_scale * o.anchor_search_radius
@@ -272,6 +278,7 @@ def anchor_step(cfg: Config, gp: GaussianParams, gs: GaussianStats, mu: Gaussian
     mdef_scaling = gather_mean(gp.scaling + d_scale)
     mdef_rot = gather_mean(gp.rotation + d_rot)
     mdef_norm = gather_mean(gp.normal + d_norm)
+    tracing.count("nets.live_rows.deform_back", lambda: sel_valid.sum())
     db_xyz, db_rot, db_scale, db_norm = nets.deform_back(mdef_xyz, sel_t, "f32")
     loss_n_1 = (torch.where(sel_valid, torch.linalg.norm(cent[sel_f] - mdef_xyz, dim=-1), 0.0)
                 .sum() / torch.clamp_min(sel_valid.sum(), 1))
@@ -294,6 +301,7 @@ def anchor_step(cfg: Config, gp: GaussianParams, gs: GaussianStats, mu: Gaussian
     sp_scaling = torch.log(torch.sqrt(sd2))[:, None] * torch.ones((1, 3), device=dev)
     half = draws["angle"].to(dev) * 2 * math.pi / 2.0
     sp_rot = torch.cat([torch.cos(half), _normalize(sp_norm) * torch.sin(half)], -1)
+    tracing.count("nets.live_rows.deform_back", lambda: sel0_valid.sum())
     sb_xyz, sb_rot, sb_scale, sb_norm = nets.deform_back(sp_xyz, fid_t.expand(sel0.shape[0], 1),
                                                          "f32")
     n_sp = sel0.shape[0]

@@ -22,6 +22,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..config import Config
 from ..device import DeviceLike, resolve_device
 from .densify import anchor_step, densify_and_prune, normal_initialization, reset_opacity
@@ -51,6 +52,7 @@ def flags_for(cfg: Config, it: int) -> StepFlags:
         sh_degree=min(it // 1000, cfg.model.sh_degree))
 
 
+@tracing.span("step.anchor")
 @torch.no_grad()
 def anchor_fn(ctx: StepContext, state: TrainState, batch: Batch,
               gen: Optional[torch.Generator] = None, draws: Optional[dict] = None):
@@ -60,7 +62,8 @@ def anchor_fn(ctx: StepContext, state: TrainState, batch: Batch,
     then ``anchor_step`` on it.  Returns anchor_step's (gp, gs, mu, nu,
     AnchorInfo)."""
     cf = ctx.f32()
-    d_xyz, _, _, d_normal = _deform_all(state.nets, state.gp.xyz, batch.fid, True, mode="f32")
+    d_xyz, _, _, d_normal = _deform_all(state.nets, state.gp.xyz, batch.fid, True, mode="f32",
+                                        alive=state.gs.alive)
     mesh = extract_mesh(cf, state.gp, state.gs, d_xyz, d_normal, freeze_pos=True)
     return anchor_step(ctx.cfg, state.gp, state.gs, state.g_mu, state.g_nu, state.nets,
                        batch.fid, mesh.verts, mesh.faces, mesh.face_valid, gen=gen, draws=draws)
@@ -86,9 +89,10 @@ def run_iteration(ctx: StepContext, state: TrainState, batch: Batch, it: int, ex
     flags = flags_for(cfg, it)
 
     if it == o.dpsr_iter:                                 # train.py:243-246
-        gp, _ = normal_initialization(cfg, state.gp, state.gs, state.nets, batch.fid,
-                                      occ_res=min(cfg.model.grid_res, cfg.tpu.occ_res),
-                                      gen=gen, **draws.get("normal_init", {}))
+        with tracing.span("step.normal_init"):
+            gp, _ = normal_initialization(cfg, state.gp, state.gs, state.nets, batch.fid,
+                                          occ_res=min(cfg.model.grid_res, cfg.tpu.occ_res),
+                                          gen=gen, **draws.get("normal_init", {}))
         state = state._replace(gp=gp)
 
     anchored = None
@@ -198,6 +202,7 @@ class Trainer:
         return torch.Generator(device=self.device).manual_seed(
             ((self.seed << 32) ^ it) & 0xFFFFFFFFFFFFFFFF)
 
+    @tracing.span("trainer.iteration")
     def run_iteration(self, it: int, draws: Optional[dict] = None):
         """Iteration ``it`` on its camera's batch (run_iteration above);
         ``draws`` as run_iteration's, else from ``generator(it)``.  Returns
@@ -291,9 +296,11 @@ class Trainer:
         for it in range(first_iter, iterations + 1):
             metrics = self.run_iteration(it)
             if it % self.tripwire_every == 0:
-                self._check_tripwires(it, metrics, save_dir)
+                with tracing.span("trainer.log"):
+                    self._check_tripwires(it, metrics, save_dir)
             if it % log_every == 0 or it == iterations:
-                m = {k: float(v) for k, v in metrics.items()}
+                with tracing.span("trainer.log"):
+                    m = {k: float(v) for k, v in metrics.items()}
                 dt = time.time() - window
                 window = time.time()
                 m["iters_per_sec"] = log_every / dt if dt > 0 else 0.0

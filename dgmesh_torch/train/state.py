@@ -67,8 +67,9 @@ def build_nets(cfg: Config, gen: Optional[torch.Generator] = None,
     return NetParams(
         deform=mlp.DeformNetwork(with_normal=True, is_6dof=cfg.model.is_6dof, **kw),
         deform_normal=mlp.DeformNetworkNormalSep(**kw),
-        deform_back=mlp.DeformNetwork(with_normal=True, is_6dof=cfg.model.is_6dof, **kw),
-        deform_back_normal=mlp.DeformNetworkNormalSep(**kw),
+        deform_back=mlp.DeformNetwork(with_normal=True, is_6dof=cfg.model.is_6dof,
+                                      field="deform_back", **kw),
+        deform_back_normal=mlp.DeformNetworkNormalSep(field="deform_back_normal", **kw),
         appearance=mlp.AppearanceNetwork(**kw),
     )
 

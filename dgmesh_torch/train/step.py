@@ -36,6 +36,7 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..cameras import Camera, gl_projection_from_K
 from ..config import Config
 from ..device import DeviceLike, resolve_device
@@ -172,18 +173,22 @@ def _time_input(fid: torch.Tensor, noise, rows: int, like: torch.Tensor) -> torc
 
 
 def _deform_all(nets, xyz, fid, with_normal: bool, warm: bool = False, noise=0.0,
-                mode: str = "f32"):
+                mode: str = "f32", alive: Optional[torch.Tensor] = None):
     """Forward deformation offsets (reference train.py:154-175), the nets in
     ``mode``: zeros when ``warm``; the normal offset only with
-    ``with_normal``, else zeros."""
+    ``with_normal``, else zeros.  ``alive`` (the slots' mask) is counted as
+    the nets' live rows while tracing."""
     M = xyz.shape[0]
     if warm:
         z3 = xyz.new_zeros((M, 3))
         return z3, xyz.new_zeros((M, 4)), z3, z3
     t_in = _time_input(fid, noise, M, xyz)
     xyz_sg = xyz.detach()
+    live = alive.sum() if alive is not None and tracing.active() else 0
+    tracing.count("nets.live_rows.deform", live)
     d_xyz, d_rot, d_scale, _ = nets.deform(xyz_sg, t_in, mode)
     if with_normal:
+        tracing.count("nets.live_rows.deform_normal", live)
         d_normal = nets.deform_normal(xyz_sg, t_in, mode)
     else:
         d_normal = xyz.new_zeros((M, 3))
@@ -249,6 +254,8 @@ def _mesh_colors(nets, verts_w, vert_valid, fid, mode: str = "f32"):
     n = int(vert_valid.sum())
     v = verts_w[:n]
     t_in = _time_input(fid, 0.0, n, v)
+    tracing.count("nets.live_rows.deform_back", n)
+    tracing.count("nets.live_rows.appearance", n)
     d_back, _, _, _ = nets.deform_back(v.detach(), t_in, mode)
     color = verts_w.new_zeros((verts_w.shape[0], 3))
     color[:n] = nets.appearance(v + d_back, t_in, mode)
@@ -272,6 +279,7 @@ def _time_noise(ctx: StepContext, batch: Batch, step_f, gen: Optional[torch.Gene
     return z[0] * mag, z[1] * mag
 
 
+@tracing.span("step.forward")
 def loss_and_aux(ctx: StepContext, gp: G.GaussianParams, nets: NetParams, screen_offset,
                  gs: G.GaussianStats, batch: Batch, step_f, flags: StepFlags,
                  gen: Optional[torch.Generator] = None, anchor_info=None):
@@ -290,7 +298,7 @@ def loss_and_aux(ctx: StepContext, gp: G.GaussianParams, nets: NetParams, screen
     mode = ctx.mlp_mode
     dm = ctx.device_mesh
     d_xyz, d_rot, d_scale, d_normal = _deform_all(nets, gp.xyz, batch.fid, flags.use_normal,
-                                                  flags.warm, noise1, mode)
+                                                  flags.warm, noise1, mode, gs.alive)
 
     # --- Gaussian splat render (gaussian_renderer/__init__.py:32-119)
     means3d = gp.xyz + d_xyz
@@ -309,6 +317,8 @@ def loss_and_aux(ctx: StepContext, gp: G.GaussianParams, nets: NetParams, screen
     # --- cycle consistency (train.py:198-240)
     if not flags.warm:
         M_t = _time_input(batch.fid, noise2, M, gp.xyz)
+        live = gs.alive.sum() if tracing.active() else 0
+        tracing.count("nets.live_rows.deform_back", live)
         d_back, d_rot_back, d_scale_back, _ = nets.deform_back(means3d.detach(), M_t, mode)
         n_live = _sum(gs.alive.sum(), dm)
 
@@ -323,6 +333,7 @@ def loss_and_aux(ctx: StepContext, gp: G.GaussianParams, nets: NetParams, screen
         cyc = [masked_l1(-d_back, d_xyz), masked_l1(-d_rot_back, d_rot),
                masked_l1(-d_scale_back, d_scale)]
         if flags.use_normal:
+            tracing.count("nets.live_rows.deform_back_normal", live)
             d_normal_back = nets.deform_back_normal(gp.xyz.detach(), M_t, mode)
             cyc.append(masked_l1(-d_normal_back, d_normal))
         losses["cycle_loss"] = sum(cyc[1:], cyc[0]) / float(len(cyc))
@@ -424,6 +435,7 @@ class Grads(NamedTuple):
     screen: torch.Tensor            # (M,2) view-space (screen_offset) gradient
 
 
+@tracing.span("step.backward")
 def backward(loss: torch.Tensor, gp: G.GaussianParams, nets: NetParams,
              screen: torch.Tensor) -> Grads:
     """d loss / d every Gaussian leaf, net parameter and the screen offset;
@@ -456,6 +468,7 @@ def loss_and_grads(ctx: StepContext, state: TrainState, batch: Batch, flags: Ste
                                         screen)
 
 
+@tracing.span("step.sanitize")
 def sanitize(grads: Grads, device_mesh=None):
     """Zero every gradient leaf that holds a non-finite value, and count them
     (JAX's sanitiser, dgmesh_tpu/train/step.py:410-431).  No host sync.
@@ -482,6 +495,7 @@ def sanitize(grads: Grads, device_mesh=None):
     return grads._replace(gp=gp, nets=NetParams(*nets)), bad
 
 
+@tracing.span("step.optimizer")
 def apply_updates(ctx: StepContext, state: TrainState, aux, grads: Grads,
                   flags: StepFlags) -> TrainState:
     """The densify statistics (train.py:489-496) and the optimizer steps:
