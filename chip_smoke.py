@@ -40,7 +40,13 @@ Phases; any failure exits non-zero and prints no result:
      3t: kernels 1-4 on the tiles [T/2, T) alone, launched with tile0 =
                 T/2 (a rank's block of tiles): the same bits as those tiles
                 of the whole launch, and each against its twin given tile0;
-  4. render   — configs/synthetic-quality-288.yaml with bench.py's shell
+     3k: the kNN kernel (csrc/knn1.cu) against its twin (ops/knn.py::
+                knn_ref) on the anchor's inputs in portbench's tail.anchor
+                cell (262,144 queries, ~830k valid of 1,048,576 face
+                centroids; alive1 and the per-face counts too) and on its
+                edge cases (knn_edge_cases), each launched twice for
+                identical bits; then timed beside its bound and the twin;
+  4. render  — configs/synthetic-quality-288.yaml with bench.py's shell
                 state (100k Gaussians, radius 0.45, seed 0) and seeded random
                 nets: render_frame for 4 orbit views at 800², grid 288, with
                 the launch counters zeroed just before and read just after;
@@ -82,7 +88,8 @@ Phases; any failure exits non-zero and prints no result:
                 only, at the reference's 256, each part timed; one anchor iteration through run_iteration
                 with float32 nets and one with fused ones (the launch
                 counters zeroed just before and read just after, every
-                kernel of the step launched); densify/prune with and without
+                kernel of the step launched, the kNN kernel's too: the
+                kernels line's knn1 launches are the fused one's); densify/prune with and without
                 the size threshold, and on a varied copy of the state where
                 clone, split and prune all fire; the opacity reset.  Gates: finite
                 outputs, mesh_overflow 0, zero moments on every slot an op
@@ -107,7 +114,8 @@ Phases; any failure exits non-zero and prints no result:
                 tripwire check at 25, checkpoints at DRIVER_SAVE and the end,
                 the test pass; once with float32 nets and once fused, the
                 launch counters zeroed just before each and read just after
-                (kernels 1-4, and 5-6 fused, must have launched).  Gates:
+                (kernels 1-4 and the kNN kernel, and 5-6 fused, must have
+                launched).  Gates:
                 every iteration's loss finite, mesh_overflow 0,
                 nonfinite_grad_leaves 0, no tripwire, the files written.
                 A fresh Trainer resumed from the DRIVER_SAVE checkpoint runs
@@ -258,13 +266,15 @@ SOURCES = {"composite_tiles": "dgmesh_torch/csrc/composite.cu",
            "shade_tiles": "dgmesh_torch/csrc/shade.cu",
            "shade_bwd": "dgmesh_torch/csrc/shade_bwd.cu",
            "trunk_fwd": "dgmesh_torch/csrc/mlp_fwd.cu",
-           "trunk_bwd": "dgmesh_torch/csrc/mlp_bwd.cu"}
+           "trunk_bwd": "dgmesh_torch/csrc/mlp_bwd.cu",
+           "knn1": "dgmesh_torch/csrc/knn1.cu"}
 REPLACES = {"composite_tiles": "dgmesh_tpu/ops/splat_pallas.py:34",
             "composite_bwd": "dgmesh_tpu/ops/splat_pallas.py:116",
             "shade_tiles": "dgmesh_tpu/ops/mesh_raster_pallas.py:40",
             "shade_bwd": "dgmesh_tpu/ops/mesh_raster_pallas.py:164",
             "trunk_fwd": "dgmesh_tpu/ops/mlp_pallas.py:36",
-            "trunk_bwd": "dgmesh_tpu/ops/mlp_pallas.py:62"}
+            "trunk_bwd": "dgmesh_tpu/ops/mlp_pallas.py:62",
+            "knn1": None}   # dgmesh_tpu/ops/knn.py is plain XLA
 
 DEVICE = "cuda"
 KERNELS_ONLY = "--kernels-only" in sys.argv[1:]   # build and check, then stop
@@ -427,6 +437,23 @@ RESIZE_FROM, RESIZE_TO = (2704, 2028), (1600, 1200)
 # ... and the host's PNG reads of a frame of that size, each file read
 # through Pillow where it imports and with PIL blocked (utils_io.decode_png)
 PNG_FILES = {"Paeth": (4, False), "Average": (3, False), "Adam7 Paeth": (4, True)}
+
+# phase 3k: the kNN kernel.  It must give the twin's bits, d² and index,
+# on every row (csrc/knn1.cu's contract).  TOL_KNN (ROADMAP's watch list:
+# the expansion cancels to ~1e-7 at ‖q‖² ~ 1) only sorts the rows for the
+# report: those whose twin's two best d² lie within it, where no looser
+# check than the bits could hold the index, and those within it of the
+# anchor's radius.
+# The bound counts a pair's six instructions (csrc/knn1.cu's note) at the
+# H100 SXM's issue rate: 132 SMs x 128 lanes at its 1.98 GHz boost clock.
+# The twin takes ~2.8 s a call at the anchor's sizes: KNN_TWIN_LAUNCHES.
+KNN_SEED = 0
+KNN_EDGE_Q = 64
+KNN_CTA_QUERIES = 256
+TOL_KNN = 1e-6
+KNN_TWIN_LAUNCHES = 3
+KNN_INSTR_PER_PAIR = 6
+KNN_ISSUE_RATE = 132 * 128 * 1.98e9
 
 STRUCT_EXTENT = 2.75
 REFERENCE_OCC_RES = 256   # the reference's normal-init grid (VERDICT r5 #8), timed only
@@ -1218,6 +1245,7 @@ def main() -> int:
     from dgmesh_torch.eval import testing
     from dgmesh_torch.eval.testing import render_frame_with_aux
     from dgmesh_torch.ops import cuda_build
+    from dgmesh_torch.ops import knn as KN
     from dgmesh_torch.ops import mesh_raster as MR
     from dgmesh_torch.ops import mesh_raster_kernels as MK
     from dgmesh_torch.ops import splat
@@ -1395,6 +1423,10 @@ def main() -> int:
         if not same:
             failures.append(f"trunk_bwd not deterministic (edge shape {what})")
         del x, g, first, again
+    # 3k. the kNN kernel on the anchor's inputs and its edge cases, timed
+    t0 = time.perf_counter()
+    knn_entry = knn_phase(torch, dev, failures)
+    log(f"# phase 3k (knn): {time.perf_counter() - t0:.2f} s")
     if KERNELS_ONLY:
         r1 = SK.composite_tiles(a1, *geo_s, residuals=True)[0::2]
         for name, fk in (("composite_bwd", lambda: SK.composite_bwd(a1, g1, g2, *geo_s)),
@@ -1726,6 +1758,7 @@ def main() -> int:
             f"GEMMs + bias + ReLU{' (autograd backward)' if name == 'trunk_bwd' else ''} "
             f"{library_ms:.4f} ms")
     del rows, calls, x, g, wt, ws, xg, out, params, chain, trunk_rows
+    kernels.append(knn_entry)
 
     # 5g. the bf16 configuration (tpu.mlp_bf16, not fused; bench.py's own
     #     precision): the same state, view and checks, reported -----------
@@ -1748,8 +1781,8 @@ def main() -> int:
     # 5s. the structural ops at the same state: normal init, an anchor
     #     iteration (float32 and fused), densify/prune, the opacity reset
     t0 = time.perf_counter()
-    structural_phase(torch, ctx, ctx_f, tstate, tbatch, flags, counters, trunk_counters,
-                     failures)
+    knn_entry["launches"] = structural_phase(torch, ctx, ctx_f, tstate, tbatch, flags,
+                                             counters, trunk_counters, failures)
     log(f"# structural phase: {time.perf_counter() - t0:.2f} s")
     del tstate
 
@@ -1796,7 +1829,7 @@ def main() -> int:
     t0 = time.perf_counter()
     counters = (SK.composite_tiles, SK.composite_bwd, MK.shade_tiles, MK.shade_bwd,
                 MF.trunk_fwd, MF.trunk_bwd)
-    run_fused, data = driver_phase(torch, dev, failures, summary, counters)
+    run_fused, data = driver_phase(torch, dev, failures, summary, counters + (KN.knn,))
     log(f"# phase 7 (driver): {time.perf_counter() - t0:.2f} s")
     # 7e. evaluation (module 4) on the fused run's final checkpoint ---------
     t0 = time.perf_counter()
@@ -1949,11 +1982,172 @@ def all_finite(torch, tensors):
     return all(bool(torch.isfinite(x).all()) for x in tensors)
 
 
+def knn_anchor_inputs(torch, dev, seed: int = 0):
+    """The anchor's kNN inputs in portbench's tail.anchor cell: the state of
+    nerfies-tail-fused from ``seed`` (262,144 slots, 100,000 live on the
+    object, the dead slots at the origin), deformed by its float32 nets,
+    against the face centroids of its mesh (1,048,576 face slots), as
+    ``anchor_fn`` hands them to ``knn``; with the live mask and the search
+    radius.  Returns (queries, centroids, face_valid, alive, radius)."""
+    from types import SimpleNamespace
+
+    from dgmesh_torch.train import densify as D
+    from dgmesh_torch.train import loop as TLoop
+    from dgmesh_torch.train.step import StepContext
+    from portbench import inputs as PI
+    from portbench.spec import Spec, build_config, load_program
+
+    spec = Spec(ROOT, "tail.anchor")
+    P = load_program()
+    cfg = build_config(P, spec.config)
+    st = PI.program_state(P, cfg, PI.raw_state(spec.config, seed, dev), spec.mix["first"] - 1)
+    cam = spec.config["camera"]
+    ctx = StepContext(cfg, cam["width"], cam["height"], device=dev)
+    got = {}
+    knn = D.knn
+
+    def spy(q, refs, k, ref_valid=None, **kw):
+        got.update(q=q, refs=refs, valid=ref_valid)
+        return knn(q, refs, k, ref_valid=ref_valid, **kw)
+    D.knn = spy
+    try:
+        TLoop.anchor_fn(ctx, st, SimpleNamespace(fid=torch.tensor(0.5, device=dev)),
+                        gen=torch.Generator(device=dev).manual_seed(seed))
+    finally:
+        D.knn = knn
+    radius = float(st.gs.gaussian_scale) * cfg.optimization.anchor_search_radius
+    return got["q"], got["refs"], got["valid"], st.gs.alive, radius
+
+
+def knn_edge_cases(torch, dev):
+    """(name, queries, refs, ref_valid) at the shapes and values the kernel
+    treats apart: no ref, one query, every ref invalid, refs duplicated (exact
+    ties, to the lowest index), a NaN query, a NaN ref, queries far outside the
+    refs' box, and ragged and whole tiles of refs."""
+    rng = np.random.default_rng(KNN_SEED)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    q = rng.random((KNN_EDGE_Q, 3))
+    refs = rng.random((300, 3))
+    valid = torch.as_tensor(rng.random(300) < 0.8, device=dev)
+    dup = np.repeat(refs[:100], 3, axis=0)[rng.permutation(300)]
+    q_dup = np.concatenate([dup[:KNN_EDGE_Q // 2], q[KNN_EDGE_Q // 2:]])
+    q_nan = q.copy()
+    q_nan[5, 1] = np.nan
+    q_nan[17] = np.nan
+    r_nan = refs.copy()
+    r_nan[40, 2] = np.nan
+    far = q.copy()
+    far[::2] += 1e3
+    far[1::4] -= 3e4
+    return [("R = 0", f(q), f(np.zeros((0, 3))), None),
+            ("Q = 1", f(q[:1]), f(refs), valid),
+            ("all refs invalid", f(q), f(refs), torch.zeros_like(valid)),
+            ("duplicated refs", f(q_dup), f(dup), None),
+            ("duplicated refs, masked", f(q_dup), f(dup), valid),
+            ("NaN query", f(q_nan), f(refs), valid),
+            ("NaN ref", f(q), f(r_nan), None),
+            ("far queries", f(far), f(refs), valid),
+            ("256 refs (one whole tile)", f(q), f(refs[:256]), None),
+            ("257 refs", f(q), f(refs[:257]), None)]
+
+
+def first_of_equal(torch, refs, valid):
+    """For each valid ref index, the lowest valid index that holds the same
+    point (its exact duplicates); -1 at the invalid ones."""
+    dev = refs.device
+    ids = (torch.arange(refs.shape[0], device=dev) if valid is None
+           else torch.nonzero(valid).reshape(-1))
+    first = torch.full((refs.shape[0],), -1, dtype=torch.long, device=dev)
+    if ids.numel():
+        _, inv = torch.unique(refs[ids], dim=0, return_inverse=True)
+        low = torch.full((int(inv.max()) + 1,), refs.shape[0], dtype=torch.long, device=dev)
+        first[ids] = low.scatter_reduce(0, inv, ids, "amin")[inv]
+    return first
+
+
+def knn_compare(torch, KN, q, refs, valid, what, failures, alive=None, radius=None):
+    """The kernel against its twin (``knn_ref``) on one input: d² and the
+    index the twin's bits on every row, exact duplicates to the lowest
+    index, and the same bits over two launches; with ``alive`` and
+    ``radius`` (the anchor's inputs) ``alive1`` and the per-face counts of
+    anchor_step equal over every live row.  Reports the largest d² gap and
+    the rows whose twin's two best d² (or whose d² and the radius) lie within
+    TOL_KNN.  Returns the largest d² gap."""
+    got_d, got_i = KN.knn(q, refs, 1, ref_valid=valid)
+    again_d, again_i = KN.knn(q, refs, 1, ref_valid=valid)
+    want_d, want_i = KN.knn_ref(q, refs, 1, ref_valid=valid)
+    two = KN.knn_ref(q, refs, 2, ref_valid=valid)[0] if refs.shape[0] else want_d.expand(-1, 2)
+    close2 = two[:, 1] - two[:, 0] <= TOL_KNN
+    gd, gi, wd, wi = got_d[:, 0], got_i[:, 0], want_d[:, 0], want_i[:, 0]
+    err = max_err([gd], [wd])
+    d_bits = same_bits(torch, gd, wd)
+    i_bits = bool(torch.equal(gi, wi))
+    fin = torch.isfinite(gd)
+    lowest = bool((first_of_equal(torch, refs, valid)[gi[fin]] == gi[fin]).all())
+    twice = same_bits(torch, gd, again_d[:, 0]) and bool(torch.equal(gi, again_i[:, 0]))
+    ok = d_bits and i_bits and lowest and twice
+    R = refs.shape[0] if valid is None else int(valid.sum())
+    line = (f"# kernels/knn {what}: Q {q.shape[0]} R {R}: d2 the twin's bits "
+            f"{'yes' if d_bits else 'NO'} (max_abs_err {err:.3g}; "
+            f"{nan_report(torch, [gd], [wd])}); "
+            f"indices the twin's {'yes' if i_bits else 'NO'} ({int((gi != wi).sum())} differ; "
+            f"{int(close2.sum())} rows whose twin's two best d2 lie within {TOL_KNN}); exact "
+            f"duplicates to the lowest index {'yes' if lowest else 'NO'}; twice "
+            f"{'identical' if twice else 'DIFFERENT'}")
+    if alive is not None:
+        a_got, a_want = alive & (gd < radius), alive & (wd < radius)
+        alive_ok = bool(torch.equal(a_got, a_want))
+        F = refs.shape[0]
+        counts_ok = bool(torch.equal(torch.bincount(gi[a_got], minlength=F),
+                                     torch.bincount(wi[a_want], minlength=F)))
+        ok = ok and alive_ok and counts_ok
+        line += (f"; radius {radius:.6g}: alive1 {int(a_want.sum())} of {int(alive.sum())} live "
+                 f"{'equal' if alive_ok else 'DIFFERENT'}, per-face counts "
+                 f"{'equal' if counts_ok else 'DIFFERENT'} over every live row "
+                 f"({int((((wd - radius).abs() <= TOL_KNN) & alive).sum())} within {TOL_KNN} "
+                 f"of the radius, {int((close2 & alive).sum())} with a second best within "
+                 f"{TOL_KNN})")
+    log(line + (" ok" if ok else " FAIL"))
+    if not ok:
+        failures.append(f"knn kernel vs twin ({what})")
+    return err
+
+
+def knn_phase(torch, dev, failures):
+    """3k (module docstring): the kNN kernel against its twin on the anchor's
+    inputs and on the edge cases, then timed at the anchor's sizes.  Returns
+    the kernel's entry of the result line; its launches are the main path's,
+    which structural_phase counts."""
+    from dgmesh_torch.ops import cuda_build
+    from dgmesh_torch.ops import knn as KN
+
+    log(f"# kernels/knn: {cuda_build.library('knn1').knn1_ctas_per_sm()} CTAs of "
+        f"{KNN_CTA_QUERIES} queries an SM (occupancy calculator)")
+    q, refs, valid, alive, radius = knn_anchor_inputs(torch, dev)
+    errs = [knn_compare(torch, KN, q, refs, valid, "anchor", failures, alive, radius)]
+    for what, qe, re_, ve in knn_edge_cases(torch, dev):
+        errs.append(knn_compare(torch, KN, qe, re_, ve, what, failures))
+    ms = time_cuda(torch, lambda: KN.knn(q, refs, 1, ref_valid=valid), KERNEL_TIMING_LAUNCHES)
+    plain_ms = time_cuda(torch, lambda: KN.knn_ref(q, refs, 1, ref_valid=valid),
+                         KNN_TWIN_LAUNCHES)
+    pairs = q.shape[0] * int(valid.sum())
+    bound_ms = pairs * KNN_INSTR_PER_PAIR / KNN_ISSUE_RATE * 1e3
+    log(f"# timing knn1 (Q {q.shape[0]}, R {int(valid.sum())} of {refs.shape[0]}): {ms:.4f} "
+        f"ms/call ({KERNEL_TIMING_LAUNCHES} warm calls, compaction included), twin "
+        f"{plain_ms:.3f} ms ({KNN_TWIN_LAUNCHES}), bound {bound_ms:.4f} ms ({pairs / 1e9:.2f} G "
+        f"pairs x {KNN_INSTR_PER_PAIR} instructions at {KNN_ISSUE_RATE / 1e12:.1f} T/s); no "
+        f"library call (library_ms null)")
+    return dict(name="knn1", route="cuda", source=SOURCES["knn1"], replaces=REPLACES["knn1"],
+                launches=None, max_abs_err=max(errs), ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by="instructions", library_ms=None)
+
+
 def structural_phase(torch, ctx, ctx_f, tstate, tbatch, flags, counters, trunk_counters,
                      failures):
     """5s (module docstring): the structural ops at phase 5's state and view,
     with the moments and statistics of one float32 training step from it;
-    ``ctx``/``ctx_f`` the float32 and fused step contexts."""
+    ``ctx``/``ctx_f`` the float32 and fused step contexts.  Returns the kNN
+    kernel's launches in the fused anchor iteration."""
     from dgmesh_torch.models import gaussians as G
     from dgmesh_torch.train import densify as D
     from dgmesh_torch.train import loop as TLoop
@@ -2005,7 +2199,8 @@ def structural_phase(torch, ctx, ctx_f, tstate, tbatch, flags, counters, trunk_c
     it = (o.anchor_iter // o.anchor_interval + 1) * o.anchor_interval
     fl = TLoop.flags_for(cfg, it)
     pre = st._replace(step=torch.tensor(it, dtype=torch.int32, device=dev))
-    for label, c, cs in (("float32", ctx, counters), ("fused", ctx_f, counters + trunk_counters)):
+    for label, c, cs in (("float32", ctx, counters + (D.knn,)),
+                         ("fused", ctx_f, counters + trunk_counters + (D.knn,))):
         for rep in range(2):                       # the first warms the path up
             res = {}
             torch.cuda.reset_peak_memory_stats()
@@ -2042,6 +2237,7 @@ def structural_phase(torch, ctx, ctx_f, tstate, tbatch, flags, counters, trunk_c
         if bad:
             failures.append(f"anchor iteration ({label}): " + ", ".join(bad))
         del res, post, m, touched
+    knn_launches = launches["knn"]                 # the fused iteration's
 
     # densify / prune, both ways, on the state as the step left it; then
     # with every other live Gaussian 4x larger (past percent_dense ·
@@ -2090,6 +2286,7 @@ def structural_phase(torch, ctx, ctx_f, tstate, tbatch, flags, counters, trunk_c
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append("reset_opacity")
+    return knn_launches
 
 
 def small_structural_state(torch, small):

@@ -26,7 +26,7 @@ from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
-SOURCES = ("composite", "composite_bwd", "shade", "shade_bwd", "mlp_fwd", "mlp_bwd")
+SOURCES = ("composite", "composite_bwd", "shade", "shade_bwd", "mlp_fwd", "mlp_bwd", "knn1")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
 

@@ -25,7 +25,9 @@ Spans (a root holds every span of its iteration or view):
   ``splat.composite_bwd``, ``raster.shade_bwd``, ``nets.trunk_bwd``.
 
 Counters: ``nets.rows.<field>``, the rows each net call runs, and
-``nets.live_rows.<field>``, the live Gaussians or valid vertices among them.
+``nets.live_rows.<field>``, the live Gaussians or valid vertices among them;
+``knn.pairs``, the (query, valid ref) pairs each ``ops/knn.py::knn`` call
+searches.
 """
 
 from __future__ import annotations

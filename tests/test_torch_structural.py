@@ -79,29 +79,80 @@ def _gap_ok(d2, k):
     return (s[:, k] - s[:, k - 1] > 1e-6).all()
 
 
-@pytest.mark.parametrize("k", [1, 3])
-@pytest.mark.parametrize("masked,self_knn", [(False, False), (True, False), (True, True)])
-def test_knn_matches_jax(k, masked, self_knn):
+# (k, masked, self_knn, case): seeded points, then the k = 1 contract that
+# csrc/knn1.cu keeps on the card (the cases named)
+KNN_CASES = ([pytest.param(k, m, s, None, id=f"{m}-{s}-{k}")
+              for m, s in ((False, False), (True, False), (True, True)) for k in (1, 3)]
+             + [pytest.param(1, True, False, c, id=c)
+                for c in ("duplicate refs", "all refs invalid", "NaN query")])
+
+
+@pytest.mark.parametrize("k,masked,self_knn,case", KNN_CASES)
+def test_knn_matches_jax(k, masked, self_knn, case):
     """Indices exactly; squared distances within abs 1e-6 (the expansion
     ‖q‖² + ‖r‖² − 2q·r of points with ‖q‖² ≈ 1 cancels to ~1e-7 in float32,
     summed in other orders).  The seeded points have no near-tie at the
-    k-th neighbour (asserted).  Queries are the refs for the self-kNN."""
-    rng = np.random.default_rng(10 * k + 2 * masked + self_knn)
+    k-th neighbour (asserted).  Queries are the refs for the self-kNN.
+
+    The named cases pin the k = 1 contract: exact duplicates of a ref go to
+    the lowest index, a query with no valid ref reads (+inf, 0), and a query
+    row with a NaN reads (NaN, 0), as torch.min keeps it (JAX's top_k passes
+    over the NaN and reads (+inf, 0) there; its index is the same)."""
+    rng = np.random.default_rng(7 if case else 10 * k + 2 * masked + self_knn)
     refs = rng.random((300, 3)).astype(np.float32)
     q = refs if self_knn else rng.random((200, 3)).astype(np.float32)
-    valid = rng.random(300) < 0.8 if masked else np.ones(300, bool)
-    d_all = ((q[:, None, :].astype(np.float64) - refs[None]) ** 2).sum(-1)
-    d_all[:, ~valid] = np.inf
-    if self_knn:
-        np.fill_diagonal(d_all, np.inf)
-    assert _gap_ok(d_all, k)
+    nan_rows = [3, 50] if case == "NaN query" else []
+    if case:
+        valid = np.full(300, case != "all refs invalid")
+        if case == "duplicate refs":
+            refs = np.repeat(refs[:100], 3, axis=0)[rng.permutation(300)]
+            q[:100] = refs[rng.permutation(300)[:100]]
+        if nan_rows:
+            q[nan_rows[0], 1] = np.nan               # one coordinate
+            q[nan_rows[1]] = np.nan                  # the whole row
+    else:
+        valid = rng.random(300) < 0.8 if masked else np.ones(300, bool)
+        d_all = ((q[:, None, :].astype(np.float64) - refs[None]) ** 2).sum(-1)
+        d_all[:, ~valid] = np.inf
+        if self_knn:
+            np.fill_diagonal(d_all, np.inf)
+        assert _gap_ok(d_all, k)
     wd, wi = JK.knn(jnp.asarray(q), jnp.asarray(refs), k,
                     ref_valid=jnp.asarray(valid) if masked else None, exclude_self=self_knn,
                     q_block=64, r_block=128)
     gd, gi = TK.knn(t(q), t(refs), k, ref_valid=torch.as_tensor(valid) if masked else None,
                     exclude_self=self_knn, chunk=64)
+    wd, wi, gd, gi = np.asarray(wd), np.asarray(wi), gd.numpy(), gi.numpy()
     equal(gi, wi)
+    if case == "duplicate refs":
+        first = {}
+        for i in range(299, -1, -1):
+            first[refs[i].tobytes()] = i
+        assert all(first[refs[i].tobytes()] == i for i in gi[:, 0].tolist())
+        assert (gd[:100] <= 1e-6).all()            # a ref itself: the expansion's rounding
+    if case == "all refs invalid":
+        assert np.isposinf(gd).all() and not gi.any()
+    if nan_rows:
+        assert np.isnan(gd[nan_rows]).all() and not gi[nan_rows].any()
+        assert np.isposinf(wd[nan_rows]).all()
+        gd, wd = np.delete(gd, nan_rows, axis=0), np.delete(wd, nan_rows, axis=0)
     close(gd, wd, atol=1e-6, rtol=0)
+
+
+def test_knn_k1_on_the_cpu_takes_the_twin(monkeypatch):
+    """A CPU call with k = 1 runs the blocked twin: the kernel's library is
+    never asked for and ``knn.launches`` stays 0."""
+    from dgmesh_torch.ops import cuda_build
+
+    def refuse(name):
+        raise AssertionError(f"the CUDA library {name} was asked for")
+    monkeypatch.setattr(cuda_build, "library", refuse)
+    rng = np.random.default_rng(8)
+    q, refs = t(rng.random((50, 3))), t(rng.random((80, 3)))
+    valid = torch.as_tensor(rng.random(80) < 0.7)
+    d, i = TK.knn(q, refs, 1, ref_valid=valid)
+    wd, wi = TK.knn_ref(q, refs, 1, ref_valid=valid)
+    assert TK.knn.launches == 0 and torch.equal(i, wi) and torch.equal(d, wd)
 
 
 def test_mean_knn_dist2_with_valid_matches_jax():

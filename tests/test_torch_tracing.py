@@ -338,3 +338,24 @@ def test_counts_sum_host_and_device_values(tmp_path):
     assert got == {"x": 12} and calls == [1] and tracing.counts() == {"x": 12}
     tracing.reset()
     assert tracing.counts() == {} and not tracing.active()
+
+
+def test_knn_pairs_counted_while_recording(tmp_path):
+    """``knn.pairs`` adds each call's queries times its valid refs while a
+    profiler records (k = 1, the kernel's calls on the card, and the twin's
+    k = 3 self-search alike), and nothing when none records."""
+    from dgmesh_torch.ops.knn import knn, mean_knn_dist2
+    rng = np.random.default_rng(9)
+    q = torch.as_tensor(rng.random((60, 3)), dtype=torch.float32)
+    refs = torch.as_tensor(rng.random((90, 3)), dtype=torch.float32)
+    valid = torch.as_tensor(rng.random(90) < 0.6)
+
+    def body():
+        knn(q, refs, 1, ref_valid=valid)
+        return mean_knn_dist2(refs, valid, k=3)
+    tracing.reset()
+    off = body()
+    assert tracing.counts() == {}
+    on, _, counts = traced(body, tmp_path)
+    n = int(valid.sum())
+    assert counts == {"knn.pairs": 60 * n + 90 * n} and torch.equal(off, on)
