@@ -40,6 +40,11 @@ Phases; any failure exits non-zero and prints no result:
      3t: kernels 1-4 on the tiles [T/2, T) alone, launched with tile0 =
                 T/2 (a rank's block of tiles): the same bits as those tiles
                 of the whole launch, and each against its twin given tile0;
+     3f: kernels 1-4 against their twins on seeded random rows at each
+                frame of FRAMES (800x800; the Neural Actor capture's
+                1285x940, 81x59 tiles, its last column 5 px wide and its
+                last row 12 px tall) at the Neural Actor YAML's K caps (768
+                and 192), each then timed alone (KERNEL_TIMING_LAUNCHES launches);
      3k: the kNN kernel (csrc/knn1.cu) against its twin (ops/knn.py::
                 knn_ref) on the anchor's inputs in portbench's tail.anchor
                 cell (262,144 queries, ~830k valid of 1,048,576 face
@@ -210,6 +215,7 @@ Phases; any failure exits non-zero and prints no result:
 from __future__ import annotations
 
 import contextlib
+import copy
 import ctypes
 import functools
 import importlib.util
@@ -280,6 +286,8 @@ DEVICE = "cuda"
 KERNELS_ONLY = "--kernels-only" in sys.argv[1:]   # build and check, then stop
 PROFILE = "--profile" in sys.argv[1:]             # profile one training step, then stop
 MULTI_ONLY = "--multi-device-only" in sys.argv[1:]   # phases 1, 2, 3t, 9 and 10, then stop
+FRAMES = ((800, 800), (1285, 940))   # phase 3f: beagle's frame, the Neural Actor capture's
+FRAME_CAPS = (768, 192)              # configs/neural-actor/D2_vlad.yaml's K per 16x16 tile
 IMG = 800             # 800x800 views, 16x16 tiles: T = 2500
 N_GAUSS = 100_000     # live Gaussians in the config's 131,072 slots
 N_VIEWS = 4
@@ -1423,6 +1431,10 @@ def main() -> int:
         if not same:
             failures.append(f"trunk_bwd not deterministic (edge shape {what})")
         del x, g, first, again
+    # 3f. kernels 1-4 at each frame of FRAMES, timed alone
+    t0 = time.perf_counter()
+    frame_gates(torch, cfg, dev, failures)
+    log(f"# phase 3f (frames): {time.perf_counter() - t0:.2f} s")
     # 3k. the kNN kernel on the anchor's inputs and its edge cases, timed
     t0 = time.perf_counter()
     knn_entry = knn_phase(torch, dev, failures)
@@ -3785,6 +3797,53 @@ def six_dof_phase(torch, dev, failures, counters):
         f"{'ok' if not bad else 'FAIL: ' + ', '.join(map(str, bad))}")
     if bad:
         failures.append("6-DoF fused full-width step: " + ", ".join(map(str, bad)))
+
+
+def frame_gates(torch, cfg, dev, failures):
+    """Phase 3f: at each frame of FRAMES, kernels 1-4 against their twins on
+    seeded random rows over the frame's whole tile grid at the K caps of
+    FRAME_CAPS (the tiles past the frame's edge are whole tiles to the
+    kernels, cropped by the untile after them), with phase 3's checks; then
+    each kernel's time alone, kernels 2 and 4 given the forward's
+    residuals as a training step calls them.  Logs one ``# timing/frame``
+    line a frame."""
+    from dgmesh_torch.ops import mesh_raster_kernels as MK
+    from dgmesh_torch.ops import splat_kernels as SK
+    from dgmesh_torch.train.step import StepContext
+    cfg = copy.deepcopy(cfg)
+    cfg.tpu.max_gaussians_per_tile, cfg.tpu.max_faces_per_tile = FRAME_CAPS
+    for W, H in FRAMES:
+        ctx = StepContext(cfg, W, H, device=dev)
+        sc, mc = ctx.splat_cfg, ctx.mr_cfg
+        geo_s = (sc.tiles_x, sc.tile_h, sc.tile_w)
+        geo_m = (mc.tiles_x, mc.tile_h, mc.tile_w)
+        P = sc.tile_h * sc.tile_w
+        edge = (W - sc.tile_w * (sc.tiles_x - 1), H - sc.tile_h * (sc.tiles_y - 1))
+        what = f"{W}x{H} ({sc.tiles_x}x{sc.tiles_y} tiles, edge tiles {edge[0]}x{edge[1]} px)"
+        rng = np.random.default_rng(W * 10_000 + H)
+        errs = {"composite_tiles": [], "composite_bwd": [], "shade_tiles": [], "shade_bwd": []}
+        ca = torch.as_tensor(random_composite_attrs(rng, sc.num_tiles, sc.max_per_tile,
+                                                    sc.tiles_x, sc.tile_w), device=dev)
+        cg, cga = (torch.as_tensor(x, device=dev) for x in cotangents(rng, sc.num_tiles, P))
+        check_composite(torch, SK, ca, geo_s, f"frame {what}: composite_tiles", errs, failures)
+        check_composite_bwd(torch, SK, ca, cg, cga, geo_s, f"frame {what}: composite_bwd", errs,
+                            failures)
+        sa = torch.as_tensor(shade_tie_attrs(rng, mc.num_tiles, mc.max_per_tile, mc.tiles_x,
+                                             mc.tile_w), device=dev)
+        sg, sgs = (torch.as_tensor(x, device=dev) for x in cotangents(rng, mc.num_tiles, P))
+        check_shade(torch, MK, sa, geo_m, mc.sigma, f"frame {what}: shade_tiles", errs, failures)
+        check_shade_bwd(torch, MK, sa, sg, sgs, geo_m + (mc.sigma,), f"frame {what}: shade_bwd",
+                        errs, failures)
+        cres = SK.composite_tiles(ca, *geo_s, residuals=True)[0::2]
+        sres = MK.shade_tiles(sa, *geo_m, mc.sigma, residuals=True)[4:]
+        ms = {"composite_tiles": lambda: SK.composite_tiles(ca, *geo_s, residuals=True),
+              "composite_bwd": lambda: SK.composite_bwd(ca, cg, cga, *geo_s, *cres),
+              "shade_tiles": lambda: MK.shade_tiles(sa, *geo_m, mc.sigma, residuals=True),
+              "shade_bwd": lambda: MK.shade_bwd(sa, sg, sgs, *geo_m, mc.sigma, *sres)}
+        log(f"# timing/frame {what}, K {sc.max_per_tile}/{mc.max_per_tile}: "
+            + ", ".join(f"{k} {time_cuda(torch, fn, KERNEL_TIMING_LAUNCHES):.4f}"
+                        for k, fn in ms.items()) + " ms/launch")
+        del ca, cg, cga, sa, sg, sgs, cres, sres
 
 
 def check_tile0(torch, SK, MK, ca, cg, cga, geo_s, sa, sg, sgs, geo_m, sigma, errs,

@@ -20,14 +20,17 @@ Spans (a root holds every span of its iteration or view):
   ``step.densify``;
 - layers: ``nets.<field>`` (each net call, by its ``NetParams`` field),
   ``splat.preprocess``, ``splat.binning``, ``splat.composite``, ``dpsr``,
-  ``mesh.marching_tets``, ``raster.rasterize``, ``raster.shade``, and the
+  ``mesh.marching_tets``, ``raster.rasterize``, ``raster.shade``,
+  ``loss.image`` (the per-pixel losses of the training step: the splat
+  image's L1 and D-SSIM, the mesh's mask and image losses), and the
   kernels' backward on the autograd engine's thread:
   ``splat.composite_bwd``, ``raster.shade_bwd``, ``nets.trunk_bwd``.
 
 Counters: ``nets.rows.<field>``, the rows each net call runs, and
 ``nets.live_rows.<field>``, the live Gaussians or valid vertices among them;
 ``knn.pairs``, the (query, valid ref) pairs each ``ops/knn.py::knn`` call
-searches.
+searches; ``image.pixels`` and ``splat.tiles``, the frame's W × H and its
+tile grid's size, each training step.
 """
 
 from __future__ import annotations

@@ -297,6 +297,9 @@ def loss_and_aux(ctx: StepContext, gp: G.GaussianParams, nets: NetParams, screen
 
     mode = ctx.mlp_mode
     dm = ctx.device_mesh
+    sc = ctx.splat_cfg
+    tracing.count("image.pixels", sc.width * sc.height)
+    tracing.count("splat.tiles", sc.num_tiles)
     d_xyz, d_rot, d_scale, d_normal = _deform_all(nets, gp.xyz, batch.fid, flags.use_normal,
                                                   flags.warm, noise1, mode, gs.alive)
 
@@ -357,9 +360,10 @@ def loss_and_aux(ctx: StepContext, gp: G.GaussianParams, nets: NetParams, screen
         # straight-through mask: the hard coverage value, the soft gradient
         mask = mout["st_mask"]
         mesh_image = mout["rgb"].permute(2, 0, 1)
-        losses["mask_loss"] = L.l1_loss(mask, batch.gt_mask) * 100.0 * o.mask_loss_weight
-        losses["mesh_img_loss"] = (L.image_loss(mesh_image, batch.gt_image, o.lambda_dssim)
-                                   * o.mesh_img_loss_weight)
+        with tracing.span("loss.image"):
+            losses["mask_loss"] = L.l1_loss(mask, batch.gt_mask) * 100.0 * o.mask_loss_weight
+            losses["mesh_img_loss"] = (L.image_loss(mesh_image, batch.gt_image, o.lambda_dssim)
+                                       * o.mesh_img_loss_weight)
         t_iter = step_f / o.iterations
         losses["laplacian_loss"] = (
             laplacian_uniform_tri(tri_w, mesh.verts, mesh.faces, mesh.face_valid)
@@ -381,7 +385,8 @@ def loss_and_aux(ctx: StepContext, gp: G.GaussianParams, nets: NetParams, screen
         losses["anchor_loss"] = (a11 + anchor_info.loss_n_1) * 0.1
 
     # --- GS image loss (train.py:306-312)
-    losses["img_loss"] = L.image_loss(image, batch.gt_image, o.lambda_dssim)
+    with tracing.span("loss.image"):
+        losses["img_loss"] = L.image_loss(image, batch.gt_image, o.lambda_dssim)
     aux["img_psnr"] = L.psnr(image.detach(), batch.gt_image)
 
     total = image.new_zeros(())

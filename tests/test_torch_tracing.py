@@ -38,7 +38,8 @@ GAUSSIAN_NETS = ("deform", "deform_normal", "deform_back", "deform_back_normal")
 STEP_SPANS = {"trainer.iteration", "step.forward", "step.backward", "step.sanitize",
               "step.optimizer", "splat.preprocess", "splat.binning", "splat.composite",
               "splat.composite_bwd", "dpsr", "mesh.marching_tets", "raster.rasterize",
-              "raster.shade", "raster.shade_bwd", "trainer.log"} | {f"nets.{n}" for n in NETS}
+              "raster.shade", "raster.shade_bwd", "loss.image", "trainer.log"} | {
+                  f"nets.{n}" for n in NETS}
 RENDER_SPANS = {"render.frame", "nets.deform", "nets.deform_normal", "nets.deform_back",
                 "nets.appearance", "splat.preprocess", "splat.binning", "splat.composite",
                 "dpsr", "mesh.marching_tets", "raster.rasterize", "raster.shade"}
@@ -131,7 +132,8 @@ def traced(fn, tmp_path):
     path = tmp_path / "trace.json"
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text())["traceEvents"]
-    names = ("trainer.", "render.", "step.", "anchor.", "nets.", "splat.", "mesh.", "raster.")
+    names = ("trainer.", "render.", "step.", "anchor.", "nets.", "splat.", "mesh.", "raster.",
+             "loss.")
     spans = [(e["name"], e["ts"], e["ts"] + e["dur"], e["tid"]) for e in events
              if e.get("ph") == "X" and e.get("cat") in ("user_annotation", "cpu_op")
              and (e["name"].startswith(names) or e["name"] == "dpsr")]
@@ -193,8 +195,11 @@ def test_iteration_emits_its_spans_nested(mesh_runs):
     spans = mesh_runs.spans_it
     assert {n for n, *_ in spans} == STEP_SPANS
     assert sum(n == "trainer.iteration" for n, *_ in spans) == 1
+    # the splat image's losses and the mesh's
+    assert sum(n == "loss.image" for n, *_ in spans) == 2
     for n in STEP_SPANS:
-        if n.startswith(("splat.", "nets.", "raster.", "dpsr", "mesh.")) and "_bwd" not in n:
+        if (n.startswith(("splat.", "nets.", "raster.", "dpsr", "mesh.", "loss."))
+                and "_bwd" not in n):
             assert inside(spans, n, "step.forward"), n
     for n in ("splat.composite_bwd", "raster.shade_bwd"):
         assert inside(spans, n, "step.backward"), n
@@ -212,7 +217,8 @@ def test_render_emits_its_spans_nested(mesh_runs):
 
 def test_iteration_counts_by_hand(mesh_runs):
     """Each Gaussian net call runs every slot and counts the live ones; the
-    vertex calls (deform_back, appearance) run the valid vertices only."""
+    vertex calls (deform_back, appearance) run the valid vertices only; the
+    step counts its frame's pixels and 16x16 tiles."""
     c, v = mesh_runs.counts_it, int(mesh_runs.tr_on.metrics_history[-1]["mesh_n_verts"])
     assert v > 0
     rows = {n: SLOTS for n in GAUSSIAN_NETS}
@@ -222,7 +228,8 @@ def test_iteration_counts_by_hand(mesh_runs):
     live["deform_back"] += v
     live["appearance"] = v
     assert c == {**{f"nets.rows.{n}": k for n, k in rows.items()},
-                 **{f"nets.live_rows.{n}": k for n, k in live.items()}}
+                 **{f"nets.live_rows.{n}": k for n, k in live.items()},
+                 "image.pixels": IMG * IMG, "splat.tiles": (IMG // 16) ** 2}
     assert mesh_runs.alive == LIVE
 
 
